@@ -1,0 +1,44 @@
+"""Base types for the PyTorch/CUDA port (parity: mxnet_tpu/base.py,
+python/mxnet/base.py)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "numeric_types", "torch_dtype", "numpy_dtype"]
+
+
+class MXNetError(RuntimeError):
+    """Error raised by the framework (parity with mxnet.base.MXNetError)."""
+
+
+numeric_types = (float, int, np.generic)
+
+_NP_TO_TORCH = {
+    np.dtype("float32"): torch.float32,
+    np.dtype("float64"): torch.float64,
+    np.dtype("float16"): torch.float16,
+    np.dtype("uint8"): torch.uint8,
+    np.dtype("int8"): torch.int8,
+    np.dtype("int32"): torch.int32,
+    np.dtype("int64"): torch.int64,
+    np.dtype("bool"): torch.bool,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def torch_dtype(dtype):
+    """numpy dtype / dtype name / torch dtype -> torch dtype (None -> f32)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _NP_TO_TORCH[np.dtype(dtype)]
+    except (KeyError, TypeError) as e:
+        raise MXNetError("unsupported dtype %r" % (dtype,)) from e
+
+
+def numpy_dtype(dtype):
+    """torch dtype -> numpy scalar type (what NDArray.dtype reports)."""
+    return _TORCH_TO_NP[dtype].type

@@ -1,0 +1,7 @@
+"""Gluon: the imperative NN API (parity: mxnet_tpu/gluon/)."""
+from .parameter import Parameter, ParameterDict  # noqa: F401
+from .block import Block, HybridBlock  # noqa: F401
+from .trainer import Trainer  # noqa: F401
+from . import nn  # noqa: F401
+from . import loss  # noqa: F401
+from . import model_zoo  # noqa: F401

@@ -46,6 +46,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 `-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 # modules whose tests need the multi-device CPU mesh (sharding/collectives
 # over 8 virtual devices) or CPU-pinned subprocesses; meaningless or
