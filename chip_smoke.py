@@ -6,23 +6,41 @@ Needs one NVIDIA GPU (Hopper, for the sm_90a kernels) and nvcc; exits
 non-zero, printing no result, without them.  Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles the hand-written CUDA kernels from the checkout;
-3. kernels: each kernel against its plain PyTorch version on the card
-   (bit-exact) at 1000, 16384, 16384*7+3 elements and at the element
-   count of resnet50_v1's trainable parameters, with CUDA-event times
-   beside the HBM bound;
+2. build: compiles the hand-written CUDA kernels from the checkout, one
+   nvcc per source, with each kernel's registers, spills and static
+   shared memory from ptxas;
+3. kernels: each compression kernel against its plain PyTorch version on
+   the card (bit-exact) at 1000, 16384, 16384*7+3 elements and at the
+   element count of resnet50_v1's trainable parameters, with CUDA-event
+   times beside the HBM bound;
 4. slice: resnet50_v1 (full width, f32, TF32 off), batch 32 of 3x224x224
    synthetic data from a seed, 5 steps of gluon Trainer + KVStore('device')
    + 2-bit compression (t 0.5) with update_on_kvstore: loss finite and
    falling, each kernel launched 193 x 5 times, both kernels bit-exact
    with their plain versions on the real step-1 gradients, and a small
    ResNet's logits on the card agreeing with the port on the CPU;
-5. a {"kernels": [...]} line;
-6. last line: {"ok": true, "device": {...}}.
+5. flash: the flash-attention kernel against its plain version (TF32 off,
+   f32 matmuls "highest") at the LM config's width (d_model 512, 8 heads:
+   D 64, tools/bench_lm.py) at (32, 512, 8, 64) causal and not and at the
+   long context (1, 16384, 8, 64), f32 and bf16, and at D 16 and 128;
+   f32 within 5e-5 (o) and 1e-4 (lse); bf16 o within 3e-2 of the f32
+   plain version and within 2^-8 |o| + 5e-5 of it elementwise, bf16 lse
+   within 1e-4; dq/dk/dv through the autograd Function within 5e-4 of
+   plain autograd;
+6. sp: the sequence-parallel path on a one-card mesh make_mesh({"sp": 1}):
+   ulysses_attention_sharded(use_flash=True) and shard_map(ring_attention,
+   use_flash=True) at the long context in f32, each within 5e-5 of
+   local_attention and each launching the kernel exactly once;
+7. flash times: kernel, plain version and scaled_dot_product_attention
+   (timed only, as the yardstick) beside the bound;
+8. a {"kernels": [...]} line;
+9. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -30,14 +48,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch import kernels, parallel
 from mxnet_tpu_torch.contrib import compression as comp
 from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.ops import attention as attn
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 T = 0.5
 BATCH = 32
 IMAGE = 224
@@ -57,6 +79,19 @@ REPLACES = {"quantize_2bit": "mxnet_tpu/contrib/compression.py:50",
 F32_BYTES_PER_ELT = {"quantize_2bit": 12, "dequantize_2bit": 4}
 CODE_BYTES_PER_PADDED_ELT = 0.25
 OPS_PER_ELT = {"quantize_2bit": 9, "dequantize_2bit": 5}
+FLASH_SOURCE = "mxnet_tpu_torch/kernels/flash_attention.cu"
+FLASH_REPLACES = "mxnet_tpu/ops/attention_pallas.py:30"
+# the LM config of tools/bench_lm.py on an accelerator: d_model 512 over
+# 8 heads (D 64), batch 32, seq 512; and the long context the
+# sequence-parallel engines exist for
+LM_SHAPE = (32, 512, 8, 64)
+LONG_SHAPE = (1, 16384, 8, 64)
+# the JAX suite's bounds (tests/test_flash_attention.py) at unit-normal
+# inputs; lse 1e-4 because at T 16384 it is ~10 and f32 spacing there
+# is 1e-6; bf16 o also within half a bf16 step of the f32 plain version
+# (BF16_O_REL |o| + F32_O_TOL elementwise), bf16 lse within F32_LSE_TOL
+F32_O_TOL, F32_LSE_TOL, BF16_TOL, GRAD_TOL = 5e-5, 1e-4, 3e-2, 5e-4
+BF16_O_REL = 2.0 ** -8
 
 
 def check(cond, msg):
@@ -132,13 +167,30 @@ def phase_device():
     return card
 
 
+def ptxas_summary(report):
+    """One 'kernel: regs, spills, static smem' entry per compiled kernel
+    of an nvcc -Xptxas -v report, under its mangled name."""
+    out = []
+    for block in report.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\w+)'", block).group(1)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append("%s %s regs, spill %s/%s B, smem %s B"
+                   % (name, regs.group(1) if regs else "?",
+                      *(spill.groups() if spill else ("?", "?")),
+                      smem.group(1) if smem else "0"))
+    return "; ".join(out)
+
+
 def phase_build():
     seconds, reports = kernels.build()
-    ptxas = " ".join(line.strip() for out in reports.values()
-                     for line in out.splitlines() if "registers" in line)
-    print("build: %.2f s (nvcc, sm_90a) | %s"
-          % (seconds, ptxas or "reused from mxnet_tpu_torch/_build"),
-          flush=True)
+    parts = ["%s: %s" % (name, ptxas_summary(out) if out
+                         else "reused from mxnet_tpu_torch/_build")
+             for name, out in reports.items()]
+    print("build: %.2f s (nvcc, sm_90a, one process per source) | %s"
+          % (seconds, " | ".join(parts)), flush=True)
 
 
 def make_inputs(n, gen):
@@ -239,9 +291,9 @@ def phase_slice(net, trainable, card):
     # ResNet (tests/test_torch_resnet_train.py, smoke-settings tests)
     check(losses[0] > losses[1] > losses[2],
           "loss did not fall over steps 1-3: %s" % losses)
-    for name, n in launches.items():
-        check(n == 193 * STEPS, "%s launched %d times, expected %d"
-              % (name, n, 193 * STEPS))
+    for name in ("quantize_2bit", "dequantize_2bit"):
+        check(launches[name] == 193 * STEPS, "%s launched %d times, "
+              "expected %d" % (name, launches[name], 193 * STEPS))
     # the kernels against their plain versions on the real step-1
     # gradients, one padded key at a time as the kvstore pushes them
     worst = 0.0
@@ -310,6 +362,166 @@ def check_small_net_against_cpu():
     return err
 
 
+def flash_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(3))
+
+
+def flash_plain(q, k, v, causal):
+    """The plain version on (B, T, H, D): (o, lse) in f32."""
+    o, lse = attn._ref_attention_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), q.shape[-1] ** -0.5,
+                                     causal)
+    return o.transpose(1, 2), lse.transpose(1, 2)
+
+
+def flash_bound_ms(shape, dtype, causal):
+    """Least time of the forward: 4*B*H*D flops per live (q, k) pair over
+    the peak of its type, or q, k, v read and o, lse written once over
+    HBM, whichever is larger."""
+    B, T, H, D = shape
+    pairs = T * (T + 1) // 2 if causal else T * T
+    t_ops = 4 * B * H * D * pairs / (F32_OPS_PER_S if dtype == torch.float32
+                                     else BF16_OPS_PER_S)
+    elt = torch.finfo(dtype).bits // 8
+    t_bytes = (4 * B * T * H * D * elt + 4 * B * T * H) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_flash(shape, dtype, causal, seed, card):
+    """Kernel vs plain version on one input; returns (max |do|, max |dlse|)."""
+    q, k, v = flash_inputs(shape, dtype, seed)
+    o, lse = kernels.flash_attention_fwd(q, k, v, shape[-1] ** -0.5, causal)
+    ro, rlse = flash_plain(*(t.float() for t in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    diff = (o.float() - ro).abs()
+    err_o = float(diff.max())
+    err_lse = float((lse - rlse).abs().max())
+    # in bf16 both sides compute in f32 on the same bf16 values, so o
+    # differs by its rounding to bf16 (at most half a step, 2^-8 |o|) on
+    # top of the f32 difference; the reading is the worst share of that
+    rel = float((diff / (BF16_O_REL * ro.abs() + F32_O_TOL)).max())
+    del ro, rlse, diff
+    check(bool(torch.isfinite(o).all()), "non-finite flash output at %s"
+          % (shape,))
+    name = "f32" if dtype == torch.float32 else "bf16"
+    check(err_lse <= F32_LSE_TOL, "flash %s %s causal=%s: |dlse| %g"
+          % (name, shape, causal, err_lse))
+    if dtype == torch.float32:
+        check(err_o <= F32_O_TOL, "flash f32 %s causal=%s: |do| %g"
+              % (shape, causal, err_o))
+        reading = ("max|do| %.3g (limit %g), max|dlse| %.3g (limit %g)"
+                   % (err_o, F32_O_TOL, err_lse, F32_LSE_TOL))
+    else:
+        check(err_o <= BF16_TOL and rel <= 1.0,
+              "flash bf16 %s causal=%s: |do| %g, |do|/(2^-8|o|+%g) %g vs "
+              "the f32 plain version" % (shape, causal, err_o, F32_O_TOL,
+                                         rel))
+        reading = ("max|do| vs f32 plain %.3g (limit %g), max|do|/(2^-8|o|"
+                   "+%g) %.3g (limit 1), max|dlse| %.3g (limit %g)"
+                   % (err_o, BF16_TOL, F32_O_TOL, rel, err_lse,
+                      F32_LSE_TOL))
+    print("flash: %s %s causal=%s | %s | %s"
+          % (name, shape, causal, reading, card), flush=True)
+    return err_o, err_lse
+
+
+def phase_flash(card):
+    torch.set_float32_matmul_precision("highest")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(LM_SHAPE, c) for c in (False, True)] + [(LONG_SHAPE, False)]
+    cases += [((2, 1024, 4, d), c) for d in (16, 128) for c in (False, True)]
+    for i, (shape, causal) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            err_o, err_lse = check_flash(shape, dtype, causal, i, card)
+            worst[dtype] = max(worst[dtype], err_o, err_lse)
+    # gradient through the autograd Function, loss on both o and lse
+    q, k, v = (t.requires_grad_() for t in flash_inputs(LM_SHAPE,
+                                                        torch.float32, 99))
+    w_o = torch.randn(LM_SHAPE, device="cuda")
+    w_l = torch.randn(LM_SHAPE[:3], device="cuda")
+    grads = []
+    for fn in (lambda: attn.flash_attention_with_lse(q, k, v, causal=True),
+               lambda: flash_plain(q, k, v, True)):
+        o, lse = fn()
+        grads.append(torch.autograd.grad((o * w_o).sum() + (lse * w_l).sum(),
+                                         (q, k, v)))
+    err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    check(err <= GRAD_TOL, "flash gradients differ by %g" % err)
+    print("flash grad: %s causal f32, dq/dk/dv via the Function vs plain "
+          "autograd | max|dg| %.3g (limit %g) | %s"
+          % (LM_SHAPE, err, GRAD_TOL, card), flush=True)
+    return worst
+
+
+def phase_sp(card):
+    """The sequence-parallel path on a one-card mesh at the long context:
+    returns the launch counts of this run and the worst |difference| from
+    local_attention."""
+    mesh = parallel.make_mesh({"sp": 1})
+    q, k, v = flash_inputs(LONG_SHAPE, torch.float32, 7)
+    ref = parallel.local_attention(q, k, v)
+    spec = parallel.P(None, "sp", None, None)
+    ring = parallel.shard_map(
+        functools.partial(parallel.ring_attention, axis_name="sp",
+                          use_flash=True),
+        mesh, (spec, spec, spec), spec)
+    engines = (("ulysses", lambda: parallel.ulysses_attention_sharded(
+                    mesh, q, k, v, use_flash=True)),
+               ("ring", lambda: ring(q, k, v)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs, per_call = {}, {}
+    for name, fn in engines:
+        before = kernels.launch_counts["flash_attention"]
+        outs[name] = fn()
+        per_call[name] = kernels.launch_counts["flash_attention"] - before
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    errs = {}
+    for name, _ in engines:
+        check(per_call[name] == 1, "%s launched the kernel %d times"
+              % (name, per_call[name]))
+        out = outs[name]
+        check(out.shape == LONG_SHAPE and out.dtype == torch.float32,
+              "%s output %s %s" % (name, tuple(out.shape), out.dtype))
+        errs[name] = float((out - ref).abs().max())
+        check(errs[name] <= F32_O_TOL, "%s differs from local_attention by "
+              "%g" % (name, errs[name]))
+    del ref, outs
+    times = {name: time_ms(fn) for name, fn in engines}
+    dist.destroy_process_group()
+    print("sp: make_mesh({'sp': 1}) %s f32, use_flash=True | %s | launches "
+          "%s | %s"
+          % (LONG_SHAPE, "; ".join(
+              "%s max|do| vs local_attention %.3g (limit %g), %.3f ms"
+              % (n, errs[n], F32_O_TOL, times[n]) for n, _ in engines),
+             launches, card), flush=True)
+    return launches, max(errs.values()), times
+
+
+def time_flash(shape, dtype, causal, card):
+    q, k, v = flash_inputs(shape, dtype, 5)
+    scale = shape[-1] ** -0.5
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = time_ms(lambda: kernels.flash_attention_fwd(q, k, v, scale, causal))
+    plain_ms = time_ms(lambda: flash_plain(q, k, v, causal))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale))
+    bms, by = flash_bound_ms(shape, dtype, causal)
+    name = "f32" if dtype == torch.float32 else "bf16"
+    print("flash time: %s %s causal=%s | kernel %.4f ms, plain %.4f ms, "
+          "sdpa %.4f ms, bound %.4f ms (%s), kernel at %.1f%% of the bound "
+          "| %s" % (name, shape, causal, ms, plain_ms, library_ms, bms, by,
+                    100 * bms / ms, card), flush=True)
+    return {"shape": list(shape), "dtype": name, "causal": causal, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -321,6 +533,15 @@ def main():
     print("reference: small ResNet logits card vs CPU max |diff| %.3g"
           % small_err, flush=True)
     timing = time_step_set(step_inputs)
+    n_calls = len(step_inputs)
+    del net, trainable, step_inputs
+    torch.cuda.empty_cache()
+    flash_worst = phase_flash(card)
+    sp_launches, sp_err, sp_times = phase_sp(card)
+    flash_times = [time_flash(shape, dtype, causal, card)
+                   for shape, causal in ((LONG_SHAPE, False),
+                                         (LM_SHAPE, False), (LM_SHAPE, True))
+                   for dtype in (torch.float32, torch.bfloat16)]
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]
@@ -330,9 +551,21 @@ def main():
             "max_abs_err": max(worst3, worst4), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "calls": len(step_inputs), "elements": t["elements"],
+            "calls": n_calls, "elements": t["elements"],
             "padded_elements": t["padded_elements"],
             "card": card}, **flat[name]))
+    main_path = flash_times[0]  # the sp path's shape: long context, f32
+    rows.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": sp_launches["flash_attention"],
+        "max_abs_err": max(flash_worst[torch.float32], sp_err),
+        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+        "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+        "library_ms": main_path["library_ms"], "shape": main_path["shape"],
+        "dtype": "float32", "causal": False,
+        "max_abs_err_bf16": flash_worst[torch.bfloat16],
+        "engine_ms": sp_times, "times": flash_times[1:], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

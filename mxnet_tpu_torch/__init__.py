@@ -8,7 +8,10 @@ package imports neither jax nor mxnet_tpu.
 
 Ported so far: the gluon training path ``Trainer`` -> ``KVStore`` ->
 ``GradientCompression`` over the ResNet v1 model zoo, with the two 2-bit
-compression kernels written by hand in CUDA (``kernels/``).
+compression kernels written by hand in CUDA (``kernels/``); flash
+attention (``ops.attention``, its forward a CUDA kernel) and the ring and
+Ulysses sequence-parallel engines over a ``torch.distributed`` device
+mesh (``parallel``).
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -25,3 +28,4 @@ from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import gluon  # noqa: F401
 from . import convert  # noqa: F401
+from . import parallel  # noqa: F401

@@ -22,15 +22,19 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "quantize_2bit", "dequantize_2bit", "launch_counts",
-           "reset_launch_counts", "SOURCES"]
+__all__ = ["build", "quantize_2bit", "dequantize_2bit", "flash_attention_fwd",
+           "launch_counts", "reset_launch_counts", "SOURCES",
+           "FLASH_MAX_HEAD_DIM"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu"}
+SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
+           "flash_attention": _HERE / "flash_attention.cu"}
 _BUILD_DIR = _HERE.parent / "_build"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLASH_MAX_HEAD_DIM = 256
 
-launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0}
+launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0,
+                 "flash_attention": 0}
 
 _libs = {}
 
@@ -56,12 +60,18 @@ def _lib_path(name):
     return _BUILD_DIR / ("lib%s_%s.so" % (name, digest))
 
 
-def _bind(lib):
-    vp, ll, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.mxtt_quantize_2bit.argtypes = [vp, vp, vp, vp, ll, f32, vp]
-    lib.mxtt_quantize_2bit.restype = ctypes.c_int
-    lib.mxtt_dequantize_2bit.argtypes = [vp, vp, ll, f32, vp]
-    lib.mxtt_dequantize_2bit.restype = ctypes.c_int
+def _bind(name, lib):
+    vp, ll, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                        ctypes.c_int)
+    if name == "compression_2bit":
+        lib.mxtt_quantize_2bit.argtypes = [vp, vp, vp, vp, ll, f32, vp]
+        lib.mxtt_quantize_2bit.restype = i32
+        lib.mxtt_dequantize_2bit.argtypes = [vp, vp, ll, f32, vp]
+        lib.mxtt_dequantize_2bit.restype = i32
+    else:
+        lib.mxtt_flash_attention_fwd.argtypes = (
+            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, vp])
+        lib.mxtt_flash_attention_fwd.restype = i32
     lib.mxtt_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,20 +80,22 @@ def _bind(lib):
 def _load(name):
     lib = _libs.get(name)
     if lib is None:
-        build()
+        build((name,))
         lib = _libs[name]
     return lib
 
 
-def build():
-    """Compile every kernel source not built yet (one ``nvcc`` per source,
-    all started together, each into a temporary file renamed into place)
-    and load them all.  Returns ``(seconds, {name: ptxas report})``; a
-    source reused from ``_build/`` reports ``""``."""
+def build(names=None):
+    """Compile the named kernel sources (default: all of ``SOURCES``) not
+    built yet (one ``nvcc`` per source, all started together, each into a
+    temporary file renamed into place) and load them.  Returns
+    ``(seconds, {name: ptxas report})``; a source reused from ``_build/``
+    reports ``""``."""
+    names = tuple(SOURCES) if names is None else tuple(names)
     t0 = time.perf_counter()
     running = {}
-    for name, src in SOURCES.items():
-        lib_path = _lib_path(name)
+    for name in names:
+        src, lib_path = SOURCES[name], _lib_path(name)
         if name in _libs or lib_path.exists():
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -93,7 +105,7 @@ def build():
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True), tmp, lib_path)
-    reports = {name: "" for name in SOURCES}
+    reports = {name: "" for name in names}
     for name, (proc, tmp, lib_path) in running.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -101,9 +113,9 @@ def build():
                                % (SOURCES[name], out))
         os.replace(tmp, lib_path)
         reports[name] = out
-    for name in SOURCES:
+    for name in names:
         if name not in _libs:
-            _libs[name] = _bind(ctypes.CDLL(str(_lib_path(name))))
+            _libs[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
     return time.perf_counter() - t0, reports
 
 
@@ -166,3 +178,51 @@ def dequantize_2bit(codes, threshold):
     _raise_on(lib, err, "dequantize_2bit")
     launch_counts["dequantize_2bit"] += 1
     return out
+
+
+def flash_attention_fwd(q, k, v, scale, causal):
+    """Launch the flash-attention forward on (B, T, H, D) ``q``, ``k``,
+    ``v`` of one type (f32 or bf16), read through their strides (the head
+    dim must have stride 1).  Returns (o (B, Tq, H, D) in that type, lse
+    (B, Tq, H) f32), both contiguous."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
+        raise ValueError("flash_attention_fwd takes (B, T, H, D) q, k, v with "
+                         "matching B, H, D and k, v of one shape; got %s, %s, "
+                         "%s" % (tuple(q.shape), tuple(k.shape),
+                                 tuple(v.shape)))
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if not 1 <= D <= FLASH_MAX_HEAD_DIM:
+        raise ValueError("flash_attention_fwd: head dim %d is outside the "
+                         "kernel's range 1..%d" % (D, FLASH_MAX_HEAD_DIM))
+    if min(B, Tq, Tk, H) < 1:
+        raise ValueError("flash_attention_fwd: empty input %s, %s"
+                         % (tuple(q.shape), tuple(k.shape)))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError("%s must be a CUDA tensor" % name)
+        if t.device != q.device:
+            raise ValueError("q, k, v must be on one device")
+        if t.dtype not in (torch.float32, torch.bfloat16) or \
+                t.dtype != q.dtype:
+            raise TypeError("q, k, v must all be float32 or all bfloat16; "
+                            "got %s, %s, %s" % (q.dtype, k.dtype, v.dtype))
+        if t.stride(3) != 1 or min(t.stride()) < 0:
+            raise ValueError("%s: the head dim must have stride 1 and no "
+                             "stride may be negative; strides %s"
+                             % (name, t.stride()))
+    lib = _load("flash_attention")
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1),
+                                              t.stride(2))]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mxtt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, H, Tq, Tk, D, *strides, float(scale),
+            int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+    _raise_on(lib, err, "flash_attention")
+    launch_counts["flash_attention"] += 1
+    return o, lse

@@ -1,6 +1,6 @@
-"""The port stands alone: importing mxnet_tpu_torch and building a full
-resnet50_v1 on the CPU loads neither jax nor mxnet_tpu, and chip_smoke.py
-imports neither.  The import check runs in a subprocess because this
+"""The port stands alone: importing mxnet_tpu_torch (with its parallel
+engines and flash-attention op) and building a full resnet50_v1 on the
+CPU loads neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -14,6 +14,8 @@ _PROBE = r"""
 import sys
 import numpy as np
 import mxnet_tpu_torch as mx
+import mxnet_tpu_torch.parallel
+import mxnet_tpu_torch.ops.attention
 from mxnet_tpu_torch.gluon.model_zoo import vision
 net = vision.resnet50_v1(classes=1000)
 net.initialize(mx.init.Xavier(), ctx=mx.cpu())

@@ -3,16 +3,24 @@ machine with a GPU (and without jax) it runs as
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-where the `cuda`-marked tests build the kernels and hold them, bit for
-bit, against their plain PyTorch versions.  Here on the CPU those skip,
+where the `cuda`-marked tests build the kernels and hold them against
+their plain PyTorch versions (the compression kernels bit for bit, flash
+attention within the JAX suite's bounds).  Without a card those skip,
 and the tests of the wrappers' CPU-side behaviour run.
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.contrib import compression as comp
+from mxnet_tpu_torch.ops import attention as attn
 
 T = 0.5
 
@@ -37,7 +45,8 @@ def test_cpu_path_launches_no_kernel():
     codes, _ = comp.quantize_2bit(grad, res, T)
     comp.dequantize_2bit(codes, 1000, T)
     assert kernels.launch_counts == {"quantize_2bit": 0,
-                                     "dequantize_2bit": 0}
+                                     "dequantize_2bit": 0,
+                                     "flash_attention": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -93,3 +102,153 @@ def test_cuda_kernels_reject_bad_inputs():
     with pytest.raises(ValueError):
         kernels.quantize_2bit(torch.zeros(128, 256, device="cuda")[:, ::2],
                               g, T)
+
+
+def test_flash_wrapper_rejects_cpu_tensors_and_wide_heads():
+    """The flash wrapper refuses CPU tensors (no fallback) and head dims
+    past the kernel's limit, naming the limit."""
+    x = torch.zeros(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flash_attention_fwd(x, x, x, 0.125, False)
+    wide = torch.zeros(1, 64, 2, kernels.FLASH_MAX_HEAD_DIM + 1)
+    with pytest.raises(ValueError, match=str(kernels.FLASH_MAX_HEAD_DIM)):
+        kernels.flash_attention_fwd(wide, wide, wide, 0.125, False)
+
+
+# (B, Tq, Tk, H, D, causal): the JAX suite's shapes, every head-dim
+# variant of the kernel, and ragged lengths that are not multiples of its
+# 64-row tiles
+FLASH_CASES = [(2, 256, 256, 2, 64, False), (2, 256, 256, 2, 64, True),
+               (1, 128, 128, 1, 8, True), (2, 64, 64, 3, 16, False),
+               (1, 96, 96, 2, 32, True), (1, 256, 256, 2, 128, True),
+               (1, 128, 128, 1, 256, False), (2, 100, 77, 2, 48, True),
+               (1, 77, 130, 2, 64, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_matches_plain_version(case, dtype):
+    """Kernel vs plain version on the card, q read through a strided view
+    of a (B, Tq, H, 2D) buffer: f32 within 5e-5 (o) and 1e-4 (lse); bf16
+    o within 3e-2 of the plain version on the f32 values and within half
+    a bf16 step of it (2^-8 |o| + 5e-5 elementwise: both sides compute in
+    f32, so only the final rounding differs), bf16 lse within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Tq, Tk, H, D, causal = case
+    rng = np.random.RandomState(sum(case))
+    dt = getattr(torch, dtype)
+    wide = torch.tensor(rng.randn(B, Tq, H, 2 * D).astype(np.float32))
+    q = wide.to("cuda", dt)[..., :D]
+    k, v = (torch.tensor(rng.randn(B, Tk, H, D).astype(np.float32)
+                         ).to("cuda", dt) for _ in range(2))
+    before = kernels.launch_counts["flash_attention"]
+    o, lse = kernels.flash_attention_fwd(q, k, v, D ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert o.dtype == dt and o.shape == (B, Tq, H, D)
+    ro, rlse = attn._ref_attention_lse(*(t.float().transpose(1, 2)
+                                         for t in (q, k, v)), D ** -0.5,
+                                       causal)
+    ro = ro.transpose(1, 2)
+    diff = (o.float() - ro).abs()
+    err_o = diff.max().item()
+    err_lse = (lse - rlse.transpose(1, 2)).abs().max().item()
+    assert err_lse <= 1e-4, err_lse
+    if dtype == "float32":
+        assert err_o <= 5e-5, err_o
+    else:
+        rel = (diff / (2.0 ** -8 * ro.abs() + 5e-5)).max().item()
+        assert err_o <= 3e-2 and rel <= 1.0, (err_o, rel)
+
+
+_NCCL_WORKER = r"""
+import datetime, functools, json, sys
+import torch
+import torch.distributed as dist
+
+rank, world, init_file = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method="file://" + init_file,
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=120))
+from mxnet_tpu_torch import kernels, parallel as par
+
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh = par.make_mesh({"sp": world})
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)  # the same inputs on every rank
+shape = (2, 1024 * world, 8, 64)
+q, k, v, w = (torch.randn(shape, generator=gen, device="cuda")
+              for _ in range(4))
+spec = par.P(None, "sp", None, None)
+ring = par.shard_map(functools.partial(par.ring_attention, axis_name="sp",
+                                       use_flash=True), mesh, (spec,) * 3,
+                     spec)
+
+
+def ulysses(q, k, v):
+    return par.ulysses_attention_sharded(mesh, q, k, v, use_flash=True)
+
+
+kernels.reset_launch_counts()
+outs = {"ring_flash": ring(q, k, v), "ulysses_flash": ulysses(q, k, v)}
+torch.cuda.synchronize()
+# one launch per ring step, one for Ulysses
+assert kernels.launch_counts["flash_attention"] == world + 1, \
+    kernels.launch_counts
+outs["ring_causal"] = par.ring_attention_sharded(mesh, q, k, v, causal=True)
+outs["ulysses_causal"] = par.ulysses_attention_sharded(mesh, q, k, v,
+                                                       causal=True)
+refs = {False: par.local_attention(q, k, v),
+        True: par.local_attention(q, k, v, causal=True)}
+errs = {n: (o - refs["causal" in n]).abs().max().item()
+        for n, o in outs.items()}
+leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+(par.local_attention(*leaves) * w).sum().backward()
+for name, fn in (("ring_flash", ring), ("ulysses_flash", ulysses)):
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fn(*mine) * w).sum().backward()
+    errs[name + "_grad"] = max((a.grad - b.grad).abs().max().item()
+                               for a, b in zip(mine, leaves))
+print("RANK_OK", json.dumps(errs), flush=True)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sequence_parallel_engines_across_cards(tmp_path):
+    """Ring and Ulysses over NCCL on up to four cards: flash and causal
+    outputs against local attention on the whole input (5e-5 flash, 1e-4
+    ring / 2e-5 Ulysses dense, the JAX suite's bounds), and dq/dk/dv of
+    both flash engines against plain autograd within 5e-4."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs (NCCL)")
+    world = min(torch.cuda.device_count(), 4)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NCCL_WORKER, str(r), str(world),
+         str(tmp_path / "pg_init")], cwd=str(root), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    limits = {"ring_flash": 5e-5, "ulysses_flash": 5e-5, "ring_causal": 1e-4,
+              "ulysses_causal": 2e-5, "ring_flash_grad": 5e-4,
+              "ulysses_flash_grad": 5e-4}
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and "RANK_OK" in out, err[-3000:]
+        errs = json.loads(out.split("RANK_OK", 1)[1].splitlines()[0])
+        for name, limit in limits.items():
+            assert errs[name] <= limit, (name, errs[name])
