@@ -19,20 +19,25 @@ non-zero, printing no result, without them.  Phases, one line each:
    falling, each kernel launched 193 x 5 times, both kernels bit-exact
    with their plain versions on the real step-1 gradients, and a small
    ResNet's logits on the card agreeing with the port on the CPU;
-5. flash: the flash-attention kernel against its plain version (TF32 off,
-   f32 matmuls "highest") at the LM config's width (d_model 512, 8 heads:
-   D 64, tools/bench_lm.py) at (32, 512, 8, 64) causal and not and at the
-   long context (1, 16384, 8, 64), f32 and bf16, and at D 16 and 128;
-   f32 within 5e-5 (o) and 1e-4 (lse); bf16 o within 3e-2 of the f32
-   plain version and within 2^-8 |o| + 5e-5 of it elementwise, bf16 lse
-   within 1e-4; dq/dk/dv through the autograd Function within 5e-4 of
-   plain autograd;
+5. flash: both flash-attention kernels (f32 on the CUDA cores, bf16 on the
+   tensor cores) against their plain version (TF32 off, f32 matmuls
+   "highest") at the LM config's width (d_model 512, 8 heads: D 64,
+   tools/bench_lm.py) at (32, 512, 8, 64) causal and not and at the long
+   context (1, 16384, 8, 64), and at D 16 and 128; f32 within 5e-5 (o)
+   and 1e-4 (lse); bf16 o within 3e-2 of the f32 plain version on the
+   same values and within 2^-8 (|o| + (P/l)|V|) + 5e-5 of it
+   elementwise, bf16 lse within 1e-4; dq/dk/dv through the autograd
+   Function within 5e-4 of plain autograd;
 6. sp: the sequence-parallel path on a one-card mesh make_mesh({"sp": 1}):
    ulysses_attention_sharded(use_flash=True) and shard_map(ring_attention,
-   use_flash=True) at the long context in f32, each within 5e-5 of
-   local_attention and each launching the kernel exactly once;
-7. flash times: kernel, plain version and scaled_dot_product_attention
-   (timed only, as the yardstick) beside the bound;
+   use_flash=True) at the long context in f32 and in bf16, each within
+   the kernel's bound of local_attention on the same values in f32 (5e-5
+   in f32, the elementwise bf16 bound in bf16) and each call launching
+   its type's kernel exactly once;
+7. flash times: each kernel, the plain version and
+   scaled_dot_product_attention (timed only, as the yardstick) beside the
+   bound, at the long context and the LM shape; kernel and SDPA also per
+   call in runs of 10 calls, which leaves out the host's time;
 8. a {"kernels": [...]} line;
 9. last line: {"ok": true, "device": {...}}.
 
@@ -65,6 +70,7 @@ BATCH = 32
 IMAGE = 224
 STEPS = 5
 REPS = 25                        # timed runs per measurement (median)
+RUN = 10     # calls per timed run where the host's time is left out
 SOURCE = "mxnet_tpu_torch/kernels/compression_2bit.cu"
 REPLACES = {"quantize_2bit": "mxnet_tpu/contrib/compression.py:50",
             "dequantize_2bit": "mxnet_tpu/contrib/compression.py:68"}
@@ -79,7 +85,11 @@ REPLACES = {"quantize_2bit": "mxnet_tpu/contrib/compression.py:50",
 F32_BYTES_PER_ELT = {"quantize_2bit": 12, "dequantize_2bit": 4}
 CODE_BYTES_PER_PADDED_ELT = 0.25
 OPS_PER_ELT = {"quantize_2bit": 9, "dequantize_2bit": 5}
-FLASH_SOURCE = "mxnet_tpu_torch/kernels/flash_attention.cu"
+FLASH_SOURCES = {
+    "flash_attention": "mxnet_tpu_torch/kernels/flash_attention.cu",
+    "flash_attention_bf16": "mxnet_tpu_torch/kernels/flash_attention_bf16.cu"}
+FLASH_KERNEL = {torch.float32: "flash_attention",
+                torch.bfloat16: "flash_attention_bf16"}
 FLASH_REPLACES = "mxnet_tpu/ops/attention_pallas.py:30"
 # the LM config of tools/bench_lm.py on an accelerator: d_model 512 over
 # 8 heads (D 64), batch 32, seq 512; and the long context the
@@ -88,8 +98,9 @@ LM_SHAPE = (32, 512, 8, 64)
 LONG_SHAPE = (1, 16384, 8, 64)
 # the JAX suite's bounds (tests/test_flash_attention.py) at unit-normal
 # inputs; lse 1e-4 because at T 16384 it is ~10 and f32 spacing there
-# is 1e-6; bf16 o also within half a bf16 step of the f32 plain version
-# (BF16_O_REL |o| + F32_O_TOL elementwise), bf16 lse within F32_LSE_TOL
+# is 1e-6; bf16 o also within BF16_O_REL (|o| + obar) + F32_O_TOL of the
+# f32 plain version elementwise (derived at bf16_share), bf16 lse within
+# F32_LSE_TOL
 F32_O_TOL, F32_LSE_TOL, BF16_TOL, GRAD_TOL = 5e-5, 1e-4, 3e-2, 5e-4
 BF16_O_REL = 2.0 ** -8
 
@@ -107,8 +118,11 @@ def bound_ms(name, n_elts, padded_elts):
                                        else "operations")
 
 
-def time_ms(fn):
-    """Median of REPS CUDA-event timings of fn() after two warm-ups."""
+def time_ms(fn, calls=1):
+    """Median over REPS CUDA-event timings of `calls` calls of fn() in a
+    row, per call, after two warm-ups.  With one call the time includes
+    the host's work before the launch (the card idles through it); with
+    several, that work overlaps the card's work on the previous call."""
     for _ in range(2):
         fn()
     times = []
@@ -116,10 +130,11 @@ def time_ms(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -377,6 +392,19 @@ def flash_plain(q, k, v, causal):
     return o.transpose(1, 2), lse.transpose(1, 2)
 
 
+def bf16_share(o, ro, obar):
+    """Worst share of the bf16 kernel's elementwise bound of the f32 plain
+    version ro.  The kernel rounds each probability P to bf16 before P.V
+    (relative error at most 2^-8) and sums l from the f32 P, so before
+    its last rounding o is off by at most 2^-8 (P/l).|V| = 2^-8 obar,
+    obar being the plain version run on |V|; rounding o to bf16 adds at
+    most 2^-8 |o|.  Hence |o - ro| <= 2^-8 (|ro| + obar) + 5e-5, where
+    5e-5 (the f32 bound) covers the f32 arithmetic and the second-order
+    2^-16 obar."""
+    return float(((o.float() - ro).abs()
+                  / (BF16_O_REL * (ro.abs() + obar) + F32_O_TOL)).max())
+
+
 def flash_bound_ms(shape, dtype, causal):
     """Least time of the forward: 4*B*H*D flops per live (q, k) pair over
     the peak of its type, or q, k, v read and o, lse written once over
@@ -392,19 +420,22 @@ def flash_bound_ms(shape, dtype, causal):
 
 
 def check_flash(shape, dtype, causal, seed, card):
-    """Kernel vs plain version on one input; returns (max |do|, max |dlse|)."""
+    """Kernel vs plain version on one input; returns (max |do|, max |dlse|,
+    worst share of the bf16 bound)."""
     q, k, v = flash_inputs(shape, dtype, seed)
+    kernel = FLASH_KERNEL[dtype]
+    before = kernels.launch_counts[kernel]
     o, lse = kernels.flash_attention_fwd(q, k, v, shape[-1] ** -0.5, causal)
-    ro, rlse = flash_plain(*(t.float() for t in (q, k, v)), causal)
+    check(kernels.launch_counts[kernel] == before + 1, "%s was not launched"
+          % kernel)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    ro, rlse = flash_plain(qf, kf, torch.cat([vf, vf.abs()], -1), causal)
+    ro, obar = ro.chunk(2, dim=-1)
     torch.cuda.synchronize()
-    diff = (o.float() - ro).abs()
-    err_o = float(diff.max())
+    err_o = float((o.float() - ro).abs().max())
     err_lse = float((lse - rlse).abs().max())
-    # in bf16 both sides compute in f32 on the same bf16 values, so o
-    # differs by its rounding to bf16 (at most half a step, 2^-8 |o|) on
-    # top of the f32 difference; the reading is the worst share of that
-    rel = float((diff / (BF16_O_REL * ro.abs() + F32_O_TOL)).max())
-    del ro, rlse, diff
+    share = bf16_share(o, ro, obar)
+    del qf, kf, vf, ro, rlse, obar
     check(bool(torch.isfinite(o).all()), "non-finite flash output at %s"
           % (shape,))
     name = "f32" if dtype == torch.float32 else "bf16"
@@ -416,28 +447,31 @@ def check_flash(shape, dtype, causal, seed, card):
         reading = ("max|do| %.3g (limit %g), max|dlse| %.3g (limit %g)"
                    % (err_o, F32_O_TOL, err_lse, F32_LSE_TOL))
     else:
-        check(err_o <= BF16_TOL and rel <= 1.0,
-              "flash bf16 %s causal=%s: |do| %g, |do|/(2^-8|o|+%g) %g vs "
-              "the f32 plain version" % (shape, causal, err_o, F32_O_TOL,
-                                         rel))
-        reading = ("max|do| vs f32 plain %.3g (limit %g), max|do|/(2^-8|o|"
-                   "+%g) %.3g (limit 1), max|dlse| %.3g (limit %g)"
-                   % (err_o, BF16_TOL, F32_O_TOL, rel, err_lse,
+        check(err_o <= BF16_TOL and share <= 1.0,
+              "flash bf16 %s causal=%s: |do| %g, |do|/(2^-8(|o|+obar)+%g) "
+              "%g vs the f32 plain version" % (shape, causal, err_o,
+                                               F32_O_TOL, share))
+        reading = ("max|do| vs f32 plain %.3g (limit %g), max|do|/(2^-8"
+                   "(|o|+obar)+%g) %.3g (limit 1), max|dlse| %.3g (limit %g)"
+                   % (err_o, BF16_TOL, F32_O_TOL, share, err_lse,
                       F32_LSE_TOL))
     print("flash: %s %s causal=%s | %s | %s"
           % (name, shape, causal, reading, card), flush=True)
-    return err_o, err_lse
+    return err_o, err_lse, share
 
 
 def phase_flash(card):
     torch.set_float32_matmul_precision("highest")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bf16_worst_share = 0.0
     cases = [(LM_SHAPE, c) for c in (False, True)] + [(LONG_SHAPE, False)]
     cases += [((2, 1024, 4, d), c) for d in (16, 128) for c in (False, True)]
     for i, (shape, causal) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
-            err_o, err_lse = check_flash(shape, dtype, causal, i, card)
+            err_o, err_lse, share = check_flash(shape, dtype, causal, i, card)
             worst[dtype] = max(worst[dtype], err_o, err_lse)
+            if dtype == torch.bfloat16:
+                bf16_worst_share = max(bf16_worst_share, share)
     # gradient through the autograd Function, loss on both o and lse
     q, k, v = (t.requires_grad_() for t in flash_inputs(LM_SHAPE,
                                                         torch.float32, 99))
@@ -454,72 +488,107 @@ def phase_flash(card):
     print("flash grad: %s causal f32, dq/dk/dv via the Function vs plain "
           "autograd | max|dg| %.3g (limit %g) | %s"
           % (LM_SHAPE, err, GRAD_TOL, card), flush=True)
-    return worst
+    return worst, bf16_worst_share
 
 
 def phase_sp(card):
-    """The sequence-parallel path on a one-card mesh at the long context:
-    returns the launch counts of this run and the worst |difference| from
-    local_attention."""
+    """The sequence-parallel path on a one-card mesh at the long context,
+    in f32 and in bf16: returns the launch counts of this run, and per
+    type the worst |difference| from local_attention, the worst share of
+    the bf16 bound and the engines' times."""
     mesh = parallel.make_mesh({"sp": 1})
-    q, k, v = flash_inputs(LONG_SHAPE, torch.float32, 7)
-    ref = parallel.local_attention(q, k, v)
     spec = parallel.P(None, "sp", None, None)
     ring = parallel.shard_map(
         functools.partial(parallel.ring_attention, axis_name="sp",
                           use_flash=True),
         mesh, (spec, spec, spec), spec)
-    engines = (("ulysses", lambda: parallel.ulysses_attention_sharded(
-                    mesh, q, k, v, use_flash=True)),
-               ("ring", lambda: ring(q, k, v)))
+    inputs = {dtype: flash_inputs(LONG_SHAPE, dtype, 7)
+              for dtype in FLASH_KERNEL}
+    engines = (("ulysses", functools.partial(
+                    parallel.ulysses_attention_sharded, mesh, use_flash=True)),
+               ("ring", ring))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     outs, per_call = {}, {}
-    for name, fn in engines:
-        before = kernels.launch_counts["flash_attention"]
-        outs[name] = fn()
-        per_call[name] = kernels.launch_counts["flash_attention"] - before
+    for dtype, qkv in inputs.items():
+        for name, fn in engines:
+            before = dict(kernels.launch_counts)
+            outs[dtype, name] = fn(*qkv)
+            per_call[dtype, name] = {n: c - before[n] for n, c
+                                     in kernels.launch_counts.items()}
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    errs = {}
-    for name, _ in engines:
-        check(per_call[name] == 1, "%s launched the kernel %d times"
-              % (name, per_call[name]))
-        out = outs[name]
-        check(out.shape == LONG_SHAPE and out.dtype == torch.float32,
-              "%s output %s %s" % (name, tuple(out.shape), out.dtype))
-        errs[name] = float((out - ref).abs().max())
-        check(errs[name] <= F32_O_TOL, "%s differs from local_attention by "
-              "%g" % (name, errs[name]))
-    del ref, outs
-    times = {name: time_ms(fn) for name, fn in engines}
+    errs, shares, times = {}, {}, {}
+    for dtype, (q, k, v) in inputs.items():
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        # local_attention in f32 on the same values, on v and |v| at once
+        ref, obar = parallel.local_attention(
+            qf, kf, torch.cat([vf, vf.abs()], -1),
+            scale=LONG_SHAPE[-1] ** -0.5).chunk(2, dim=-1)
+        del qf, kf, vf
+        for name, _ in engines:
+            want = {n: int(n == FLASH_KERNEL[dtype]) for n in launches}
+            check(per_call[dtype, name] == want, "%s %s launched %s, expected "
+                  "%s" % (name, dtype, per_call[dtype, name], want))
+            out = outs.pop((dtype, name))
+            check(out.shape == LONG_SHAPE and out.dtype == dtype,
+                  "%s output %s %s" % (name, tuple(out.shape), out.dtype))
+            errs[dtype, name] = float((out.float() - ref).abs().max())
+            if dtype == torch.float32:
+                check(errs[dtype, name] <= F32_O_TOL, "%s f32 differs from "
+                      "local_attention by %g" % (name, errs[dtype, name]))
+            else:
+                shares[name] = bf16_share(out, ref, obar)
+                check(errs[dtype, name] <= BF16_TOL and shares[name] <= 1.0,
+                      "%s bf16 differs from local_attention by %g, %g of the "
+                      "bf16 bound" % (name, errs[dtype, name], shares[name]))
+        del ref, obar
+        times[dtype] = {name: time_ms(functools.partial(fn, q, k, v))
+                        for name, fn in engines}
     dist.destroy_process_group()
-    print("sp: make_mesh({'sp': 1}) %s f32, use_flash=True | %s | launches "
-          "%s | %s"
-          % (LONG_SHAPE, "; ".join(
-              "%s max|do| vs local_attention %.3g (limit %g), %.3f ms"
-              % (n, errs[n], F32_O_TOL, times[n]) for n, _ in engines),
-             launches, card), flush=True)
-    return launches, max(errs.values()), times
+    for dtype in inputs:
+        tn = "f32" if dtype == torch.float32 else "bf16"
+        print("sp: make_mesh({'sp': 1}) %s %s, use_flash=True | %s | %s"
+              % (LONG_SHAPE, tn, "; ".join(
+                  "%s max|do| vs local_attention %.3g (limit %g)%s, %.3f ms"
+                  % (n, errs[dtype, n],
+                     F32_O_TOL if dtype == torch.float32 else BF16_TOL,
+                     "" if dtype == torch.float32 else
+                     ", %.3g of the bf16 bound (limit 1)" % shares[n],
+                     times[dtype][n]) for n, _ in engines), card),
+              flush=True)
+    print("sp: launches %s (one per engine call per type) | %s"
+          % (launches, card), flush=True)
+    worst = {dtype: max(e for (d, _), e in errs.items() if d == dtype)
+             for dtype in inputs}
+    return launches, worst, max(shares.values()), times
 
 
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = time_ms(lambda: kernels.flash_attention_fwd(q, k, v, scale, causal))
+    def kern():
+        return kernels.flash_attention_fwd(q, k, v, scale, causal)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+
+    ms, library_ms = time_ms(kern), time_ms(sdpa)
     plain_ms = time_ms(lambda: flash_plain(q, k, v, causal))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, scale=scale))
+    run_ms, library_run_ms = time_ms(kern, RUN), time_ms(sdpa, RUN)
     bms, by = flash_bound_ms(shape, dtype, causal)
     name = "f32" if dtype == torch.float32 else "bf16"
     print("flash time: %s %s causal=%s | kernel %.4f ms, plain %.4f ms, "
           "sdpa %.4f ms, bound %.4f ms (%s), kernel at %.1f%% of the bound "
-          "| %s" % (name, shape, causal, ms, plain_ms, library_ms, bms, by,
-                    100 * bms / ms, card), flush=True)
+          "| in runs of %d calls: kernel %.4f ms, sdpa %.4f ms | %s"
+          % (name, shape, causal, ms, plain_ms, library_ms, bms, by,
+             100 * bms / ms, RUN, run_ms, library_run_ms, card), flush=True)
     return {"shape": list(shape), "dtype": name, "causal": causal, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "run_ms": run_ms,
+            "library_run_ms": library_run_ms}
 
 
 def main():
@@ -536,12 +605,8 @@ def main():
     n_calls = len(step_inputs)
     del net, trainable, step_inputs
     torch.cuda.empty_cache()
-    flash_worst = phase_flash(card)
-    sp_launches, sp_err, sp_times = phase_sp(card)
-    flash_times = [time_flash(shape, dtype, causal, card)
-                   for shape, causal in ((LONG_SHAPE, False),
-                                         (LM_SHAPE, False), (LM_SHAPE, True))
-                   for dtype in (torch.float32, torch.bfloat16)]
+    flash_worst, flash_share = phase_flash(card)
+    sp_launches, sp_worst, sp_share, sp_times = phase_sp(card)
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]
@@ -554,18 +619,26 @@ def main():
             "calls": n_calls, "elements": t["elements"],
             "padded_elements": t["padded_elements"],
             "card": card}, **flat[name]))
-    main_path = flash_times[0]  # the sp path's shape: long context, f32
-    rows.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES,
-        "launches": sp_launches["flash_attention"],
-        "max_abs_err": max(flash_worst[torch.float32], sp_err),
-        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
-        "library_ms": main_path["library_ms"], "shape": main_path["shape"],
-        "dtype": "float32", "causal": False,
-        "max_abs_err_bf16": flash_worst[torch.bfloat16],
-        "engine_ms": sp_times, "times": flash_times[1:], "card": card})
+    for dtype, kernel in FLASH_KERNEL.items():
+        # the sp path's shape first: long context, non-causal
+        times = [time_flash(shape, dtype, causal, card)
+                 for shape, causal in ((LONG_SHAPE, False),
+                                       (LM_SHAPE, False), (LM_SHAPE, True))]
+        main_path = times[0]
+        row = {
+            "name": kernel, "route": "cuda", "source": FLASH_SOURCES[kernel],
+            "replaces": FLASH_REPLACES, "launches": sp_launches[kernel],
+            "max_abs_err": max(flash_worst[dtype], sp_worst[dtype]),
+            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"],
+            "library_ms": main_path["library_ms"],
+            "shape": main_path["shape"], "dtype": str(dtype)[6:],
+            "causal": False, "engine_ms": sp_times[dtype],
+            "times": times[1:], "card": card}
+        if dtype == torch.bfloat16:
+            row["bf16_bound_share"] = max(flash_share, sp_share)
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,11 @@ current torch stream.  Nothing is built or imported at package import:
 callers reach this module only for CUDA tensors.
 
 Each launching wrapper adds one to ``launch_counts[<kernel>]`` where it
-launches, so a run can show that its path went through the kernel.
+launches, so a run can show that its path went through the kernel.  Flash
+attention has two kernels, one per input type: f32 runs
+``flash_attention.cu`` (CUDA cores) and counts ``"flash_attention"``,
+bf16 runs ``flash_attention_bf16.cu`` (tensor cores) and counts
+``"flash_attention_bf16"``.
 """
 from __future__ import annotations
 
@@ -23,18 +27,19 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "quantize_2bit", "dequantize_2bit", "flash_attention_fwd",
-           "launch_counts", "reset_launch_counts", "SOURCES",
-           "FLASH_MAX_HEAD_DIM"]
+           "bf16_vector_loads", "launch_counts", "reset_launch_counts",
+           "SOURCES", "FLASH_MAX_HEAD_DIM"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
-           "flash_attention": _HERE / "flash_attention.cu"}
+           "flash_attention": _HERE / "flash_attention.cu",
+           "flash_attention_bf16": _HERE / "flash_attention_bf16.cu"}
 _BUILD_DIR = _HERE.parent / "_build"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLASH_MAX_HEAD_DIM = 256
 
 launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0,
-                 "flash_attention": 0}
+                 "flash_attention": 0, "flash_attention_bf16": 0}
 
 _libs = {}
 
@@ -68,10 +73,14 @@ def _bind(name, lib):
         lib.mxtt_quantize_2bit.restype = i32
         lib.mxtt_dequantize_2bit.argtypes = [vp, vp, ll, f32, vp]
         lib.mxtt_dequantize_2bit.restype = i32
-    else:
+    elif name == "flash_attention":
         lib.mxtt_flash_attention_fwd.argtypes = (
-            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, vp])
+            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, vp])
         lib.mxtt_flash_attention_fwd.restype = i32
+    else:  # the bf16 entry point also takes the loader flag
+        lib.mxtt_flash_attention_fwd_bf16.argtypes = (
+            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, vp])
+        lib.mxtt_flash_attention_fwd_bf16.restype = i32
     lib.mxtt_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_error_string.restype = ctypes.c_char_p
     return lib
@@ -180,11 +189,21 @@ def dequantize_2bit(codes, threshold):
     return out
 
 
+def bf16_vector_loads(*tensors):
+    """Whether the bf16 kernel may stage these (B, T, H, D) tensors with
+    16-byte copies: every data pointer and every stride times 2 bytes a
+    multiple of 16, and D a multiple of 8.  Otherwise it loads element by
+    element into the same layout."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0
+               and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
+
+
 def flash_attention_fwd(q, k, v, scale, causal):
     """Launch the flash-attention forward on (B, T, H, D) ``q``, ``k``,
-    ``v`` of one type (f32 or bf16), read through their strides (the head
-    dim must have stride 1).  Returns (o (B, Tq, H, D) in that type, lse
-    (B, Tq, H) f32), both contiguous."""
+    ``v`` of one type, read through their strides (the head dim must have
+    stride 1): f32 on ``flash_attention.cu``, bf16 on the tensor-core
+    kernel ``flash_attention_bf16.cu``.  Returns (o (B, Tq, H, D) in that
+    type, lse (B, Tq, H) f32), both contiguous."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError("flash_attention_fwd takes (B, T, H, D) q, k, v with "
@@ -212,17 +231,24 @@ def flash_attention_fwd(q, k, v, scale, causal):
             raise ValueError("%s: the head dim must have stride 1 and no "
                              "stride may be negative; strides %s"
                              % (name, t.stride()))
-    lib = _load("flash_attention")
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
+    lib = _load(name)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1),
                                               t.stride(2))]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mxtt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, Tq, Tk, D, *strides, float(scale),
-            int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
-    _raise_on(lib, err, "flash_attention")
-    launch_counts["flash_attention"] += 1
+            int(bool(causal))]
+    if bf16:  # the loader: 16-byte cp.async or element by element
+        fn = lib.mxtt_flash_attention_fwd_bf16
+        args.append(int(bf16_vector_loads(q, k, v)))
+    else:
+        fn = lib.mxtt_flash_attention_fwd
+    with torch.cuda.device(q.device):
+        args.append(torch.cuda.current_stream().cuda_stream)
+        err = fn(*args)
+    _raise_on(lib, err, name)
+    launch_counts[name] += 1
     return o, lse

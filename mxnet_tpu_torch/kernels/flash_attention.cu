@@ -10,10 +10,9 @@
 // denominator l and an accumulator acc; q is scaled in f32 before the
 // QK^T product; under `causal` a score with q_pos < k_pos (absolute
 // positions from 0) is set to -1e30, not -inf, and K/V tiles wholly above
-// the diagonal are skipped; at the end o = acc / max(l, 1e-30) in the
-// input type (bf16 rounded with __float2bfloat16_rn) and
-// lse = m + log(max(l, 1e-30)) in f32.  f32 and bf16 inputs are loaded,
-// converted to f32 and computed in f32.
+// the diagonal are skipped; at the end o = acc / max(l, 1e-30) and
+// lse = m + log(max(l, 1e-30)), all in f32.  This is the f32 kernel;
+// bf16 inputs go to the tensor-core kernel, flash_attention_bf16.cu.
 //
 // Design (first, simple version): on the TPU the K/V tiles were the
 // sequential innermost grid axis and m, l, acc lived in VMEM scratch
@@ -45,18 +44,14 @@
 //     longest blocks start first.
 //
 // Bound: 4*D flops per live (query, key) pair against q, k, v and o read
-// or written once, so for Tq = Tk = T the intensity is T / (bytes per
-// element) flops per byte.  The card's ratio is 67e12 / 3.35e12 = 20 in
-// f32 and 989e12 / 3.35e12 = 295 in bf16 (data sheet): f32 is bound by
-// operations from T = 512 on; bf16 is bound by bytes at T = 512 and by
-// operations at T = 16384.  This version reaches neither bound: its inner
-// loops issue one shared-memory load per 2-3 FMAs on the CUDA cores, and
-// bf16 takes the f32 path.  The tensor-core version (wgmma on bf16 tiles
-// staged by TMA) is a later redesign.
+// or written once, so for Tq = Tk = T the intensity is T / 4 flops per
+// byte.  The card's ratio is 67e12 / 3.35e12 = 20 in f32 (data sheet):
+// bound by operations from T = 512 on.  This version does not reach it:
+// its inner loops issue one shared-memory load per 2-3 FMAs on the CUDA
+// cores (register tiling and vector shared loads are queued).
 
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,23 +69,14 @@ struct Strides {
   long long b, t, h;  // in elements; the head dim has stride 1
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 __host__ __device__ constexpr int smem_floats(int dp) {
   return kBQ * (dp + 1) + kBK * (dp + 1) + kBK * dp + kBQ * (kBK + 1);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Tq, int Tk, int D,
                  Strides sq, Strides sk, Strides sv, float scale, int causal,
                  int n_qblk) {
@@ -110,15 +96,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = static_cast<int>(bh % H);
   const int q0 = qblk * kBQ;
 
-  const T* qp = q + b * sq.b + h * sq.h;
-  const T* kp = k + b * sk.b + h * sk.h;
-  const T* vp = v + b * sv.b + h * sv.h;
+  const float* qp = q + b * sq.b + h * sq.h;
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
 
   for (int i = tid; i < kBQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
     float x = 0.0f;
     if (q0 + r < Tq && d < D)
-      x = to_f32(qp[static_cast<long long>(q0 + r) * sq.t + d]) * scale;
+      x = qp[static_cast<long long>(q0 + r) * sq.t + d] * scale;
     Qs[r * (DP + 1) + d] = x;
   }
 
@@ -142,8 +128,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / DP, d = i % DP;
       float kx = 0.0f, vx = 0.0f;
       if (k0 + r < Tk && d < D) {
-        kx = to_f32(kp[static_cast<long long>(k0 + r) * sk.t + d]);
-        vx = to_f32(vp[static_cast<long long>(k0 + r) * sv.t + d]);
+        kx = kp[static_cast<long long>(k0 + r) * sk.t + d];
+        vx = vp[static_cast<long long>(k0 + r) * sv.t + d];
       }
       Ks[r * (DP + 1) + d] = kx;
       Vs[r * DP + d] = vx;
@@ -228,17 +214,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= Tq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
     const long long orow = (static_cast<long long>(b) * Tq + r) * H + h;
-    T* op = o + orow * D;
+    float* op = o + orow * D;
 #pragma unroll
     for (int jj = 0; jj < kAcc; ++jj) {
       const int d = lane + kLanes * jj;
-      if (d < D) store_out(op + d, acc[i][jj] / l_safe);
+      if (d < D) op[d] = acc[i][jj] / l_safe;
     }
     if (lane == 0) lse[orow] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Tq, int Tk, int D, Strides sq, Strides sk,
            Strides sv, float scale, int causal, cudaStream_t stream) {
@@ -248,62 +234,50 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int smem = smem_floats(DP) * static_cast<int>(sizeof(float));
   // per device, so set before every launch (a host-side call)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<T, DP><<<static_cast<unsigned int>(blocks), kThreads, smem,
-                            stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Tq, Tk, D, sq, sk,
-      sv, scale, causal, n_qblk);
+  flash_fwd_kernel<DP><<<static_cast<unsigned int>(blocks), kThreads, smem,
+                         stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, Tk, D,
+      sq, sk, sv, scale, causal, n_qblk);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int H, int Tq, int Tk, int D, Strides sq, Strides sk,
-             Strides sv, float scale, int causal, cudaStream_t stream) {
-  if (D <= 16)
-    return launch<T, 16>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
-                         causal, stream);
-  if (D <= 32)
-    return launch<T, 32>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
-                         causal, stream);
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
-                         causal, stream);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv,
-                          scale, causal, stream);
-  return launch<T, 256>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
-                        causal, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Enqueues one forward on `stream` and returns the cudaGetLastError()
-// code of the launch (0 = cudaSuccess).  q, k, v: (B, T, H, D) of one
-// type (f32, or bf16 when is_bf16), element strides (batch, seq, head)
-// given, head dim contiguous; o: contiguous (B, Tq, H, D) of that type;
-// lse: contiguous f32 (B, Tq, H).  1 <= D <= 256.
+// Enqueues one f32 forward on `stream` and returns the cudaGetLastError()
+// code of the launch (0 = cudaSuccess).  q, k, v: f32 (B, T, H, D),
+// element strides (batch, seq, head) given, head dim contiguous; o:
+// contiguous f32 (B, Tq, H, D); lse: contiguous f32 (B, Tq, H).
+// 1 <= D <= 256.
 int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int B, int H, int Tq,
                              int Tk, int D, long long q_sb, long long q_st,
                              long long q_sh, long long k_sb, long long k_st,
                              long long k_sh, long long v_sb, long long v_st,
                              long long v_sh, float scale, int causal,
-                             int is_bf16, cudaStream_t stream) {
+                             cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh},
       sv{v_sb, v_st, v_sh};
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk,
-                                   sv, scale, causal, stream);
-  return dispatch<float>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
-                         causal, stream);
+  if (D <= 16)
+    return launch<16>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
+                      causal, stream);
+  if (D <= 32)
+    return launch<32>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
+                      causal, stream);
+  if (D <= 64)
+    return launch<64>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
+                      causal, stream);
+  if (D <= 128)
+    return launch<128>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
+                       causal, stream);
+  return launch<256>(q, k, v, o, lse, B, H, Tq, Tk, D, sq, sk, sv, scale,
+                     causal, stream);
 }
 
 const char* mxtt_error_string(int code) {

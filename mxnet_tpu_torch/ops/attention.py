@@ -1,9 +1,11 @@
 """Flash attention: the port's counterpart of
 ``mxnet_tpu/ops/attention_pallas.py``.
 
-The forward of a CUDA tensor is the hand-written kernel
-``kernels/flash_attention.cu`` (blockwise online softmax; the (T, T)
-score matrix is never stored).  The forward of a CPU tensor is the plain
+The forward of a CUDA tensor is a hand-written kernel (blockwise online
+softmax; the (T, T) score matrix is never stored): f32 on
+``kernels/flash_attention.cu`` (CUDA cores), bf16 on
+``kernels/flash_attention_bf16.cu`` (tensor cores, P rounded to bf16
+before P.V).  The forward of a CPU tensor is the plain
 version ``_ref_attention_lse``, and nothing else.  Returns the normalized
 output and the per-row logsumexp, which ``parallel.ring_attention`` uses
 to merge partial results exactly.

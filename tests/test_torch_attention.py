@@ -118,5 +118,86 @@ def test_flash_gradients_match_jax(causal):
 
 def test_flash_cpu_path_launches_no_kernel():
     kernels.reset_launch_counts()
-    tattn.flash_attention(*_torch(_qkv(B=1, T=64, H=1, D=16)))
+    arrs = _qkv(B=1, T=64, H=1, D=16)
+    tattn.flash_attention(*_torch(arrs))
+    tattn.flash_attention(*_torch(arrs, torch.bfloat16))
     assert kernels.launch_counts["flash_attention"] == 0
+    assert kernels.launch_counts["flash_attention_bf16"] == 0
+
+
+def _emulate_bf16_kernel(q, k, v, scale, causal, drop_tile=None,
+                         scale_twice=False, tile=64):
+    """The bf16 tensor-core kernel's arithmetic in plain torch on (B, T, H,
+    D) bf16 q, k, v: f32 scores of the bf16 values, scaled after the
+    product; per 64-key tile an online-softmax update with l summed from
+    the f32 probabilities P and only the copy of P that feeds P.V rounded
+    to bf16; o = acc / max(l, 1e-30) rounded to bf16, lse in f32.
+    ``drop_tile`` and ``scale_twice`` break it on purpose."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    Tq, Tk = qf.shape[2], kf.shape[2]
+    m = torch.full(qf.shape[:3] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j, k0 in enumerate(range(0, Tk, tile)):
+        if j == drop_tile:
+            continue
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) * scale
+        if scale_twice:
+            s = s * scale
+        if causal:
+            keep = (torch.arange(Tq)[:, None]
+                    >= torch.arange(k0, min(k0 + tile, Tk))[None, :])
+            s = torch.where(keep, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    o = (acc / l_safe).bfloat16().transpose(1, 2)
+    return o, (m + torch.log(l_safe))[..., 0].transpose(1, 2)
+
+
+def _bf16_share(o, q, k, v, scale, causal):
+    """Worst share of the bf16 kernel's elementwise bound, and |dlse|.
+
+    The kernel rounds each P to bf16 before P.V (relative error at most
+    2^-8) and sums l from the f32 P, so before its last rounding o is off
+    by at most 2^-8 (P/l).|V| = 2^-8 obar, obar being the plain version
+    run on |V|; rounding o to bf16 adds at most 2^-8 |o|.  Hence
+    |o - o_plain| <= 2^-8 (|o_plain| + obar) + 5e-5, where 5e-5 (the f32
+    bound) covers the f32 arithmetic and the second-order 2^-16 obar."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ro, rlse = tattn._ref_attention_lse(qf, kf, torch.cat([vf, vf.abs()], -1),
+                                        scale, causal)
+    ro, obar = ro.transpose(1, 2).chunk(2, dim=-1)
+    share = ((o.float() - ro).abs()
+             / (2.0 ** -8 * (ro.abs() + obar) + 5e-5)).max().item()
+    return share, rlse.transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_kernel_rounding_within_bound(causal):
+    """The bf16 kernel's rounding, emulated on the CPU, holds to its bound
+    of the f32 plain version (lse within 1e-4) and to the JAX suite's 3e-2
+    of the JAX package's kernel (interpret mode) on the same bf16 values."""
+    arrs = _qkv(B=2, T=256, H=2, D=64, seed=5)
+    q, k, v = _torch(arrs, torch.bfloat16)
+    o, lse = _emulate_bf16_kernel(q, k, v, 64 ** -0.5, causal)
+    share, rlse = _bf16_share(o, q, k, v, 64 ** -0.5, causal)
+    assert share <= 1.0, share
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    o_j = jattn.flash_attention(*_jax(arrs, jnp.bfloat16), causal=causal)
+    assert np.abs(_np(o) - _np(o_j)).max() < 3e-2
+
+
+@pytest.mark.parametrize("fault", ["drop_tile", "scale_twice"])
+def test_bf16_bound_catches_wrong_kernel(fault):
+    """The bound has teeth: the same emulation with one K tile dropped, or
+    with the scale applied twice, fails it."""
+    q, k, v = _torch(_qkv(B=2, T=256, H=2, D=64, seed=5), torch.bfloat16)
+    broken = {"drop_tile": {"drop_tile": 2},
+              "scale_twice": {"scale_twice": True}}[fault]
+    o, _ = _emulate_bf16_kernel(q, k, v, 64 ** -0.5, False, **broken)
+    share, _ = _bf16_share(o, q, k, v, 64 ** -0.5, False)
+    assert share > 1.0, share

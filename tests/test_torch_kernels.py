@@ -46,7 +46,8 @@ def test_cpu_path_launches_no_kernel():
     comp.dequantize_2bit(codes, 1000, T)
     assert kernels.launch_counts == {"quantize_2bit": 0,
                                      "dequantize_2bit": 0,
-                                     "flash_attention": 0}
+                                     "flash_attention": 0,
+                                     "flash_attention_bf16": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -106,62 +107,104 @@ def test_cuda_kernels_reject_bad_inputs():
 
 def test_flash_wrapper_rejects_cpu_tensors_and_wide_heads():
     """The flash wrapper refuses CPU tensors (no fallback) and head dims
-    past the kernel's limit, naming the limit."""
-    x = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.flash_attention_fwd(x, x, x, 0.125, False)
-    wide = torch.zeros(1, 64, 2, kernels.FLASH_MAX_HEAD_DIM + 1)
-    with pytest.raises(ValueError, match=str(kernels.FLASH_MAX_HEAD_DIM)):
-        kernels.flash_attention_fwd(wide, wide, wide, 0.125, False)
+    past the kernel's limit, naming the limit, in both input types."""
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 64, 2, 64, dtype=dt)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.flash_attention_fwd(x, x, x, 0.125, False)
+        wide = torch.zeros(1, 64, 2, kernels.FLASH_MAX_HEAD_DIM + 1, dtype=dt)
+        with pytest.raises(ValueError, match=str(kernels.FLASH_MAX_HEAD_DIM)):
+            kernels.flash_attention_fwd(wide, wide, wide, 0.125, False)
 
 
-# (B, Tq, Tk, H, D, causal): the JAX suite's shapes, every head-dim
-# variant of the kernel, and ragged lengths that are not multiples of its
-# 64-row tiles
-FLASH_CASES = [(2, 256, 256, 2, 64, False), (2, 256, 256, 2, 64, True),
-               (1, 128, 128, 1, 8, True), (2, 64, 64, 3, 16, False),
-               (1, 96, 96, 2, 32, True), (1, 256, 256, 2, 128, True),
-               (1, 128, 128, 1, 256, False), (2, 100, 77, 2, 48, True),
-               (1, 77, 130, 2, 64, False)]
+def test_bf16_loader_choice():
+    """The bf16 kernel stages with 16-byte copies only where every row
+    start is 16-byte aligned: not for D 20, a row stride of 130 elements,
+    or a view offset by one element."""
+    bf = torch.bfloat16
+    dense = torch.zeros(2, 64, 2, 64, dtype=bf)
+    buf = torch.zeros(2, 64, 2, 128, dtype=bf)
+    assert dense.data_ptr() % 16 == 0 and buf.data_ptr() % 16 == 0
+    assert kernels.bf16_vector_loads(dense, dense, dense)
+    assert kernels.bf16_vector_loads(buf[..., :64], dense, dense)
+    assert not kernels.bf16_vector_loads(buf[..., 1:65], dense, dense)
+    assert not kernels.bf16_vector_loads(dense, dense[..., :20], dense)
+    odd_rows = torch.zeros(2, 64, 2, 130, dtype=bf)[..., :64]
+    assert not kernels.bf16_vector_loads(dense, dense, odd_rows)
+
+
+# (B, Tq, Tk, H, D, causal, q_off): the JAX suite's shapes, every
+# head-dim variant of the kernels, ragged lengths that are not multiples
+# of their query and key tiles, causal with Tq != Tk and Tk not a multiple
+# of the key tile; q is the head slice [q_off, q_off + D) of a (B, Tq, H, 2D + 8)
+# buffer, so D 20 and q_off 1 reach the bf16 kernel's element-wise loader
+# and the other cases its 16-byte loader
+FLASH_CASES = [(2, 256, 256, 2, 64, False, 0), (2, 256, 256, 2, 64, True, 0),
+               (1, 128, 128, 1, 8, True, 0), (2, 64, 64, 3, 16, False, 0),
+               (1, 96, 96, 2, 32, True, 0), (1, 256, 256, 2, 128, True, 0),
+               (1, 128, 128, 1, 256, False, 0), (2, 100, 77, 2, 48, True, 0),
+               (1, 77, 130, 2, 64, False, 0), (1, 128, 96, 2, 20, True, 0),
+               (2, 130, 130, 2, 64, False, 1), (1, 130, 200, 2, 64, True, 0),
+               (1, 200, 100, 2, 256, True, 1)]
+
+# bf16 o against the f32 plain version on the same bf16 values.  The
+# kernel rounds each probability P to bf16 before P.V (relative error at
+# most 2^-8) and sums l from the f32 P, so before its last rounding o is
+# off by at most 2^-8 (P/l).|V| = 2^-8 obar, obar being the plain version
+# run on |V|; rounding o to bf16 adds at most 2^-8 |o|.  Hence
+# |o - o_plain| <= 2^-8 (|o_plain| + obar) + 5e-5, where 5e-5 (the f32
+# bound) covers the f32 arithmetic and the second-order 2^-16 obar.
+BF16_REL, F32_ABS = 2.0 ** -8, 5e-5
+
+
+def _plain_with_obar(q, k, v, scale, causal):
+    """The f32 plain version on (B, T, H, D): (o, lse, obar), obar from
+    |v| through the same probabilities (one pass, v and |v| side by
+    side)."""
+    q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))
+    o, lse = attn._ref_attention_lse(q, k, torch.cat([v, v.abs()], -1),
+                                     scale, causal)
+    o, obar = o.transpose(1, 2).chunk(2, dim=-1)
+    return o, lse.transpose(1, 2), obar
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_cuda_flash_matches_plain_version(case, dtype):
-    """Kernel vs plain version on the card, q read through a strided view
-    of a (B, Tq, H, 2D) buffer: f32 within 5e-5 (o) and 1e-4 (lse); bf16
-    o within 3e-2 of the plain version on the f32 values and within half
-    a bf16 step of it (2^-8 |o| + 5e-5 elementwise: both sides compute in
-    f32, so only the final rounding differs), bf16 lse within 1e-4."""
+    """Kernel vs plain version on the card, q read through a strided
+    view: f32 within 5e-5 (o) and 1e-4 (lse) on the f32 kernel; bf16 on
+    the tensor-core kernel, o within 3e-2 of the plain version on the
+    same values in f32 and within 2^-8 (|o| + obar) + 5e-5 elementwise,
+    lse within 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, Tq, Tk, H, D, causal = case
+    B, Tq, Tk, H, D, causal, q_off = case
     rng = np.random.RandomState(sum(case))
     dt = getattr(torch, dtype)
-    wide = torch.tensor(rng.randn(B, Tq, H, 2 * D).astype(np.float32))
-    q = wide.to("cuda", dt)[..., :D]
+    wide = torch.tensor(rng.randn(B, Tq, H, 2 * D + 8).astype(np.float32))
+    q = wide.to("cuda", dt)[..., q_off:q_off + D]
     k, v = (torch.tensor(rng.randn(B, Tk, H, D).astype(np.float32)
                          ).to("cuda", dt) for _ in range(2))
-    before = kernels.launch_counts["flash_attention"]
+    assert kernels.bf16_vector_loads(q, k, v) == (D % 8 == 0 and q_off == 0)
+    name = "flash_attention" if dtype == "float32" else "flash_attention_bf16"
+    before = dict(kernels.launch_counts)
     o, lse = kernels.flash_attention_fwd(q, k, v, D ** -0.5, causal)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert {n: c - before[n] for n, c in kernels.launch_counts.items()} == \
+        {n: int(n == name) for n in before}
     assert o.dtype == dt and o.shape == (B, Tq, H, D)
-    ro, rlse = attn._ref_attention_lse(*(t.float().transpose(1, 2)
-                                         for t in (q, k, v)), D ** -0.5,
-                                       causal)
-    ro = ro.transpose(1, 2)
+    ro, rlse, obar = _plain_with_obar(q, k, v, D ** -0.5, causal)
     diff = (o.float() - ro).abs()
     err_o = diff.max().item()
-    err_lse = (lse - rlse.transpose(1, 2)).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
     assert err_lse <= 1e-4, err_lse
     if dtype == "float32":
         assert err_o <= 5e-5, err_o
     else:
-        rel = (diff / (2.0 ** -8 * ro.abs() + 5e-5)).max().item()
-        assert err_o <= 3e-2 and rel <= 1.0, (err_o, rel)
+        share = (diff / (BF16_REL * (ro.abs() + obar) + F32_ABS)).max().item()
+        assert err_o <= 3e-2 and share <= 1.0, (err_o, share)
 
 
 _NCCL_WORKER = r"""
@@ -252,3 +295,27 @@ def test_cuda_sequence_parallel_engines_across_cards(tmp_path):
         errs = json.loads(out.split("RANK_OK", 1)[1].splitlines()[0])
         for name, limit in limits.items():
             assert errs[name] <= limit, (name, errs[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_cuda_flash_takes_any_scale(scale, dtype):
+    """A negative or zero scale, causal with ragged keys, as the TPU kernel
+    takes it: the bf16 kernel keeps its scores unscaled and flips Q's
+    sign for a negative scale, and zeroes masked keys itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    rng = np.random.RandomState(7)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.randn(1, 100, 2, 64).astype(np.float32)
+                            ).to("cuda", dt) for _ in range(3))
+    o, lse = kernels.flash_attention_fwd(q, k[:, :70], v[:, :70], scale, True)
+    torch.cuda.synchronize()
+    ro, rlse, obar = _plain_with_obar(q, k[:, :70], v[:, :70], scale, True)
+    diff = (o.float() - ro).abs()
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    if dtype == "float32":
+        assert diff.max().item() <= 5e-5
+    else:
+        assert (diff / (BF16_REL * (ro.abs() + obar) + F32_ABS)).max() <= 1.0
