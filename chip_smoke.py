@@ -8,7 +8,7 @@ non-zero, printing no result, without them.  Phases, one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the hand-written CUDA kernels from the checkout, one
    nvcc per source, with each kernel's registers, spills and static
-   shared memory from ptxas;
+   shared memory from ptxas, and the number of kernels that spill;
 3. kernels: each compression kernel against its plain PyTorch version on
    the card (bit-exact) at 1000, 16384, 16384*7+3 elements and at the
    element count of resnet50_v1's trainable parameters, with CUDA-event
@@ -19,15 +19,19 @@ non-zero, printing no result, without them.  Phases, one line each:
    falling, each kernel launched 193 x 5 times, both kernels bit-exact
    with their plain versions on the real step-1 gradients, and a small
    ResNet's logits on the card agreeing with the port on the CPU;
-5. flash: both flash-attention kernels (f32 on the CUDA cores, bf16 on the
-   tensor cores) against their plain version (TF32 off, f32 matmuls
-   "highest") at the LM config's width (d_model 512, 8 heads: D 64,
-   tools/bench_lm.py) at (32, 512, 8, 64) causal and not and at the long
-   context (1, 16384, 8, 64), and at D 16 and 128; f32 within 5e-5 (o)
-   and 1e-4 (lse); bf16 o within 3e-2 of the f32 plain version on the
-   same values and within 2^-8 (|o| + (P/l)|V|) + 5e-5 of it
-   elementwise, bf16 lse within 1e-4; dq/dk/dv through the autograd
-   Function within 5e-4 of plain autograd;
+5. flash: both flash-attention kernels (flash_attention.cu, f32
+   arithmetic on the CUDA cores, for f32 inputs and for bf16 inputs with
+   D > 256; flash_attention_bf16.cu, tensor cores, for bf16 up to D 256)
+   against their plain version (TF32 off, f32 matmuls "highest") at the
+   LM config's width (d_model 512, 8 heads: D 64, tools/bench_lm.py) at
+   (32, 512, 8, 64) causal and not and at the long context
+   (1, 16384, 8, 64), at D 16 and 128, and at the wide head dims
+   (1, 1024, 4, 320) and (2, 512, 2, 512) causal and not; each call
+   launching its kernel exactly once; f32 within 5e-5 (o) and 1e-4
+   (lse); bf16 o within 3e-2 of the f32 plain version on the same values
+   and within 2^-8 (|o| + (P/l)|V|) + 5e-5 of it elementwise, bf16 lse
+   within 1e-4; dq/dk/dv through the autograd Function within 5e-4 of
+   plain autograd;
 6. sp: the sequence-parallel path on a one-card mesh make_mesh({"sp": 1}):
    ulysses_attention_sharded(use_flash=True) and shard_map(ring_attention,
    use_flash=True) at the long context in f32 and in bf16, each within
@@ -36,8 +40,9 @@ non-zero, printing no result, without them.  Phases, one line each:
    its type's kernel exactly once;
 7. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
-   bound, at the long context and the LM shape; kernel and SDPA also per
-   call in runs of 10 calls, which leaves out the host's time;
+   bound, at the long context and the LM shape, and the wide head dim
+   (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
+   also per call in runs of 10 calls, which leaves out the host's time;
 8. a {"kernels": [...]} line;
 9. last line: {"ok": true, "device": {...}}.
 
@@ -88,14 +93,16 @@ OPS_PER_ELT = {"quantize_2bit": 9, "dequantize_2bit": 5}
 FLASH_SOURCES = {
     "flash_attention": "mxnet_tpu_torch/kernels/flash_attention.cu",
     "flash_attention_bf16": "mxnet_tpu_torch/kernels/flash_attention_bf16.cu"}
-FLASH_KERNEL = {torch.float32: "flash_attention",
-                torch.bfloat16: "flash_attention_bf16"}
 FLASH_REPLACES = "mxnet_tpu/ops/attention_pallas.py:30"
 # the LM config of tools/bench_lm.py on an accelerator: d_model 512 over
 # 8 heads (D 64), batch 32, seq 512; and the long context the
 # sequence-parallel engines exist for
 LM_SHAPE = (32, 512, 8, 64)
 LONG_SHAPE = (1, 16384, 8, 64)
+# head dims past the tensor-core kernel's 256, on flash_attention.cu's
+# wide variant in both types
+WIDE_CASES = ((1, 1024, 4, 320), (2, 512, 2, 512))
+WIDE_TIME_SHAPE = (1, 4096, 4, 512)
 # the JAX suite's bounds (tests/test_flash_attention.py) at unit-normal
 # inputs; lse 1e-4 because at T 16384 it is ~10 and f32 spacing there
 # is 1e-6; bf16 o also within BF16_O_REL (|o| + obar) + F32_O_TOL of the
@@ -204,8 +211,13 @@ def phase_build():
     parts = ["%s: %s" % (name, ptxas_summary(out) if out
                          else "reused from mxnet_tpu_torch/_build")
              for name, out in reports.items()]
-    print("build: %.2f s (nvcc, sm_90a, one process per source) | %s"
-          % (seconds, " | ".join(parts)), flush=True)
+    spilling = sum(1 for out in reports.values()
+                   for st, ld in re.findall(r"(\d+) bytes spill stores, "
+                                            r"(\d+) bytes spill loads", out)
+                   if int(st) or int(ld))
+    print("build: %.2f s (nvcc, sm_90a, one process per source) | kernels "
+          "that spill: %d | %s" % (seconds, spilling, " | ".join(parts)),
+          flush=True)
 
 
 def make_inputs(n, gen):
@@ -423,11 +435,13 @@ def check_flash(shape, dtype, causal, seed, card):
     """Kernel vs plain version on one input; returns (max |do|, max |dlse|,
     worst share of the bf16 bound)."""
     q, k, v = flash_inputs(shape, dtype, seed)
-    kernel = FLASH_KERNEL[dtype]
-    before = kernels.launch_counts[kernel]
+    kernel = kernels.flash_kernel(dtype, shape[-1])
+    before = dict(kernels.launch_counts)
     o, lse = kernels.flash_attention_fwd(q, k, v, shape[-1] ** -0.5, causal)
-    check(kernels.launch_counts[kernel] == before + 1, "%s was not launched"
-          % kernel)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(launched == {n: int(n == kernel) for n in launched},
+          "%s %s: launches %s, expected one of %s"
+          % (dtype, shape, launched, kernel))
     qf, kf, vf = (t.float() for t in (q, k, v))
     ro, rlse = flash_plain(qf, kf, torch.cat([vf, vf.abs()], -1), causal)
     ro, obar = ro.chunk(2, dim=-1)
@@ -455,23 +469,26 @@ def check_flash(shape, dtype, causal, seed, card):
                    "(|o|+obar)+%g) %.3g (limit 1), max|dlse| %.3g (limit %g)"
                    % (err_o, BF16_TOL, F32_O_TOL, share, err_lse,
                       F32_LSE_TOL))
-    print("flash: %s %s causal=%s | %s | %s"
-          % (name, shape, causal, reading, card), flush=True)
+    print("flash: %s %s causal=%s on %s | %s | %s"
+          % (name, shape, causal, kernel, reading, card), flush=True)
     return err_o, err_lse, share
 
 
 def phase_flash(card):
     torch.set_float32_matmul_precision("highest")
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    bf16_worst_share = 0.0
+    # per (kernel, input type): worst |do| or |dlse|, worst bf16 share
+    worst, bf16_worst_share = {}, {}
     cases = [(LM_SHAPE, c) for c in (False, True)] + [(LONG_SHAPE, False)]
     cases += [((2, 1024, 4, d), c) for d in (16, 128) for c in (False, True)]
+    cases += [(shape, c) for shape in WIDE_CASES for c in (False, True)]
     for i, (shape, causal) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             err_o, err_lse, share = check_flash(shape, dtype, causal, i, card)
-            worst[dtype] = max(worst[dtype], err_o, err_lse)
+            key = kernels.flash_kernel(dtype, shape[-1]), dtype
+            worst[key] = max(worst.get(key, 0.0), err_o, err_lse)
             if dtype == torch.bfloat16:
-                bf16_worst_share = max(bf16_worst_share, share)
+                bf16_worst_share[key] = max(bf16_worst_share.get(key, 0.0),
+                                            share)
     # gradient through the autograd Function, loss on both o and lse
     q, k, v = (t.requires_grad_() for t in flash_inputs(LM_SHAPE,
                                                         torch.float32, 99))
@@ -503,7 +520,7 @@ def phase_sp(card):
                           use_flash=True),
         mesh, (spec, spec, spec), spec)
     inputs = {dtype: flash_inputs(LONG_SHAPE, dtype, 7)
-              for dtype in FLASH_KERNEL}
+              for dtype in (torch.float32, torch.bfloat16)}
     engines = (("ulysses", functools.partial(
                     parallel.ulysses_attention_sharded, mesh, use_flash=True)),
                ("ring", ring))
@@ -527,7 +544,8 @@ def phase_sp(card):
             scale=LONG_SHAPE[-1] ** -0.5).chunk(2, dim=-1)
         del qf, kf, vf
         for name, _ in engines:
-            want = {n: int(n == FLASH_KERNEL[dtype]) for n in launches}
+            want = {n: int(n == kernels.flash_kernel(dtype, LONG_SHAPE[-1]))
+                    for n in launches}
             check(per_call[dtype, name] == want, "%s %s launched %s, expected "
                   "%s" % (name, dtype, per_call[dtype, name], want))
             out = outs.pop((dtype, name))
@@ -580,15 +598,25 @@ def time_flash(shape, dtype, causal, card):
     run_ms, library_run_ms = time_ms(kern, RUN), time_ms(sdpa, RUN)
     bms, by = flash_bound_ms(shape, dtype, causal)
     name = "f32" if dtype == torch.float32 else "bf16"
-    print("flash time: %s %s causal=%s | kernel %.4f ms, plain %.4f ms, "
-          "sdpa %.4f ms, bound %.4f ms (%s), kernel at %.1f%% of the bound "
-          "| in runs of %d calls: kernel %.4f ms, sdpa %.4f ms | %s"
-          % (name, shape, causal, ms, plain_ms, library_ms, bms, by,
-             100 * bms / ms, RUN, run_ms, library_run_ms, card), flush=True)
-    return {"shape": list(shape), "dtype": name, "causal": causal, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
-            "bound_by": by, "run_ms": run_ms,
-            "library_run_ms": library_run_ms}
+    kernel = kernels.flash_kernel(dtype, shape[-1])
+    res = {"shape": list(shape), "dtype": name, "causal": causal,
+           "kernel": kernel, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+           "run_ms": run_ms, "library_run_ms": library_run_ms}
+    extra = ""
+    if dtype == torch.bfloat16 and kernel == "flash_attention":
+        # bf16 on the CUDA cores: also the bound at the f32 rate
+        res["f32_rate_bound_ms"] = flash_bound_ms(shape, torch.float32,
+                                                  causal)[0]
+        extra = ", %.1f%% of the bound at the f32 rate (%.4f ms)" % (
+            100 * res["f32_rate_bound_ms"] / ms, res["f32_rate_bound_ms"])
+    print("flash time: %s %s causal=%s on %s | kernel %.4f ms, plain %.4f "
+          "ms, sdpa %.4f ms, bound %.4f ms (%s), kernel at %.1f%% of the "
+          "bound%s | in runs of %d calls: kernel %.4f ms, sdpa %.4f ms | %s"
+          % (name, shape, causal, kernel, ms, plain_ms, library_ms, bms, by,
+             100 * bms / ms, extra, RUN, run_ms, library_run_ms, card),
+          flush=True)
+    return res
 
 
 def main():
@@ -619,16 +647,23 @@ def main():
             "calls": n_calls, "elements": t["elements"],
             "padded_elements": t["padded_elements"],
             "card": card}, **flat[name]))
-    for dtype, kernel in FLASH_KERNEL.items():
+    # f32 inputs and bf16 past D 256 run flash_attention.cu: its row's
+    # times also hold the wide head dim in both types
+    wide_times = [time_flash(WIDE_TIME_SHAPE, dtype, False, card)
+                  for dtype in (torch.float32, torch.bfloat16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        kernel = kernels.flash_kernel(dtype, LONG_SHAPE[-1])
         # the sp path's shape first: long context, non-causal
         times = [time_flash(shape, dtype, causal, card)
                  for shape, causal in ((LONG_SHAPE, False),
                                        (LM_SHAPE, False), (LM_SHAPE, True))]
+        if kernel == "flash_attention":
+            times += wide_times
         main_path = times[0]
         row = {
             "name": kernel, "route": "cuda", "source": FLASH_SOURCES[kernel],
             "replaces": FLASH_REPLACES, "launches": sp_launches[kernel],
-            "max_abs_err": max(flash_worst[dtype], sp_worst[dtype]),
+            "max_abs_err": max(flash_worst[kernel, dtype], sp_worst[dtype]),
             "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"],
             "bound_by": main_path["bound_by"],
@@ -637,7 +672,11 @@ def main():
             "causal": False, "engine_ms": sp_times[dtype],
             "times": times[1:], "card": card}
         if dtype == torch.bfloat16:
-            row["bf16_bound_share"] = max(flash_share, sp_share)
+            row["bf16_bound_share"] = max(flash_share[kernel, dtype],
+                                          sp_share)
+        else:  # the wide head dims in bf16 ran this kernel too
+            row["bf16_max_abs_err"] = flash_worst[kernel, torch.bfloat16]
+            row["bf16_bound_share"] = flash_share[kernel, torch.bfloat16]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,11 @@ callers reach this module only for CUDA tensors.
 
 Each launching wrapper adds one to ``launch_counts[<kernel>]`` where it
 launches, so a run can show that its path went through the kernel.  Flash
-attention has two kernels, one per input type: f32 runs
-``flash_attention.cu`` (CUDA cores) and counts ``"flash_attention"``,
-bf16 runs ``flash_attention_bf16.cu`` (tensor cores) and counts
-``"flash_attention_bf16"``.
+attention has two sources, and a launch counts under the one that ran:
+``flash_attention.cu`` (f32 arithmetic on the CUDA cores) takes f32 inputs
+at any head dim and bf16 inputs with D > ``FLASH_MAX_HEAD_DIM``, and counts
+``"flash_attention"``; ``flash_attention_bf16.cu`` (tensor cores) takes
+bf16 inputs up to that head dim and counts ``"flash_attention_bf16"``.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "quantize_2bit", "dequantize_2bit", "flash_attention_fwd",
-           "bf16_vector_loads", "launch_counts", "reset_launch_counts",
-           "SOURCES", "FLASH_MAX_HEAD_DIM"]
+           "flash_kernel", "bf16_vector_loads", "f32_vector_loads",
+           "launch_counts", "reset_launch_counts", "SOURCES",
+           "FLASH_MAX_HEAD_DIM"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
@@ -36,6 +38,7 @@ SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
            "flash_attention_bf16": _HERE / "flash_attention_bf16.cu"}
 _BUILD_DIR = _HERE.parent / "_build"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# the tensor-core kernel's largest head dim; flash_attention.cu takes any
 FLASH_MAX_HEAD_DIM = 256
 
 launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0,
@@ -73,9 +76,9 @@ def _bind(name, lib):
         lib.mxtt_quantize_2bit.restype = i32
         lib.mxtt_dequantize_2bit.argtypes = [vp, vp, ll, f32, vp]
         lib.mxtt_dequantize_2bit.restype = i32
-    elif name == "flash_attention":
+    elif name == "flash_attention":  # also the type and the loader flag
         lib.mxtt_flash_attention_fwd.argtypes = (
-            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, vp])
+            [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, i32, vp])
         lib.mxtt_flash_attention_fwd.restype = i32
     else:  # the bf16 entry point also takes the loader flag
         lib.mxtt_flash_attention_fwd_bf16.argtypes = (
@@ -189,20 +192,42 @@ def dequantize_2bit(codes, threshold):
     return out
 
 
+def _vector_loads(tensors, per16):
+    return all(t.data_ptr() % 16 == 0 and t.shape[3] % per16 == 0
+               and all(s % per16 == 0 for s in t.stride()[:3])
+               for t in tensors)
+
+
 def bf16_vector_loads(*tensors):
-    """Whether the bf16 kernel may stage these (B, T, H, D) tensors with
+    """Whether the bf16 kernels may stage these (B, T, H, D) tensors with
     16-byte copies: every data pointer and every stride times 2 bytes a
-    multiple of 16, and D a multiple of 8.  Otherwise it loads element by
+    multiple of 16, and D a multiple of 8.  Otherwise they load element by
     element into the same layout."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0
-               and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
+    return _vector_loads(tensors, 8)
+
+
+def f32_vector_loads(*tensors):
+    """Whether ``flash_attention.cu`` may stage these f32 (B, T, H, D)
+    tensors with 16-byte ``cp.async`` copies: every data pointer and every
+    stride times 4 bytes a multiple of 16, and D a multiple of 4.
+    Otherwise it loads element by element into the same layout."""
+    return _vector_loads(tensors, 4)
+
+
+def flash_kernel(dtype, head_dim):
+    """The flash kernel (``launch_counts`` key and ``SOURCES`` name) that
+    ``flash_attention_fwd`` runs for inputs of this type and head dim."""
+    if dtype == torch.bfloat16 and head_dim <= FLASH_MAX_HEAD_DIM:
+        return "flash_attention_bf16"
+    return "flash_attention"
 
 
 def flash_attention_fwd(q, k, v, scale, causal):
     """Launch the flash-attention forward on (B, T, H, D) ``q``, ``k``,
     ``v`` of one type, read through their strides (the head dim must have
-    stride 1): f32 on ``flash_attention.cu``, bf16 on the tensor-core
-    kernel ``flash_attention_bf16.cu``.  Returns (o (B, Tq, H, D) in that
+    stride 1): f32 at any D, and bf16 with D > ``FLASH_MAX_HEAD_DIM``, on
+    ``flash_attention.cu``; bf16 up to that D on the tensor-core kernel
+    ``flash_attention_bf16.cu``.  Returns (o (B, Tq, H, D) in the input
     type, lse (B, Tq, H) f32), both contiguous."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
@@ -212,10 +237,7 @@ def flash_attention_fwd(q, k, v, scale, causal):
                                  tuple(v.shape)))
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    if not 1 <= D <= FLASH_MAX_HEAD_DIM:
-        raise ValueError("flash_attention_fwd: head dim %d is outside the "
-                         "kernel's range 1..%d" % (D, FLASH_MAX_HEAD_DIM))
-    if min(B, Tq, Tk, H) < 1:
+    if min(B, Tq, Tk, H, D) < 1:
         raise ValueError("flash_attention_fwd: empty input %s, %s"
                          % (tuple(q.shape), tuple(k.shape)))
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -232,7 +254,7 @@ def flash_attention_fwd(q, k, v, scale, causal):
                              "stride may be negative; strides %s"
                              % (name, t.stride()))
     bf16 = q.dtype == torch.bfloat16
-    name = "flash_attention_bf16" if bf16 else "flash_attention"
+    name = flash_kernel(q.dtype, D)
     lib = _load(name)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
@@ -241,11 +263,14 @@ def flash_attention_fwd(q, k, v, scale, causal):
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, Tq, Tk, D, *strides, float(scale),
             int(bool(causal))]
-    if bf16:  # the loader: 16-byte cp.async or element by element
+    # the loader: 16-byte copies or element by element
+    vec = bf16_vector_loads(q, k, v) if bf16 else f32_vector_loads(q, k, v)
+    if name == "flash_attention_bf16":
         fn = lib.mxtt_flash_attention_fwd_bf16
-        args.append(int(bf16_vector_loads(q, k, v)))
+        args.append(int(vec))
     else:
         fn = lib.mxtt_flash_attention_fwd
+        args += [int(bf16), int(vec)]
     with torch.cuda.device(q.device):
         args.append(torch.cuda.current_stream().cuda_stream)
         err = fn(*args)

@@ -2,10 +2,12 @@
 ``mxnet_tpu/ops/attention_pallas.py``.
 
 The forward of a CUDA tensor is a hand-written kernel (blockwise online
-softmax; the (T, T) score matrix is never stored): f32 on
-``kernels/flash_attention.cu`` (CUDA cores), bf16 on
-``kernels/flash_attention_bf16.cu`` (tensor cores, P rounded to bf16
-before P.V).  The forward of a CPU tensor is the plain
+softmax; the (T, T) score matrix is never stored): f32 at any head dim,
+and bf16 with a head dim above 256, on ``kernels/flash_attention.cu`` (f32
+arithmetic on the CUDA cores; launches count as ``"flash_attention"``);
+bf16 up to head dim 256 on ``kernels/flash_attention_bf16.cu`` (tensor
+cores, P rounded to bf16 before P.V; ``"flash_attention_bf16"``).  The
+forward of a CPU tensor is the plain
 version ``_ref_attention_lse``, and nothing else.  Returns the normalized
 output and the per-row logsumexp, which ``parallel.ring_attention`` uses
 to merge partial results exactly.

@@ -201,3 +201,98 @@ def test_bf16_bound_catches_wrong_kernel(fault):
     o, _ = _emulate_bf16_kernel(q, k, v, 64 ** -0.5, False, **broken)
     share, _ = _bf16_share(o, q, k, v, 64 ** -0.5, False)
     assert share > 1.0, share
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_wide_head_matches_jax_kernel(causal):
+    """Head dims above 256 (which the CUDA side runs on the wide variant
+    of the f32 kernel): the port against the JAX package's kernel."""
+    arrs = _qkv(B=1, T=128, H=2, D=320, seed=6)
+    o_j, lse_j = jattn.flash_attention_with_lse(*_jax(arrs), causal=causal)
+    o_t, lse_t = tattn.flash_attention_with_lse(*_torch(arrs), causal=causal)
+    assert o_t.shape == (1, 128, 2, 320) and lse_t.shape == (1, 128, 2)
+    assert np.abs(_np(o_t) - _np(o_j)).max() < 5e-5
+    assert np.abs(_np(lse_t) - _np(lse_j)).max() < 5e-5
+
+
+def _f32_kernel_tiles(D):
+    """flash_attention.cu's tiles at head dim D: (query rows, keys, Q/K
+    head-dim chunk, o head-dim slice).  Up to D 256 one narrow template
+    per DP (D rounded up to 16, 32, 64, 128 or 256), one chunk and one
+    slice; above, the wide variant."""
+    if D > 256:
+        return 64, 32, 64, 256
+    dp = next(p for p in (16, 32, 64, 128, 256) if D <= p)
+    return {128: (64, 32), 256: (32, 32)}.get(dp, (128, 64)) + (dp, dp)
+
+
+def _emulate_f32_kernel(q, k, v, scale, causal, drop_tile=None,
+                        drop_slice=None):
+    """flash_attention.cu's decomposition in plain torch on (B, T, H, D):
+    per query tile and per slice of o's head dims, the key tiles in order
+    (those wholly above the diagonal skipped under ``causal``); the scores
+    over the full D, summed over head-dim chunks of q * scale and k;
+    masked scores -1e30; the online-softmax update; o = acc / max(l,
+    1e-30) on the slice's head dims and lse = m + log(max(l, 1e-30)) from
+    slice 0 only.  ``drop_tile`` and ``drop_slice`` break it on purpose."""
+    bq, bk, dc, dv = _f32_kernel_tiles(q.shape[-1])
+    qs = q.float().transpose(1, 2) * scale
+    kf, vf = (t.float().transpose(1, 2) for t in (k, v))
+    (B, H, Tq, D), Tk = qs.shape, kf.shape[2]
+    o = torch.zeros(B, H, Tq, D)
+    lse = torch.zeros(B, H, Tq)
+    for q0 in range(0, Tq, bq):
+        rows = torch.arange(q0, min(q0 + bq, Tq))
+        n_live = -(-Tk // bk)
+        if causal:
+            n_live = min(n_live, int(rows[-1]) // bk + 1)
+        for sl, d0 in enumerate(range(0, D, dv)):
+            if sl == drop_slice:
+                continue
+            m = torch.full((B, H, len(rows), 1), -1e30)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(B, H, len(rows), min(dv, D - d0))
+            for j in range(n_live):
+                if j == drop_tile:
+                    continue
+                keys = torch.arange(j * bk, min(j * bk + bk, Tk))
+                s = sum(qs[:, :, rows, c0:c0 + dc]
+                        @ kf[:, :, keys, c0:c0 + dc].transpose(-1, -2)
+                        for c0 in range(0, D, dc))
+                if causal:
+                    s = torch.where(rows[:, None] >= keys[None, :], s, -1e30)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p @ vf[:, :, keys, d0:d0 + dv]
+                m = m_new
+            l_safe = l.clamp_min(1e-30)
+            o[:, :, rows, d0:d0 + dv] = acc / l_safe
+            if sl == 0:
+                lse[:, :, rows] = (m + torch.log(l_safe))[..., 0]
+    return o.transpose(1, 2), lse.transpose(1, 2)
+
+
+@pytest.mark.parametrize("D,causal", [(64, False), (320, True)])
+def test_f32_kernel_decomposition_matches_jax_kernel(D, causal):
+    """The f32 kernel's tiles, head-dim chunks and slices, emulated on the
+    CPU, hold to the JAX package's kernel (interpret mode) within 5e-5:
+    the narrow template at D 64 (one chunk, one slice), the wide variant at
+    D 320 (5 chunks of 64, slices of 256 and 64, lse from slice 0)."""
+    arrs = _qkv(B=1, T=192, H=2, D=D, seed=7)
+    o_j, lse_j = jattn.flash_attention_with_lse(*_jax(arrs), causal=causal,
+                                                blk_q=64, blk_k=64)
+    o, lse = _emulate_f32_kernel(*_torch(arrs), D ** -0.5, causal)
+    assert np.abs(_np(o) - _np(o_j)).max() < 5e-5
+    assert np.abs(_np(lse) - _np(lse_j)).max() < 5e-5
+
+
+@pytest.mark.parametrize("fault", ["drop_tile", "drop_slice"])
+def test_f32_decomposition_check_catches_wrong_kernel(fault):
+    """The check has teeth: the same emulation at D 320 with one key tile
+    or one head-dim slice left out is far outside 5e-5 of the plain
+    version."""
+    q, k, v = _torch(_qkv(B=1, T=192, H=2, D=320, seed=7))
+    o, lse = _emulate_f32_kernel(q, k, v, 320 ** -0.5, False, **{fault: 1})
+    ro = local_attention(q, k, v)
+    assert (o - ro).abs().max().item() > 1e-2

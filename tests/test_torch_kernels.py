@@ -105,16 +105,15 @@ def test_cuda_kernels_reject_bad_inputs():
                               g, T)
 
 
-def test_flash_wrapper_rejects_cpu_tensors_and_wide_heads():
-    """The flash wrapper refuses CPU tensors (no fallback) and head dims
-    past the kernel's limit, naming the limit, in both input types."""
+def test_flash_wrapper_rejects_cpu_tensors():
+    """The flash wrapper refuses CPU tensors (no fallback) in both input
+    types, also at a head dim past the tensor-core kernel's limit (which
+    the f32 kernel's wide variant takes on the card)."""
     for dt in (torch.float32, torch.bfloat16):
-        x = torch.zeros(1, 64, 2, 64, dtype=dt)
-        with pytest.raises(ValueError, match="CUDA"):
-            kernels.flash_attention_fwd(x, x, x, 0.125, False)
-        wide = torch.zeros(1, 64, 2, kernels.FLASH_MAX_HEAD_DIM + 1, dtype=dt)
-        with pytest.raises(ValueError, match=str(kernels.FLASH_MAX_HEAD_DIM)):
-            kernels.flash_attention_fwd(wide, wide, wide, 0.125, False)
+        for d in (64, 512):
+            x = torch.zeros(1, 64, 2, d, dtype=dt)
+            with pytest.raises(ValueError, match="CUDA"):
+                kernels.flash_attention_fwd(x, x, x, 0.125, False)
 
 
 def test_bf16_loader_choice():
@@ -133,19 +132,50 @@ def test_bf16_loader_choice():
     assert not kernels.bf16_vector_loads(dense, dense, odd_rows)
 
 
+def test_flash_kernel_routing():
+    """f32 at any head dim and bf16 past the tensor-core kernel's limit
+    run flash_attention.cu; bf16 up to it runs the tensor-core kernel."""
+    for d in (1, 64, 256, 257, 512):
+        assert kernels.flash_kernel(torch.float32, d) == "flash_attention"
+    for d in (1, 64, 256):
+        assert kernels.flash_kernel(torch.bfloat16, d) == \
+            "flash_attention_bf16"
+    for d in (257, 320, 1024):
+        assert kernels.flash_kernel(torch.bfloat16, d) == "flash_attention"
+
+
+def test_f32_loader_choice():
+    """The f32 kernel stages with 16-byte cp.async copies only where every
+    row start is 16-byte aligned: D 20 is (80 bytes), D 18, a row stride
+    of 66 elements or a view offset by one element is not."""
+    dense = torch.zeros(2, 64, 2, 64)
+    buf = torch.zeros(2, 64, 2, 128)
+    assert kernels.f32_vector_loads(dense, dense, dense)
+    assert kernels.f32_vector_loads(buf[..., :64], dense, dense)
+    assert kernels.f32_vector_loads(dense[..., :20], dense, dense)
+    assert not kernels.f32_vector_loads(buf[..., 1:65], dense, dense)
+    assert not kernels.f32_vector_loads(dense, dense[..., :18], dense)
+    odd_rows = torch.zeros(2, 64, 2, 66)[..., :64]
+    assert not kernels.f32_vector_loads(dense, dense, odd_rows)
+
+
 # (B, Tq, Tk, H, D, causal, q_off): the JAX suite's shapes, every
-# head-dim variant of the kernels, ragged lengths that are not multiples
-# of their query and key tiles, causal with Tq != Tk and Tk not a multiple
-# of the key tile; q is the head slice [q_off, q_off + D) of a (B, Tq, H, 2D + 8)
-# buffer, so D 20 and q_off 1 reach the bf16 kernel's element-wise loader
-# and the other cases its 16-byte loader
+# head-dim variant of the kernels (D 257, 320 and 512 on the f32 kernel's
+# wide variant, in both types), ragged lengths that are not multiples of
+# their query and key tiles, causal with Tq != Tk and Tk not a multiple of
+# the key tile; q is the head slice [q_off, q_off + D) of a (B, Tq, H,
+# 2D + 8) buffer.  Element-wise loaders: q_off 1 in both types, D 18 and
+# D 257 in f32, D 20 in bf16 (a multiple of 4, so f32 takes 16-byte
+# copies there); the other cases take the 16-byte loaders.
 FLASH_CASES = [(2, 256, 256, 2, 64, False, 0), (2, 256, 256, 2, 64, True, 0),
                (1, 128, 128, 1, 8, True, 0), (2, 64, 64, 3, 16, False, 0),
                (1, 96, 96, 2, 32, True, 0), (1, 256, 256, 2, 128, True, 0),
                (1, 128, 128, 1, 256, False, 0), (2, 100, 77, 2, 48, True, 0),
                (1, 77, 130, 2, 64, False, 0), (1, 128, 96, 2, 20, True, 0),
                (2, 130, 130, 2, 64, False, 1), (1, 130, 200, 2, 64, True, 0),
-               (1, 200, 100, 2, 256, True, 1)]
+               (1, 200, 100, 2, 256, True, 1), (1, 64, 64, 1, 257, False, 0),
+               (1, 128, 96, 2, 320, True, 0), (2, 130, 130, 2, 512, False, 1),
+               (1, 96, 80, 2, 18, True, 0), (1, 100, 64, 3, 40, False, 1)]
 
 # bf16 o against the f32 plain version on the same bf16 values.  The
 # kernel rounds each probability P to bf16 before P.V (relative error at
@@ -173,10 +203,11 @@ def _plain_with_obar(q, k, v, scale, causal):
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_cuda_flash_matches_plain_version(case, dtype):
     """Kernel vs plain version on the card, q read through a strided
-    view: f32 within 5e-5 (o) and 1e-4 (lse) on the f32 kernel; bf16 on
-    the tensor-core kernel, o within 3e-2 of the plain version on the
-    same values in f32 and within 2^-8 (|o| + obar) + 5e-5 elementwise,
-    lse within 1e-4."""
+    view: f32 on the f32 kernel within 5e-5 (o) and 1e-4 (lse); bf16 (on
+    the tensor-core kernel up to D 256, on the f32 kernel's wide variant
+    above) with o within 3e-2 of the plain version on the same values in
+    f32 and within 2^-8 (|o| + obar) + 5e-5 elementwise, lse within
+    1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -187,8 +218,13 @@ def test_cuda_flash_matches_plain_version(case, dtype):
     q = wide.to("cuda", dt)[..., q_off:q_off + D]
     k, v = (torch.tensor(rng.randn(B, Tk, H, D).astype(np.float32)
                          ).to("cuda", dt) for _ in range(2))
-    assert kernels.bf16_vector_loads(q, k, v) == (D % 8 == 0 and q_off == 0)
-    name = "flash_attention" if dtype == "float32" else "flash_attention_bf16"
+    if dtype == "float32":
+        assert kernels.f32_vector_loads(q, k, v) == (D % 4 == 0 and q_off == 0)
+    else:
+        assert kernels.bf16_vector_loads(q, k, v) == \
+            (D % 8 == 0 and q_off == 0)
+    name = ("flash_attention" if dtype == "float32"
+            or D > kernels.FLASH_MAX_HEAD_DIM else "flash_attention_bf16")
     before = dict(kernels.launch_counts)
     o, lse = kernels.flash_attention_fwd(q, k, v, D ** -0.5, causal)
     torch.cuda.synchronize()
