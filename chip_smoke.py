@@ -10,15 +10,24 @@ non-zero, printing no result, without them.  Phases, one line each:
    nvcc per source, with each kernel's registers, spills and static
    shared memory from ptxas, and the number of kernels that spill;
 3. kernels: each compression kernel against its plain PyTorch version on
-   the card (bit-exact) at 1000, 16384, 16384*7+3 elements and at the
-   element count of resnet50_v1's trainable parameters, with CUDA-event
-   times beside the HBM bound;
+   the card (bit-exact), as a batch of one at 1000, 16384, 16384*7+3
+   elements and at the element count of resnet50_v1's trainable
+   parameters, with CUDA-event times beside the HBM bound; then one launch
+   of each over a ragged batch of 1, 3, 127, 16385 and 16384*7+3 elements
+   whose gradients sit 0, 1 and 2 elements past a 16-byte boundary of one
+   buffer (the misaligned ones shown to take the kernel's element-by-
+   element path), for two pushes that carry the residual arena over; and
+   a KVStore push of one key twice in one list, twice, on the card and
+   on the CPU, bit for bit;
 4. slice: resnet50_v1 (full width, f32, TF32 off), batch 32 of 3x224x224
    synthetic data from a seed, 5 steps of gluon Trainer + KVStore('device')
    + 2-bit compression (t 0.5) with update_on_kvstore: loss finite and
-   falling, each kernel launched 193 x 5 times, both kernels bit-exact
-   with their plain versions on the real step-1 gradients, and a small
-   ResNet's logits on the card agreeing with the port on the CPU;
+   falling, each kernel launched once a step (one batched launch per
+   push over all 193 keys), both kernels bit-exact with the batched plain
+   version on the real step-1 gradients of all 193 keys in one call
+   (codes, residual arena, dequantized values), the times of one batched
+   launch of each over those keys, and a small ResNet's logits on the
+   card agreeing with the port on the CPU;
 5. flash: both flash-attention kernels (flash_attention.cu, f32
    arithmetic on the CUDA cores, for f32 inputs and for bf16 inputs with
    D > 256; flash_attention_bf16.cu, tensor cores, for bf16 up to D 256)
@@ -77,6 +86,11 @@ STEPS = 5
 REPS = 25                        # timed runs per measurement (median)
 RUN = 10     # calls per timed run where the host's time is left out
 SOURCE = "mxnet_tpu_torch/kernels/compression_2bit.cu"
+# the ragged batch of the kernel phase and the element offsets of its
+# gradients in one buffer: 1 and 6 are 1 and 2 floats past a 16-byte
+# boundary, so those entries take the element-by-element path
+RAGGED_SIZES = (1, 3, 127, 16385, 16384 * 7 + 3)
+RAGGED_STARTS = (0, 1, 6, 136, 16524)
 REPLACES = {"quantize_2bit": "mxnet_tpu/contrib/compression.py:50",
             "dequantize_2bit": "mxnet_tpu/contrib/compression.py:68"}
 # The least work of the function on n real elements packed into a padded
@@ -172,6 +186,120 @@ def padded(flat):
     return comp._pad2d(flat, rows)
 
 
+def batch_launch_ms(layout, grads, residual_in, residual_out):
+    """Per kernel, the time of one launch over the batch, in runs of RUN
+    launches (the host's work of each launch overlaps the card's work on
+    the one before)."""
+    codes = torch.empty(layout.n_code_words, dtype=torch.int32,
+                        device="cuda")
+    out = torch.empty(layout.n_values, device="cuda")
+    quantize = kernels.quantize_2bit_batch_launcher(
+        layout, grads, residual_in, residual_out, codes, T)
+    quantize()
+    dequantize = kernels.dequantize_2bit_batch_launcher(layout, codes, out,
+                                                        T)
+    return {"quantize_2bit": time_ms(quantize, RUN),
+            "dequantize_2bit": time_ms(dequantize, RUN)}
+
+
+def check_batch(layout, grads, arena, label):
+    """One launch of each batched kernel against the batched plain version
+    on the same batch, both updating their own copy of the residual arena
+    in place; codes, arena and every entry's dequantized values checked
+    bit for bit.  Returns the max |difference| (zero)."""
+    ref_arena = arena.clone()
+    before = dict(kernels.launch_counts)
+    codes = comp.quantize_batch(layout, grads, arena, arena, T)
+    deq = comp.dequantize_batch(layout, codes, T)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(launched["quantize_2bit"] == launched["dequantize_2bit"] == 1,
+          "%s: launches %s, expected one of each" % (label, launched))
+    rcodes = torch.empty_like(codes)
+    comp.quantize_batch_ref(layout, grads, ref_arena, ref_arena, rcodes, T)
+    rdeq = torch.empty_like(deq)
+    comp.dequantize_batch_ref(layout, rcodes, rdeq, T)
+    torch.cuda.synchronize()
+    check(torch.equal(codes, rcodes), "%s: codes differ" % label)
+    check(same_bits(arena, ref_arena), "%s: residual arenas differ" % label)
+    worst = max(float((codes.to(torch.int64) - rcodes).abs().max()),
+                float((arena - ref_arena).abs().max()))
+    for e in range(len(grads)):
+        a, b = layout.values(deq, e), layout.values(rdeq, e)
+        check(same_bits(a, b), "%s: dequantized values of entry %d differ"
+              % (label, e))
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def vector_flags(layout, grads, arena):
+    """The vector field of each entry as the kernel reads it: from the
+    device copy of the entry table."""
+    table = kernels._device_table(layout, arena.device, grads, arena,
+                                  arena).cpu().numpy()
+    width = len(kernels.COMPRESSION_FIELDS)
+    return table[:len(grads) * width].reshape(-1, width)[:, 7].tolist()
+
+
+def check_ragged_batch(gen, card):
+    """The ragged, misaligned batch for two pushes; returns the max
+    |difference| (zero)."""
+    sizes = RAGGED_SIZES
+    layout = comp.batch_layout(sizes)
+    shared = torch.empty(RAGGED_STARTS[-1] + sizes[-1], device="cuda")
+    grads = [shared[s:s + n] for s, n in zip(RAGGED_STARTS, sizes)]
+    arena = torch.zeros(layout.n_values, device="cuda")
+    worst = 0.0
+    for push in range(2):
+        for g in grads:
+            g.copy_(make_inputs(g.numel(), gen)[0])
+        worst = max(worst, check_batch(layout, grads, arena,
+                                       "ragged batch, push %d" % push))
+    flags = vector_flags(layout, grads, arena)
+    offsets = [g.data_ptr() % 16 // 4 for g in grads]
+    check(flags == [int(o == 0) for o in offsets] and 1 in offsets
+          and 2 in offsets, "ragged batch: vector flags %s for entries "
+          "%s floats past a 16-byte boundary" % (flags, offsets))
+    print("kernels: ragged batch %s at %s floats past a 16-byte boundary, "
+          "2 pushes, one launch of each per push, bit-exact | vector flags "
+          "%s (0: element-by-element path) | %s"
+          % (list(sizes), offsets, flags, card), flush=True)
+    return worst
+
+
+def check_repeated_key(card):
+    """KVStore.push(["w", "w"]) twice with compression, on the card and on
+    the CPU (the plain version): the updater sees the same aggregates bit
+    for bit, and the card launches each kernel once per run of the list
+    in which no key repeats."""
+    n = 16384 * 7 + 3
+    rng = np.random.RandomState(3)
+    values = [[rng.randn(n).astype(np.float32) * 0.6 for _ in range(2)]
+              for _ in range(2)]
+    seen = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        kv = mx.kv.create("device")
+        kv.init("w", mx.nd.zeros((n,), ctx=ctx))
+        kv.set_gradient_compression({"type": "2bit", "threshold": T})
+        seen[ctx] = []
+        kv.set_updater(lambda k, agg, w, out=seen[ctx]:
+                       out.append(agg._data.cpu().clone()))
+        before = dict(kernels.launch_counts)
+        for push in values:
+            kv.push(["w", "w"], [mx.nd.array(v, ctx=ctx) for v in push])
+        launched = {k: c - before[k] for k, c in kernels.launch_counts.items()}
+        if ctx == mx.gpu(0):
+            check(launched["quantize_2bit"] == launched["dequantize_2bit"]
+                  == 4, "repeated key: launches %s, expected 4 of each"
+                  % launched)
+    card_aggs, cpu_aggs = seen[mx.gpu(0)], seen[mx.cpu()]
+    check(len(card_aggs) == len(cpu_aggs) == 4
+          and all(same_bits(a, b) for a, b in zip(card_aggs, cpu_aggs)),
+          "repeated key: aggregates differ between the card and the CPU")
+    print("kernels: KVStore push of one key twice in a list, 2 pushes: 4 "
+          "aggregates bit-exact with the CPU's plain version | %s" % card,
+          flush=True)
+
+
 def phase_device():
     check(torch.cuda.is_available(), "CUDA is not available")
     smi = subprocess.run(
@@ -245,15 +373,15 @@ def phase_kernels(n_resnet, card):
         worst = max(worst, compare_kernels(g2d, r2d))
         codes, _ = kernels.quantize_2bit(g2d, r2d, T)
         elts = g2d.numel()
+        launch_ms = batch_launch_ms(comp.batch_layout((elts,)),
+                                    [g2d.view(-1)], r2d.view(-1),
+                                    torch.empty_like(r2d).view(-1))
         line = []
-        for name, kern, plain in (
-                ("quantize_2bit",
-                 lambda: kernels.quantize_2bit(g2d, r2d, T),
-                 lambda: comp.quantize_2bit_ref(g2d, r2d, T)),
+        for name, plain in (
+                ("quantize_2bit", lambda: comp.quantize_2bit_ref(g2d, r2d, T)),
                 ("dequantize_2bit",
-                 lambda: kernels.dequantize_2bit(codes, T),
                  lambda: comp.dequantize_2bit_ref(codes, T))):
-            ms, pms = time_ms(kern), time_ms(plain)
+            ms, pms = launch_ms[name], time_ms(plain)
             bms, _ = bound_ms(name, n, elts)
             line.append("%s %.4f ms (plain %.4f, bound %.4f, %.0f%% of HBM"
                         " peak)" % (name, ms, pms, bms, 100 * bms / ms))
@@ -261,8 +389,11 @@ def phase_kernels(n_resnet, card):
                 flat[name] = {"flat_elements": n,
                               "flat_padded_elements": elts, "flat_ms": ms,
                               "flat_plain_ms": pms, "flat_bound_ms": bms}
-        print("kernels: n=%d (padded %d) bit-exact | %s | %s"
-              % (n, elts, "; ".join(line), card), flush=True)
+        print("kernels: n=%d (padded %d) bit-exact, a batch of one | kernel "
+              "per launch in runs of %d launches: %s | %s"
+              % (n, elts, RUN, "; ".join(line), card), flush=True)
+    worst = max(worst, check_ragged_batch(gen, card))
+    check_repeated_key(card)
     return worst, flat
 
 
@@ -291,7 +422,7 @@ def phase_slice(net, trainable, card):
         kvstore=mx.kv.create("device"),
         compression_params={"type": "2bit", "threshold": T},
         update_on_kvstore=True)
-    losses, step_s, fb_s, step1_grads = [], [], [], None
+    losses, step_s, fb_s, ts_s, step1_grads = [], [], [], [], None
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     for step in range(STEPS):
@@ -307,7 +438,8 @@ def phase_slice(net, trainable, card):
         t1 = time.perf_counter()  # the clone above is not timed
         trainer.step(BATCH)
         torch.cuda.synchronize()
-        step_s.append(fb_s[-1] + time.perf_counter() - t1)
+        ts_s.append(time.perf_counter() - t1)
+        step_s.append(fb_s[-1] + ts_s[-1])
         losses.append(float(loss.mean().asscalar()))
     launches = dict(kernels.launch_counts)
     check(out.shape == (BATCH, 1000), "logits shape %s" % (out.shape,))
@@ -318,49 +450,67 @@ def phase_slice(net, trainable, card):
     # ResNet (tests/test_torch_resnet_train.py, smoke-settings tests)
     check(losses[0] > losses[1] > losses[2],
           "loss did not fall over steps 1-3: %s" % losses)
+    # one push a step: one launch of each kernel over all 193 keys
     for name in ("quantize_2bit", "dequantize_2bit"):
-        check(launches[name] == 193 * STEPS, "%s launched %d times, "
-              "expected %d" % (name, launches[name], 193 * STEPS))
-    # the kernels against their plain versions on the real step-1
-    # gradients, one padded key at a time as the kvstore pushes them
-    worst = 0.0
-    step_inputs = []
-    for g in step1_grads:
-        g2d = padded(g.reshape(-1))
-        r2d = torch.zeros_like(g2d)
-        worst = max(worst, compare_kernels(g2d, r2d))
-        step_inputs.append((g2d, r2d, g.numel()))
+        check(launches[name] == STEPS, "%s launched %d times, expected %d"
+              % (name, launches[name], STEPS))
+    # the batched kernels against the batched plain version on the real
+    # step-1 gradients of all 193 keys in one call, from zero residuals
+    grads = [g.reshape(-1) for g in step1_grads]
+    layout = comp.batch_layout(tuple(g.numel() for g in grads))
+    worst = check_batch(layout, grads,
+                        torch.zeros(layout.n_values, device="cuda"),
+                        "step-1 gradients of the 193 keys")
     steady = sum(step_s[1:]) / (STEPS - 1)
     print("slice: resnet50_v1 f32 batch %d, %d steps Trainer+KVStore(device)"
-          "+2bit | loss %s | step s %s (fwd+bwd %s, trainer.step the rest)"
-          " | %.1f img/s (steps 2-%d) | launches %s | step-1 grads "
-          "bit-exact | %s"
+          "+2bit | loss %s | step s %s = fwd+bwd %s + trainer.step %s | "
+          "%.1f img/s (steps 2-%d) | launches %s | step-1 grads of the 193 "
+          "keys bit-exact in one batched call | %s"
           % (BATCH, STEPS, ["%.4f" % v for v in losses],
              ["%.4f" % s for s in step_s], ["%.4f" % s for s in fb_s],
-             BATCH / steady, STEPS, launches, card), flush=True)
-    return launches, worst, step_inputs
+             ["%.4f" % s for s in ts_s], BATCH / steady, STEPS, launches,
+             card), flush=True)
+    return launches, worst, (layout, grads), ts_s
 
 
-def time_step_set(step_inputs):
-    """Times of one step's 193 per-key launches (kernel vs plain) on the
-    step-1 gradients, and their bounds."""
-    codes = [kernels.quantize_2bit(g, r, T)[0] for g, r, _ in step_inputs]
-    elts = sum(n for _, _, n in step_inputs)
-    padded_elts = sum(g.numel() for g, _, _ in step_inputs)
+def time_step_set(step_inputs, card):
+    """Times of one step's batched launch of each kernel over the 193 keys'
+    step-1 gradients: the kernel (per launch, in runs of RUN launches, so
+    the host's work overlaps the card's), the whole wrapper call (one
+    call, host work included), the batched plain version, and the
+    bounds."""
+    layout, grads = step_inputs
+    arena = torch.zeros(layout.n_values, device="cuda")
+    launch_ms = batch_launch_ms(layout, grads, arena, arena)
+    codes = comp.quantize_batch(layout, grads, arena, arena, T)
+    out = torch.empty(layout.n_values, device="cuda")
+    ref_arena = arena.clone()
+    ref_codes = torch.empty_like(codes)
+    elts = sum(layout.sizes)
+    padded_elts = 128 * 128 * layout.n_tiles
     res = {}
-    for name, kern, plain in (
+    for name, call, plain in (
             ("quantize_2bit",
-             lambda: [kernels.quantize_2bit(g, r, T)
-                      for g, r, _ in step_inputs],
-             lambda: [comp.quantize_2bit_ref(g, r, T)
-                      for g, r, _ in step_inputs]),
+             lambda: comp.quantize_batch(layout, grads, arena, arena, T),
+             lambda: comp.quantize_batch_ref(layout, grads, ref_arena,
+                                             ref_arena, ref_codes, T)),
             ("dequantize_2bit",
-             lambda: [kernels.dequantize_2bit(c, T) for c in codes],
-             lambda: [comp.dequantize_2bit_ref(c, T) for c in codes])):
+             lambda: comp.dequantize_batch(layout, codes, T),
+             lambda: comp.dequantize_batch_ref(layout, codes, out, T))):
         bms, by = bound_ms(name, elts, padded_elts)
-        res[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
-                     "bound_ms": bms, "bound_by": by, "elements": elts,
-                     "padded_elements": padded_elts}
+        res[name] = {"ms": launch_ms[name], "call_ms": time_ms(call),
+                     "plain_ms": time_ms(plain), "bound_ms": bms,
+                     "bound_by": by, "elements": elts,
+                     "padded_elements": padded_elts,
+                     "entries": len(layout.sizes), "blocks": layout.n_tiles}
+        print("kernels time: %s, one launch over the %d keys (%d blocks) | "
+              "kernel %.4f ms (runs of %d launches), %.1f%% of the bound "
+              "%.4f ms (%s) | wrapper call %.4f ms (host included) | plain "
+              "%.3f ms | %s"
+              % (name, len(layout.sizes), layout.n_tiles, res[name]["ms"],
+                 RUN, 100 * bms / res[name]["ms"], bms, by,
+                 res[name]["call_ms"], res[name]["plain_ms"], card),
+              flush=True)
     return res
 
 
@@ -625,12 +775,11 @@ def main():
     net, trainable = build_resnet50()
     n_resnet = sum(p.data().size for p in trainable)
     worst3, flat = phase_kernels(n_resnet, card)
-    launches, worst4, step_inputs = phase_slice(net, trainable, card)
+    launches, worst4, step_inputs, ts_s = phase_slice(net, trainable, card)
     small_err = check_small_net_against_cpu()
     print("reference: small ResNet logits card vs CPU max |diff| %.3g"
           % small_err, flush=True)
-    timing = time_step_set(step_inputs)
-    n_calls = len(step_inputs)
+    timing = time_step_set(step_inputs, card)
     del net, trainable, step_inputs
     torch.cuda.empty_cache()
     flash_worst, flash_share = phase_flash(card)
@@ -644,9 +793,11 @@ def main():
             "max_abs_err": max(worst3, worst4), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "calls": n_calls, "elements": t["elements"],
+            "call_ms": t["call_ms"], "launches_per_step": 1,
+            "entries": t["entries"], "blocks": t["blocks"],
+            "elements": t["elements"],
             "padded_elements": t["padded_elements"],
-            "card": card}, **flat[name]))
+            "trainer_step_s": ts_s, "card": card}, **flat[name]))
     # f32 inputs and bf16 past D 256 run flash_attention.cu: its row's
     # times also hold the wide head dim in both types
     wide_times = [time_flash(WIDE_TIME_SHAPE, dtype, False, card)

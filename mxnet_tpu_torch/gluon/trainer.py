@@ -107,6 +107,8 @@ class Trainer:
 
     @property
     def learning_rate(self):
+        if self._optimizer.lr_scheduler is not None:
+            return self._optimizer._get_lr(0)
         return self._optimizer.lr
 
     @property

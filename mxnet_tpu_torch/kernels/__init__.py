@@ -8,7 +8,12 @@ current torch stream.  Nothing is built or imported at package import:
 callers reach this module only for CUDA tensors.
 
 Each launching wrapper adds one to ``launch_counts[<kernel>]`` where it
-launches, so a run can show that its path went through the kernel.  Flash
+launches, so a run can show that its path went through the kernel.  The
+two compression kernels take a whole batch of entries (every key and
+worker of a KVStore push) in one launch each, placed by an entry table
+that ``compression_table`` builds on the host; its device copy is reused
+while the layout and the addresses stay the same (``table_uploads``
+counts the copies).  Flash
 attention has two sources, and a launch counts under the one that ran:
 ``flash_attention.cu`` (f32 arithmetic on the CUDA cores) takes f32 inputs
 at any head dim and bf16 inputs with D > ``FLASH_MAX_HEAD_DIM``, and counts
@@ -23,11 +28,17 @@ import os
 import shutil
 import subprocess
 import time
+from collections import OrderedDict
 from pathlib import Path
 
+import numpy as np
 import torch
 
-__all__ = ["build", "quantize_2bit", "dequantize_2bit", "flash_attention_fwd",
+__all__ = ["build", "quantize_2bit", "dequantize_2bit", "quantize_2bit_batch",
+           "dequantize_2bit_batch", "quantize_2bit_batch_launcher",
+           "dequantize_2bit_batch_launcher", "compression_table",
+           "compression_vector_loads", "COMPRESSION_FIELDS",
+           "flash_attention_fwd",
            "flash_kernel", "bf16_vector_loads", "f32_vector_loads",
            "launch_counts", "reset_launch_counts", "SOURCES",
            "FLASH_MAX_HEAD_DIM"]
@@ -72,10 +83,12 @@ def _bind(name, lib):
     vp, ll, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                         ctypes.c_int)
     if name == "compression_2bit":
-        lib.mxtt_quantize_2bit.argtypes = [vp, vp, vp, vp, ll, f32, vp]
-        lib.mxtt_quantize_2bit.restype = i32
-        lib.mxtt_dequantize_2bit.argtypes = [vp, vp, ll, f32, vp]
-        lib.mxtt_dequantize_2bit.restype = i32
+        lib.mxtt_quantize_2bit_batch.argtypes = [vp, ll, ll, vp, vp, vp, f32,
+                                                 vp]
+        lib.mxtt_quantize_2bit_batch.restype = i32
+        lib.mxtt_dequantize_2bit_batch.argtypes = [vp, ll, ll, vp, vp, f32,
+                                                   i32, vp]
+        lib.mxtt_dequantize_2bit_batch.restype = i32
     elif name == "flash_attention":  # also the type and the loader flag
         lib.mxtt_flash_attention_fwd.argtypes = (
             [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, i32, vp])
@@ -146,10 +159,163 @@ def _raise_on(lib, err, what):
                            % (what, lib.mxtt_error_string(err).decode()))
 
 
+# One row of the compression kernels' entry table (struct Entry in
+# compression_2bit.cu), in int64s: the gradient's address, its real
+# elements, the offsets of the residual read and written (floats), of the
+# codes (words) and of the dequantized values (floats), the entry's first
+# tile in the launch, and 1 where the gradient and both residuals take
+# 16-byte accesses.
+COMPRESSION_FIELDS = ("grad", "size", "residual_in", "residual_out",
+                      "codes", "values", "first_tile", "vector")
+_TABLES_KEPT = 16
+_tables = OrderedDict()   # device copies of recent entry tables
+table_uploads = 0         # host-to-device copies of entry tables
+
+
+def compression_vector_loads(*tensors):
+    """Whether the compression kernels may read and write these f32
+    buffers (a gradient, a residual) with 16-byte accesses: every data
+    pointer a multiple of 16 bytes.  Otherwise that entry takes the
+    kernel's element-by-element path."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def compression_table(layout, grads=None, residual_in=None,
+                      residual_out=None):
+    """The entry table of a batched compression launch on ``layout`` (a
+    ``contrib.compression.BatchLayout``), as int64 numpy: one row of
+    ``COMPRESSION_FIELDS`` per entry, then the entry of each tile as
+    int32, two to an int64.  Without ``grads`` (dequantize) the address
+    and vector fields are 0."""
+    rows = np.zeros((len(layout.sizes), len(COMPRESSION_FIELDS)), np.int64)
+    rows[:, 1] = layout.sizes
+    rows[:, 2] = rows[:, 3] = rows[:, 5] = layout.value_offsets
+    rows[:, 4] = layout.code_offsets
+    rows[:, 6] = layout.first_tile
+    if grads is not None:
+        rows[:, 0] = [g.data_ptr() for g in grads]
+        aligned = compression_vector_loads(residual_in, residual_out)
+        rows[:, 7] = [aligned and compression_vector_loads(g) for g in grads]
+    tiles = np.repeat(np.arange(len(layout.sizes), dtype=np.int32),
+                      layout.tiles)
+    tiles = np.concatenate([tiles, np.zeros(len(tiles) % 2, np.int32)])
+    return np.concatenate([rows.reshape(-1), tiles.view(np.int64)])
+
+
+def _device_table(layout, device, grads=None, residual_in=None,
+                  residual_out=None):
+    """The entry table on ``device``: one host-to-device copy when the
+    layout or an address changed, else the copy made before."""
+    global table_uploads
+    key = (device, layout, None if grads is None else (
+        tuple(g.data_ptr() for g in grads), residual_in.data_ptr(),
+        residual_out.data_ptr()))
+    table = _tables.get(key)
+    if table is None:
+        host = compression_table(layout, grads, residual_in, residual_out)
+        # from pageable memory: the call returns once the bytes are staged
+        table = torch.from_numpy(host).to(device)
+        table_uploads += 1
+        _tables[key] = table
+        if len(_tables) > _TABLES_KEPT:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return table
+
+
+def _check_flat(name, t, dtype, n, device):
+    _check(t, dtype, name)
+    if t.numel() < n or t.device != device:
+        raise ValueError("%s: %d elements on %s, expected at least %d on %s"
+                         % (name, t.numel(), t.device, n, device))
+
+
+def _values_extent(layout):
+    """Floats a residual or value buffer must hold: up to the last entry's
+    last real element (the layout's ``n_values`` rounds that up to 4)."""
+    return layout.value_offsets[-1] + layout.sizes[-1] if layout.sizes else 0
+
+
+def _launcher(name, entry_point, table, args, device):
+    """A call that launches kernel ``name`` with ``args`` (the entry table
+    kept alive with it) on the current stream and counts the launch."""
+    lib = _load("compression_2bit")
+    fn = getattr(lib, entry_point)
+    args = (table.data_ptr(),) + tuple(args)
+
+    def launch():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, err, name)
+        launch_counts[name] += 1
+    return launch
+
+
+def quantize_2bit_batch_launcher(layout, grads, residual_in, residual_out,
+                                 codes, threshold):
+    """Check the arguments of ``quantize_2bit_batch`` and return a call
+    that launches it (each call one launch on the same buffers)."""
+    device = codes.device
+    if len(grads) != len(layout.sizes):
+        raise ValueError("quantize_2bit_batch: %d gradients for %d entries"
+                         % (len(grads), len(layout.sizes)))
+    for i, (g, n) in enumerate(zip(grads, layout.sizes)):
+        # the common case in one test, the message from the full checks
+        if not (g.is_cuda and g.dtype == torch.float32 and g.numel() == n
+                and g.is_contiguous() and g.device == device):
+            _check_flat("grads[%d]" % i, g, torch.float32, n, device)
+    extent = _values_extent(layout)
+    _check_flat("residual_in", residual_in, torch.float32, extent, device)
+    _check_flat("residual_out", residual_out, torch.float32, extent, device)
+    _check_flat("codes", codes, torch.int32, layout.n_code_words, device)
+    if codes.data_ptr() % 16:
+        raise ValueError("codes must be 16-byte aligned")
+    table = _device_table(layout, device, grads, residual_in, residual_out)
+    return _launcher("quantize_2bit", "mxtt_quantize_2bit_batch", table,
+                     (len(layout.sizes), layout.n_tiles,
+                      residual_in.data_ptr(), residual_out.data_ptr(),
+                      codes.data_ptr(), float(threshold)), device)
+
+
+def quantize_2bit_batch(layout, grads, residual_in, residual_out, codes,
+                        threshold):
+    """Launch the quantize kernel once over every entry of ``layout``:
+    entry e's flat f32 gradient ``grads[e]`` and its residual in the flat
+    ``residual_in`` give its codes in the flat int32 ``codes`` and its new
+    residual in ``residual_out`` (which may be ``residual_in``: the kernel
+    updates in place), at the layout's offsets."""
+    quantize_2bit_batch_launcher(layout, grads, residual_in, residual_out,
+                                 codes, threshold)()
+
+
+def dequantize_2bit_batch_launcher(layout, codes, out, threshold):
+    """Check the arguments of ``dequantize_2bit_batch`` and return a call
+    that launches it."""
+    device = codes.device
+    _check_flat("codes", codes, torch.int32, layout.n_code_words, device)
+    _check_flat("out", out, torch.float32, _values_extent(layout), device)
+    if out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned")
+    table = _device_table(layout, device)
+    return _launcher("dequantize_2bit", "mxtt_dequantize_2bit_batch", table,
+                     (len(layout.sizes), layout.n_tiles, codes.data_ptr(),
+                      out.data_ptr(), float(threshold),
+                      int(compression_vector_loads(codes))), device)
+
+
+def dequantize_2bit_batch(layout, codes, out, threshold):
+    """Launch the dequantize kernel once over every entry of ``layout``:
+    entry e's codes in the flat int32 ``codes`` give its real elements in
+    the flat f32 ``out`` at its values offset (the gaps between entries
+    are not written)."""
+    dequantize_2bit_batch_launcher(layout, codes, out, threshold)()
+
+
 def quantize_2bit(grad, residual, threshold):
-    """Launch the quantize kernel on (rows, 128) f32 ``grad``/``residual``
-    (rows a multiple of 128); returns (int32 codes (rows/16, 128), new
-    f32 residual (rows, 128))."""
+    """Quantize (rows, 128) f32 ``grad``/``residual`` (rows a multiple of
+    128), a batch of one on the batched kernel; returns (int32 codes
+    (rows/16, 128), new f32 residual (rows, 128))."""
     _check(grad, torch.float32, "grad")
     _check(residual, torch.float32, "residual")
     rows = grad.shape[0]
@@ -158,37 +324,30 @@ def quantize_2bit(grad, residual, threshold):
         raise ValueError("quantize_2bit takes two (rows, 128) arrays on one "
                          "device, rows a multiple of 128; got %s and %s"
                          % (tuple(grad.shape), tuple(residual.shape)))
-    lib = _load("compression_2bit")
+    from ..contrib.compression import batch_layout
+
+    layout = batch_layout((grad.numel(),))
     codes = torch.empty((rows // 16, 128), dtype=torch.int32,
                         device=grad.device)
     new_res = torch.empty_like(grad)
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mxtt_quantize_2bit(
-            grad.data_ptr(), residual.data_ptr(), codes.data_ptr(),
-            new_res.data_ptr(), codes.numel(), float(threshold), stream)
-    _raise_on(lib, err, "quantize_2bit")
-    launch_counts["quantize_2bit"] += 1
+    quantize_2bit_batch(layout, [grad.view(-1)], residual.view(-1),
+                        new_res.view(-1), codes.view(-1), threshold)
     return codes, new_res
 
 
 def dequantize_2bit(codes, threshold):
-    """Launch the dequantize kernel on int32 codes (rows/16, 128); returns
-    f32 (rows, 128)."""
+    """Dequantize int32 codes (rows/16, 128), a batch of one on the batched
+    kernel; returns f32 (rows, 128)."""
     _check(codes, torch.int32, "codes")
     if codes.dim() != 2 or codes.shape[1] != 128 or codes.shape[0] % 8:
         raise ValueError("dequantize_2bit takes (rows/16, 128) codes, rows "
                          "a multiple of 128; got %s" % (tuple(codes.shape),))
-    lib = _load("compression_2bit")
+    from ..contrib.compression import batch_layout
+
+    layout = batch_layout((codes.numel() * 16,))
     out = torch.empty((codes.shape[0] * 16, 128), dtype=torch.float32,
                       device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mxtt_dequantize_2bit(codes.data_ptr(), out.data_ptr(),
-                                       codes.numel(), float(threshold),
-                                       stream)
-    _raise_on(lib, err, "dequantize_2bit")
-    launch_counts["dequantize_2bit"] += 1
+    dequantize_2bit_batch(layout, codes.view(-1), out.view(-1), threshold)
     return out
 
 

@@ -109,3 +109,161 @@ def test_kvstore_two_workers_match_jax(size, threshold, pushes):
     jout = _push_pull(jmx, None, size, threshold, pushes)
     for t, j in zip(tout, jout):
         np.testing.assert_array_equal(t, j)
+
+
+# the batched path: every (key, worker) entry of a push in one call
+RAGGED = [1, 3, 127, 16385, 16384 * 3 + 5]
+
+
+def _push_grads(sizes, workers, push, seed=0):
+    """Per key, per worker, a flat gradient from a seed; scaled so that
+    residuals carry over from push to push."""
+    rng = np.random.RandomState(1000 * seed + 10 * push + workers)
+    return [[(rng.randn(n) * 0.6).astype(np.float32) for _ in range(workers)]
+            for n in sizes]
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_batched_pushes_match_jax_key_by_key(workers):
+    """Three pushes of a ragged key set, each one batched call in the port
+    and a loop of single-key calls in the JAX package: codes equal as
+    integers, residuals and dequantized values bit for bit."""
+    keys = [("k%d" % i, w) for i in range(len(RAGGED)) for w in range(workers)]
+    sizes = [n for n in RAGGED for _ in range(workers)]
+    tgc = tcomp.GradientCompression(threshold=T)
+    jgc = jcomp.GradientCompression(threshold=T)
+    for push in range(3):
+        grads = [g for per_key in _push_grads(RAGGED, workers, push)
+                 for g in per_key]
+        layout, codes = tgc.quantize_batch(
+            keys, [torch.from_numpy(g) for g in grads])
+        deq = tcomp.dequantize_batch(layout, codes, T)
+        assert layout.sizes == tuple(sizes)
+        for e, (key, g) in enumerate(zip(keys, grads)):
+            jcodes = jgc.compress(key, g)
+            assert np.array_equal(layout.codes(codes, e).numpy(),
+                                  np.asarray(jcodes))
+            assert np.array_equal(_bits(tgc._residuals[key].numpy()),
+                                  _bits(jgc._residuals[key]))
+            jdeq = jcomp.dequantize_2bit(jcodes, g.size, T)
+            assert np.array_equal(_bits(layout.values(deq, e).numpy()),
+                                  _bits(jdeq))
+
+
+def _recording_store(mx, keys, sizes, kw):
+    kv = mx.kv.create("device")
+    for k, n in zip(keys, sizes):
+        kv.init(k, mx.nd.zeros((n,), **kw))
+    kv.set_gradient_compression({"type": "2bit", "threshold": T})
+    seen = []
+    kv.set_updater(lambda k, agg, stored: seen.append(
+        (str(k), agg.asnumpy().copy())))
+    return kv, seen
+
+
+@pytest.mark.parametrize("pushes", [
+    # a key repeated in one list: its second occurrence sees the residual
+    # its first left (the JAX package's sequential loop)
+    [["a", "b", "a"], ["a", "b", "a"]],
+    # the key set changes between pushes, residuals carry over
+    [["a", "b"], ["b", "c"], ["a", "c", "b"], ["c"]],
+])
+@pytest.mark.parametrize("workers", [1, 2])
+def test_kvstore_push_lists_match_jax(pushes, workers):
+    """KVStore.push of a list with compression: each key's aggregate, in
+    the order the updater sees them, bit for bit equal to the JAX
+    package's."""
+    sizes = {"a": 16385, "b": 127, "c": 16384 * 3 + 5}
+    out = []
+    for mx, kw in ((tmx, {"ctx": tmx.cpu()}), (jmx, {})):
+        kv, seen = _recording_store(mx, list(sizes), list(sizes.values()),
+                                    kw)
+        for p, keys in enumerate(pushes):
+            grads = _push_grads([sizes[k] for k in keys], workers, p, seed=1)
+            kv.push(keys, [[mx.nd.array(g, **kw) for g in per_key]
+                           for per_key in grads])
+        out.append(seen)
+    assert [k for k, _ in out[0]] == [k for k, _ in out[1]] == \
+        [k for keys in pushes for k in keys]
+    for (_, t), (_, j) in zip(*out):
+        assert np.array_equal(_bits(t), _bits(j))
+
+
+def test_kvstore_push_of_a_list_equals_pushes_one_at_a_time():
+    """One batched push of a list gives each key the aggregate, and leaves
+    each (key, worker) the residual, that pushing the keys one at a time
+    does."""
+    sizes = {"a": 16385, "b": 127, "c": 1, "d": 16384 * 3 + 5}
+    results = []
+    for batched in (True, False):
+        kv, seen = _recording_store(tmx, list(sizes), list(sizes.values()),
+                                    {"ctx": tmx.cpu()})
+        for p in range(2):
+            grads = _push_grads(list(sizes.values()), 2, p, seed=2)
+            vals = [[tmx.nd.array(g, ctx=tmx.cpu()) for g in per_key]
+                    for per_key in grads]
+            if batched:
+                kv.push(list(sizes), vals)
+            else:
+                for k, v in zip(sizes, vals):
+                    kv.push(k, v)
+        results.append((seen, {k: v.numpy().copy()
+                               for k, v in kv._gc._residuals.items()}))
+    (bs, br), (ss, sr) = results
+    assert [k for k, _ in bs] == [k for k, _ in ss]
+    for (_, a), (_, b) in zip(bs, ss):
+        assert np.array_equal(_bits(a), _bits(b))
+    assert br.keys() == sr.keys()
+    for k in br:
+        assert np.array_equal(_bits(br[k]), _bits(sr[k]))
+
+
+def test_batch_layout_offsets():
+    """Each entry pads to whole (128, 128) tiles of codes, numbered on from
+    the last entry's; residuals and values hold only the real elements, at
+    offsets rounded up to 4 floats."""
+    layout = tcomp.batch_layout(tuple(RAGGED))
+    assert layout.tiles == (1, 1, 1, 2, 4)
+    assert layout.first_tile == [0, 1, 2, 3, 5] and layout.n_tiles == 9
+    assert layout.code_offsets == [0, 1024, 2048, 3072, 5120]
+    assert layout.n_code_words == 9 * 1024
+    assert layout.value_offsets == [0, 4, 8, 136, 16524]
+    assert layout.n_values == 16524 + 49160
+    assert all(o % 4 == 0 for o in layout.value_offsets)
+    assert tcomp.batch_layout(tuple(RAGGED)) is layout
+
+
+def test_entry_table_fields_and_vector_choice():
+    """The kernels' entry table (plain Python, built on the host): one row
+    of COMPRESSION_FIELDS per entry, then each tile's entry; gradients at
+    element offsets 1 and 2 of a shared buffer (not 16-byte aligned) take
+    the element-by-element path, offsets 0 and 4 the 16-byte one, and an
+    unaligned residual turns it off for every entry."""
+    from mxnet_tpu_torch import kernels
+
+    sizes = (1, 3, 127, 16385)
+    layout = tcomp.batch_layout(sizes)
+    shared = torch.zeros(40000)
+    assert shared.data_ptr() % 16 == 0
+    starts = (0, 1, 2, 4)
+    grads = [shared[s:s + n] for s, n in zip(starts, sizes)]
+    arena = torch.zeros(layout.n_values + 4)
+    for res, vector in ((arena[:layout.n_values], [1, 0, 0, 1]),
+                        (arena[1:layout.n_values + 1], [0, 0, 0, 0])):
+        table = kernels.compression_table(layout, grads, res, res)
+        width = len(kernels.COMPRESSION_FIELDS)
+        rows = table[:len(sizes) * width].reshape(len(sizes), width)
+        field = {f: rows[:, i].tolist()
+                 for i, f in enumerate(kernels.COMPRESSION_FIELDS)}
+        assert field["grad"] == [g.data_ptr() for g in grads]
+        assert field["size"] == list(sizes)
+        assert field["residual_in"] == field["residual_out"] == \
+            field["values"] == layout.value_offsets
+        assert field["codes"] == layout.code_offsets
+        assert field["first_tile"] == layout.first_tile
+        assert field["vector"] == vector
+        tiles = table[len(sizes) * width:].view(np.int32)
+        assert tiles.tolist() == [0, 1, 2, 3, 3, 0]   # padded to an int64
+    # dequantize's table: no addresses, no vector flags
+    table = kernels.compression_table(layout)
+    assert not table[:len(sizes) * width].reshape(-1, width)[:, [0, 7]].any()

@@ -202,13 +202,114 @@ def test_sgd_updates_match_jax(momentum, clip):
     np.testing.assert_allclose(results[0], results[1], rtol=1e-6, atol=1e-7)
 
 
-def test_kvstore_types():
-    assert tmx.kv.create("device").type == "device"
-    assert tmx.kv.create("local").type == "local"
+def test_kvstore_types(monkeypatch):
+    """The factory takes what the JAX package's takes, with the same
+    result: the local types, and a ``dist*`` type without a parameter
+    server, are single-process stores of that type (rank 0 of 1)."""
+    monkeypatch.delenv("DMLC_PS_ROOT_URI", raising=False)
+    for name in ("local", "device", "nccl", "local_allreduce_cpu",
+                 "local_allreduce_device", "dist_sync", "dist_async",
+                 "dist_device_sync"):
+        t, j = tmx.kv.create(name), jmx.kv.create(name)
+        assert (t.type, t.rank, t.num_workers) == \
+            (j.type, j.rank, j.num_workers) == (name, 0, 1)
+    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
     with pytest.raises(MXNetError, match="not ported"):
         tmx.kv.create("dist_sync")
-    with pytest.raises(MXNetError, match="unknown"):
-        tmx.kv.create("nope")
+    for mx in (tmx, jmx):
+        with pytest.raises(mx.base.MXNetError, match="unknown"):
+            mx.kv.create("nope")
+
+
+def _dense_steps(mx, nd, kvstore, steps=3):
+    """Dense(3, in_units=5) from the same numpy weights, ``steps`` steps
+    of sgd (momentum 0.9, wd 1e-3) on softmax cross-entropy through a
+    Trainer on ``kvstore``; returns (update_on_kvstore, params)."""
+    rng = np.random.RandomState(11)
+    w0 = {"weight": rng.randn(3, 5).astype(np.float32),
+          "bias": rng.randn(3).astype(np.float32)}
+    net = mx.gluon.nn.Dense(3, in_units=5)
+    kw = {"ctx": tmx.cpu()} if mx is tmx else {}
+    net.initialize(**kw)
+    for p in net.collect_params().values():
+        p.set_data(nd(w0[p.name.rsplit("_", 1)[1]]))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-3}, kvstore=kvstore)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(steps):
+        x = nd(rng.randn(4, 5).astype(np.float32))
+        y = nd(rng.randint(0, 3, 4).astype(np.float32))
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(4)
+    return trainer._update_on_kvstore, {
+        p.name.rsplit("_", 1)[1]: p.data().asnumpy()
+        for p in net.collect_params().values()}
+
+
+def test_trainer_on_dist_sync_without_server_matches_jax(monkeypatch):
+    """``kvstore="dist_sync"`` on one process trains through a
+    single-process store with update_on_kvstore (the JAX package's
+    default for ``dist*``), to the JAX package's params within 1e-6."""
+    monkeypatch.delenv("DMLC_PS_ROOT_URI", raising=False)
+    on_kv_t, t = _dense_steps(tmx, _t, "dist_sync")
+    on_kv_j, j = _dense_steps(jmx, _j, "dist_sync")
+    assert on_kv_t is True and on_kv_j is True
+    for name in ("weight", "bias"):
+        np.testing.assert_allclose(t[name], j[name], rtol=0, atol=1e-6)
+
+
+class _Schedule:
+    """A small lr scheduler: base_lr halved every two updates."""
+
+    def __init__(self):
+        self.base_lr = None
+
+    def __call__(self, num_update):
+        return self.base_lr * 0.5 ** (num_update // 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_optimizer_keywords_and_update_counts_match_jax(dtype):
+    """The JAX constructor's keywords (multi_precision, lazy_update,
+    begin_num_update, param_idx2name, lr_scheduler): num_update and each
+    index's count after N updates, the scheduler's lr sequence, the
+    weights (f16 through an f32 master copy) and the name-based wd_mult,
+    equal to the JAX package's."""
+    rng = np.random.RandomState(2)
+    w0 = [rng.randn(6).astype(dtype) for _ in range(2)]
+    gs = [[rng.randn(6).astype(dtype) for _ in range(2)] for _ in range(5)]
+    out = []
+    for mx, nd in ((tmx, _t), (jmx, _j)):
+        opt = mx.optimizer.create(
+            "sgd", learning_rate=0.2, momentum=0.9, wd=0.01,
+            multi_precision=True, lazy_update=True, begin_num_update=3,
+            param_idx2name={0: "fc_weight", 1: "fc_bias"},
+            lr_scheduler=_Schedule())
+        upd = mx.optimizer.get_updater(opt)
+        ws = [nd(w) for w in w0]
+        lrs, counts = [], []
+        for step in gs:
+            for i, g in enumerate(step):
+                upd(i, nd(g), ws[i])
+                lrs.append(opt._get_lr(i))
+                counts.append(opt.num_update)
+        with pytest.raises(mx.base.MXNetError, match="LRScheduler"):
+            opt.set_learning_rate(0.5)
+        out.append((lrs, counts, dict(opt._index_update_count),
+                    opt.begin_num_update, opt.lazy_update, opt.wd_mult,
+                    [w.asnumpy() for w in ws]))
+    (tl, tc, ti, tb, tz, twd, tw), (jl, jc, ji, jb, jz, jwd, jw) = out
+    assert tc == jc and tc[-1] == 3 + 5 and ti == ji == {0: 8, 1: 8}
+    np.testing.assert_allclose(tl, jl, rtol=1e-7)
+    assert (tb, tz, twd) == (jb, jz, jwd) == (3, True, {"fc_bias": 0.0})
+    for a, b in zip(tw, jw):
+        assert a.dtype == b.dtype == np.dtype(dtype)
+        np.testing.assert_allclose(a.astype(np.float32),
+                                   b.astype(np.float32), rtol=1e-6,
+                                   atol=1e-7)
 
 
 def test_load_from_numpy_rejects_mismatch():

@@ -60,6 +60,19 @@ def test_kernel_wrappers_reject_cpu_tensors():
         kernels.dequantize_2bit(torch.zeros(8, 128, dtype=torch.int32), T)
 
 
+def test_batch_wrappers_reject_cpu_tensors():
+    """The batched launching wrappers refuse CPU tensors too, before
+    anything is built: a CPU tensor reaching them never falls back."""
+    layout = comp.batch_layout((1000, 3))
+    grads = [torch.zeros(1000), torch.zeros(3)]
+    res = torch.zeros(layout.n_values)
+    codes = torch.zeros(layout.n_code_words, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.quantize_2bit_batch(layout, grads, res, res, codes, T)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dequantize_2bit_batch(layout, codes, res, T)
+
+
 def test_padded_layout_rows():
     """Rows pad to whole (128, 128) tiles, at least one tile."""
     assert comp._padded_rows(1) == 128
@@ -89,6 +102,60 @@ def test_cuda_kernels_match_plain_versions(size):
     assert torch.equal(new_res.cpu().view(torch.int32),
                        rres.view(torch.int32))
     assert torch.equal(deq.cpu().view(torch.int32), rdeq.view(torch.int32))
+
+
+# sizes of the ragged batch and the element offsets of their gradients in
+# one shared buffer (no overlap): offsets 1 and 6 are 1 and 2 elements
+# past a 16-byte boundary
+BATCH_SIZES = (1, 3, 127, 16385, 16384 * 7 + 3)
+BATCH_STARTS = (0, 1, 6, 136, 16524)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernels_match_plain_batch():
+    """One launch of each kernel over a ragged batch whose gradients lie at
+    element offsets 0, 1 and 2 of a shared buffer, for two pushes that
+    carry the residual arena over (updated in place): codes, arena and
+    dequantized values bit for bit equal to the batched plain version on
+    the card; the device table sends the misaligned entries down the
+    element-by-element path; an unchanged batch uploads no table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    layout = comp.batch_layout(BATCH_SIZES)
+    arena = torch.zeros(layout.n_values, device="cuda")
+    ref_arena = arena.clone()
+    shared = torch.empty(BATCH_STARTS[-1] + BATCH_SIZES[-1], device="cuda")
+    grads = [shared[s:s + n] for s, n in zip(BATCH_STARTS, BATCH_SIZES)]
+    for push in range(2):
+        for e, g in enumerate(grads):
+            g.copy_(_inputs(g.numel(), 10 * push + e)[0].cuda())
+        before = dict(kernels.launch_counts)
+        uploads = kernels.table_uploads
+        codes = comp.quantize_batch(layout, grads, arena, arena, T)
+        deq = comp.dequantize_batch(layout, codes, T)
+        torch.cuda.synchronize()
+        assert {n: c - before[n] for n, c in kernels.launch_counts.items()} \
+            == {"quantize_2bit": 1, "dequantize_2bit": 1,
+                "flash_attention": 0, "flash_attention_bf16": 0}
+        if push:
+            assert kernels.table_uploads == uploads
+        table = kernels._device_table(layout, arena.device, grads, arena,
+                                      arena).cpu().numpy()
+        width = len(kernels.COMPRESSION_FIELDS)
+        vector = table[:len(grads) * width].reshape(-1, width)[:, 7]
+        assert vector.tolist() == [int(g.data_ptr() % 16 == 0)
+                                   for g in grads] == [1, 0, 0, 1, 1]
+        rcodes = torch.empty_like(codes)
+        comp.quantize_batch_ref(layout, grads, ref_arena, ref_arena, rcodes,
+                                T)
+        rdeq = torch.zeros_like(deq)
+        comp.dequantize_batch_ref(layout, rcodes, rdeq, T)
+        assert torch.equal(codes, rcodes)
+        assert torch.equal(arena.view(torch.int32),
+                           ref_arena.view(torch.int32))
+        for e in range(len(grads)):
+            assert torch.equal(layout.values(deq, e).view(torch.int32),
+                               layout.values(rdeq, e).view(torch.int32))
 
 
 @pytest.mark.cuda
