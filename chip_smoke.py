@@ -47,13 +47,31 @@ non-zero, printing no result, without them.  Phases, one line each:
    the kernel's bound of local_attention on the same values in f32 (5e-5
    in f32, the elementwise bf16 bound in bf16) and each call launching
    its type's kernel exactly once;
-7. flash times: each kernel, the plain version and
+7. sharded: the benchmark of record's training path (bench.py:40-99):
+   resnet50_v1 (full width, classes 1000, Xavier), SoftmaxCrossEntropyLoss,
+   sgd lr 0.1 momentum 0.9, batch 256 of 3x224x224 synthetic data from
+   RandomState(0), through parallel.ShardedTrainer under bf16_mixed: 2
+   warm-up steps, 8 synchronous steps (the loss read each step), then
+   configure_overlap(async_metrics=True, steps_per_call=4), one warm
+   step_many and 2 timed step_many calls under
+   torch.cuda.set_sync_debug_mode("error") (no host sync on the dispatch
+   path); images/s per phase, step-time median, peak memory, losses, the
+   loss scale and skips; every loss finite, the last below the first
+   kept one, the trainer's state on the card; one more step_many(4)
+   under torch.profiler for the split of a step's kernel time into the
+   trainer's forward, backward and update ranges, the card's idle share
+   against the timed async steps, and the kernel time by kind; then
+   the small ResNet's f32 ShardedTrainer losses on
+   the card against the CPU (rtol 1e-5), the non-finite guard on a NaN
+   batch, and step_many(3) bit for bit equal to 3 steps with
+   deterministic cuDNN;
+8. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-8. a {"kernels": [...]} line;
-9. last line: {"ok": true, "device": {...}}.
+9. a {"kernels": [...]} line;
+10. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -124,6 +142,13 @@ WIDE_TIME_SHAPE = (1, 4096, 4, 512)
 # F32_LSE_TOL
 F32_O_TOL, F32_LSE_TOL, BF16_TOL, GRAD_TOL = 5e-5, 1e-4, 3e-2, 5e-4
 BF16_O_REL = 2.0 ** -8
+# the sharded phase: bench.py's batch, its synchronous phase cut from 40
+# steps to 8 and its async phase to 2 calls of step_many(4)
+SHARDED_BATCH = 256
+SYNC_STEPS = 8
+ASYNC_CALLS = 2
+# tests/test_torch_sharded_trainer.py's sgd settings for the small ResNet
+SMALL_SGD = {"learning_rate": 3e-5, "momentum": 0.9, "wd": 1e-4}
 
 
 def check(cond, msg):
@@ -539,6 +564,254 @@ def check_small_net_against_cpu():
     return err
 
 
+def timed_s(fn):
+    """Host seconds of fn() through a synchronize, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def bench_trainer():
+    """bench.py's build_trainer on the card: resnet50_v1, Xavier,
+    SoftmaxCrossEntropyLoss, sgd lr 0.1 momentum 0.9, bf16_mixed, and a
+    synthetic batch from RandomState(0)."""
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = parallel.ShardedTrainer(
+        net, lambda o, l: loss_fn(o, l), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+        dtype_policy="bf16_mixed")
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SHARDED_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SHARDED_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    return trainer, x, y
+
+
+def _self_device_us(ev):
+    return getattr(ev, "self_device_time_total", None) or \
+        getattr(ev, "self_cuda_time_total", 0.0)
+
+
+def kernel_kind(name):
+    name = name.lower()
+    if any(k in name for k in ("conv", "cudnn", "xmma", "gemm", "sm90")):
+        return "conv/gemm"
+    if "norm" in name:
+        return "batchnorm"
+    if "foreach" in name or "multi_tensor" in name:
+        return "foreach/update"
+    if "cat" in name or "copy" in name:
+        return "cat/copy/cast"
+    return "elementwise/other"
+
+
+def profile_step(trainer, x, y, step_s):
+    """One step_many call under torch.profiler: the card's kernel time per
+    step and its idle share against ``step_s`` (a step's time measured
+    without the profiler), the spans on the card of the trainer's forward
+    and update ranges (the backward runs on autograd's own thread, so it
+    is the rest), the host time of each range, and the kernel time by
+    kind.  A measurement only: a profiler failure is reported, not
+    raised."""
+    batches = [([x], y)] * trainer.steps_per_call
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step_many(batches)
+            torch.cuda.synchronize()
+        trainer.drain()
+        averages = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 - the profile is optional
+        trainer.drain()
+        return "not measured (torch.profiler failed: %r)" % (e,)
+    k = trainer.steps_per_call
+    kernels_, span, host = [], {}, {}
+    for ev in averages:
+        on_card = getattr(ev, "device_type", None) == DeviceType.CUDA
+        if ev.key.startswith("ShardedTrainer."):
+            # a range: its span on the card's timeline, and its host time
+            name = ev.key.split(".", 1)[1]
+            if on_card:
+                span[name] = _self_device_us(ev) / 1e3 / k
+            else:
+                host[name] = ev.cpu_time_total / 1e3 / k
+        elif on_card and _self_device_us(ev):
+            kernels_.append((_self_device_us(ev), ev.key))
+    total = sum(us for us, _ in kernels_)
+    if not total:
+        return "not measured (torch.profiler recorded no device time)"
+    nan = float("nan")
+    fwd, upd = span.get("forward", nan), span.get("update", nan)
+    per_step = total / 1e3 / k
+    kinds = {}
+    for us, key in kernels_:
+        kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us
+    return ("per step: kernels %.2f ms = forward %.2f + backward %.2f + "
+            "update %.2f (the forward's and the update's spans on the card; "
+            "the backward is the rest), card idle %.1f%% of the timed "
+            "async step's %.1f ms | host per step: forward %.2f, backward "
+            "%.2f, update %.2f ms | kernel time by kind: %s | top: %s"
+            % (per_step, fwd, per_step - fwd - upd, upd,
+               100 * max(0.0, 1 - per_step / (1e3 * step_s)),
+               1e3 * step_s,
+               host.get("forward", nan), host.get("backward", nan),
+               host.get("update", nan),
+               ", ".join("%s %.1f%%" % (kind, 100 * v / total)
+                         for kind, v in sorted(kinds.items(),
+                                               key=lambda kv: -kv[1])),
+               "; ".join("%s %.2f ms" % (key[:50], us / 1e3 / k)
+                         for us, key in sorted(kernels_, reverse=True)[:5])))
+
+
+def phase_sharded(card):
+    """The benchmark of record's path through ShardedTrainer (see the
+    module doc, phase 7)."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer, x, y = bench_trainer()
+    losses, kept, step_s = [], [], []
+
+    def sync_step():
+        skipped = trainer.skipped_steps
+        dt, loss = timed_s(lambda: trainer.step([x], y))
+        losses.append(float(loss))
+        kept.append(trainer.skipped_steps == skipped)
+        step_s.append(dt)
+
+    for _ in range(2):
+        sync_step()
+    warm_s = list(step_s)
+    del step_s[:]
+    for _ in range(SYNC_STEPS):
+        sync_step()
+    sync_ips = SHARDED_BATCH * SYNC_STEPS / sum(step_s)
+    trainer.configure_overlap(async_metrics=True, steps_per_call=4)
+    batches = [([x], y)] * 4
+    trainer.step_many(batches)
+    torch.cuda.synchronize()
+    trainer.drain()
+    async_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatch = []
+        for _ in range(ASYNC_CALLS):
+            t1 = time.perf_counter()
+            async_losses.append(trainer.step_many(batches))
+            dispatch.append(time.perf_counter() - t1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    async_s = time.perf_counter() - t0
+    trainer.drain()
+    async_steps = ASYNC_CALLS * 4
+    async_ips = SHARDED_BATCH * async_steps / async_s
+    async_losses = [float(v) for t in async_losses for v in t]
+    peak = torch.cuda.max_memory_allocated()
+    scale = trainer.loss_scale()
+    check(all(np.isfinite(losses + async_losses)),
+          "non-finite loss %s %s" % (losses, async_losses))
+    check(True in kept, "every synchronous step was skipped: %s" % kept)
+    first = losses[kept.index(True)]
+    check(async_losses[-1] < first, "loss did not fall: first kept %.4f, "
+          "last %.4f" % (first, async_losses[-1]))
+    check(all(t.is_cuda for t in trainer.state_tensors()),
+          "trainer state is not on the card")
+    profile = profile_step(trainer, x, y, async_s / async_steps)
+    print("sharded: resnet50_v1 bf16_mixed batch %d ShardedTrainer sgd lr "
+          "0.1 momentum 0.9 | warm-up steps s %s (img/s %s) | sync %d "
+          "steps %.1f img/s (step s median %.4f) | async step_many(4) x %d %.1f img/s "
+          "(%.4f s per step, dispatch s per call %s, no host sync) | peak "
+          "memory %.2f GB | losses sync %s async %s | loss scale %s | "
+          "skipped %d | profile of one step_many(4): %s | %s"
+          % (SHARDED_BATCH, ["%.3f" % s for s in warm_s],
+             ["%.1f" % (SHARDED_BATCH / s) for s in warm_s], SYNC_STEPS,
+             sync_ips, statistics.median(step_s), ASYNC_CALLS, async_ips,
+             async_s / async_steps, ["%.4f" % s for s in dispatch],
+             peak / 1e9, ["%.4f" % v for v in losses],
+             ["%.4f" % v for v in async_losses], scale,
+             trainer.skipped_steps, profile, card), flush=True)
+    trainer.close()
+    return {"sync_ips": sync_ips, "async_ips": async_ips}
+
+
+def small_trainer(ctx, weights, **kw):
+    with mx.name.NameManager():
+        net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                              [16, 32, 64, 128, 256], classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.zeros((1, 3, 32, 32), ctx=ctx))
+    if weights is not None:
+        mx.convert.load_from_numpy(net, weights)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    return net, parallel.ShardedTrainer(
+        net, lambda o, l: loss_fn(o, l), optimizer="sgd",
+        optimizer_params=dict(SMALL_SGD), **kw)
+
+
+def check_small_sharded():
+    """The small ResNet of tests/test_torch_sharded_trainer.py through
+    ShardedTrainer: f32 losses on the card against the CPU, the guard on
+    a NaN batch, and step_many(3) against 3 steps."""
+    rng = np.random.RandomState(0)
+    xs = [rng.randn(4, 3, 32, 32).astype(np.float32) for _ in range(3)]
+    ys = [rng.randint(0, 10, 4).astype(np.float32) for _ in range(3)]
+    cpu_net, cpu_tr = small_trainer(mx.cpu(), None, on_nonfinite="skip")
+    weights = {n: p.data().asnumpy()
+               for n, p in cpu_net.collect_params().items()}
+    _, gpu_tr = small_trainer(mx.gpu(0), weights, on_nonfinite="skip")
+    losses = {}
+    for ctx, tr in ((mx.cpu(), cpu_tr), (mx.gpu(0), gpu_tr)):
+        losses[ctx] = [float(tr.step([mx.nd.array(x, ctx=ctx)],
+                                     mx.nd.array(y, ctx=ctx)))
+                       for x, y in zip(xs, ys)]
+    a, b = np.array(losses[mx.cpu()]), np.array(losses[mx.gpu(0)])
+    rel = float(np.max(np.abs(b - a) / np.abs(a)))
+    check(rel <= 1e-5, "small ShardedTrainer losses card %s vs CPU %s"
+          % (b, a))
+    before = [t.clone() for t in gpu_tr.state_tensors()]
+    bad = xs[0].copy()
+    bad[0, 0, 0, 0] = np.nan
+    loss = gpu_tr.step([mx.nd.array(bad, ctx=mx.gpu(0))],
+                       mx.nd.array(ys[0], ctx=mx.gpu(0)))
+    after = gpu_tr.state_tensors()
+    check(not np.isfinite(float(loss)), "NaN batch gave a finite loss")
+    check(len(before) == len(after)
+          and all(torch.equal(u, v) for u, v in zip(before, after)),
+          "the guard changed the state on a NaN batch")
+    check(gpu_tr.skipped_steps == 1, "skipped %d steps, expected 1"
+          % gpu_tr.skipped_steps)
+    # step_many(3) against 3 steps: bit for bit with deterministic cuDNN
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, many = small_trainer(mx.gpu(0), weights, steps_per_call=3)
+        _, one = small_trainer(mx.gpu(0), weights)
+        batches = [([mx.nd.array(x, ctx=mx.gpu(0))],
+                    mx.nd.array(y, ctx=mx.gpu(0))) for x, y in zip(xs, ys)]
+        lm = many.step_many(batches)
+        lo = torch.stack([one.step(*b) for b in batches])
+        same = torch.equal(lm, lo) and all(
+            torch.equal(u, v) for u, v in zip(many.state_tensors(),
+                                              one.state_tensors()))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    check(same, "step_many(3) differs from 3 steps: %s vs %s" % (lm, lo))
+    print("sharded small: f32 losses card %s vs CPU %s (max rel %.3g) | NaN "
+          "batch: state unchanged, skipped 1 | step_many(3) bit-equal to 3 "
+          "steps (cudnn.deterministic)"
+          % (["%.6f" % v for v in b], ["%.6f" % v for v in a], rel),
+          flush=True)
+
+
 def flash_inputs(shape, dtype, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -781,6 +1054,9 @@ def main():
           % small_err, flush=True)
     timing = time_step_set(step_inputs, card)
     del net, trainable, step_inputs
+    torch.cuda.empty_cache()
+    phase_sharded(card)
+    check_small_sharded()
     torch.cuda.empty_cache()
     flash_worst, flash_share = phase_flash(card)
     sp_launches, sp_worst, sp_share, sp_times = phase_sp(card)

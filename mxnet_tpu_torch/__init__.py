@@ -11,12 +11,16 @@ Ported so far: the gluon training path ``Trainer`` -> ``KVStore`` ->
 compression kernels written by hand in CUDA (``kernels/``); flash
 attention (``ops.attention``, its forward a CUDA kernel) and the ring and
 Ulysses sequence-parallel engines over a ``torch.distributed`` device
-mesh (``parallel``).
+mesh (``parallel``); ``parallel.ShardedTrainer`` on one card under the
+``dtype_policy`` precision policies (``bf16_mixed``: bf16 compute, f32
+master parameters, dynamic loss scaling).
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
 from . import name  # noqa: F401
 from . import random  # noqa: F401
+from . import config  # noqa: F401
+from . import dtype_policy  # noqa: F401
 from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401

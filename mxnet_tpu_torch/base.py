@@ -28,7 +28,8 @@ _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 
 
 def torch_dtype(dtype):
-    """numpy dtype / dtype name / torch dtype -> torch dtype (None -> f32)."""
+    """numpy dtype / dtype name / torch dtype -> torch dtype (None -> f32).
+    Names numpy lacks, such as ``"bfloat16"``, resolve through torch."""
     if dtype is None:
         return torch.float32
     if isinstance(dtype, torch.dtype):
@@ -36,6 +37,10 @@ def torch_dtype(dtype):
     try:
         return _NP_TO_TORCH[np.dtype(dtype)]
     except (KeyError, TypeError) as e:
+        named = getattr(torch, dtype, None) if isinstance(dtype, str) \
+            else None
+        if isinstance(named, torch.dtype):
+            return named
         raise MXNetError("unsupported dtype %r" % (dtype,)) from e
 
 

@@ -7,6 +7,14 @@ its parent's scope counter, so parameter names (e.g.
 ``resnetv10_conv2d0_weight``) match the JAX package's and weights carry
 across by name.  ``hybridize()`` is accepted and the block still runs
 eagerly: there is no compiled path in this port yet.
+
+``parallel.ShardedTrainer`` runs a block's forward with its parameters
+swapped for the step's tensors.  It installs an aux sink, a list into
+which BatchNorm hands ``(parameter, new_value)`` for its moving stats
+instead of rebinding them, so that the step applies them after the
+update and its non-finite guard can discard them, and it sets the trace
+flag, under which blocks skip their deferred-initialization check (every
+parameter has been swapped in).
 """
 from __future__ import annotations
 
@@ -21,6 +29,19 @@ from ..name import NameManager
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock"]
+
+_aux_sink = threading.local()
+
+
+def _current_aux_sink():
+    return getattr(_aux_sink, "sink", None)
+
+
+_trace_state = threading.local()
+
+
+def _is_tracing():
+    return getattr(_trace_state, "active", False)
 
 
 class _BlockScope:
@@ -78,6 +99,7 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_hooks = OrderedDict()
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -129,6 +151,11 @@ class Block:
             name = str(len(self._children))
         self._children[name] = block
 
+    def register_forward_hook(self, hook):
+        """``hook(block, args, output)`` after each forward."""
+        self._forward_hooks[len(self._forward_hooks)] = hook
+        return _HookHandle(self._forward_hooks, len(self._forward_hooks) - 1)
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
@@ -139,7 +166,10 @@ class Block:
 
     def __call__(self, *args):
         with autograd.grad_mode():
-            return self.forward(*args)
+            out = self.forward(*args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
@@ -174,9 +204,19 @@ class HybridBlock(Block):
             raise MXNetError("forward expects NDArray, got %r" % type(x))
         from .. import ndarray as F
 
-        self._ensure_initialized(x, *args)
+        if not _is_tracing():
+            self._ensure_initialized(x, *args)
         params = {k: p.data() for k, p in self._reg_params.items()}
         return self.hybrid_forward(F, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class _HookHandle:
+    def __init__(self, hooks, idx):
+        self._hooks = hooks
+        self._idx = idx
+
+    def detach(self):
+        self._hooks.pop(self._idx, None)

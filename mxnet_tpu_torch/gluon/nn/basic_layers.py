@@ -7,7 +7,7 @@ import math
 import torch
 
 from ...base import MXNetError
-from ..block import HybridBlock
+from ..block import HybridBlock, _current_aux_sink
 from ... import autograd
 
 __all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm", "Flatten",
@@ -94,8 +94,9 @@ class Activation(HybridBlock):
 class BatchNorm(HybridBlock):
     """Batch normalization with the JAX package's defaults (epsilon 1e-5,
     momentum 0.9, ``fix_gamma = not scale``).  In training the moving
-    stats are updated here from the batch mean and the biased batch
-    variance: ``new = m * running + (1 - m) * batch``."""
+    stats are updated from the batch mean and the biased batch variance:
+    ``new = m * running + (1 - m) * batch``, rebound here, or handed to
+    the aux sink inside a ``ShardedTrainer`` step."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -141,8 +142,13 @@ class BatchNorm(HybridBlock):
             with torch.no_grad():
                 new_mean = m * running_mean._data + (1 - m) * mean._data
                 new_var = m * running_var._data + (1 - m) * var._data
-            running_mean._rebind(new_mean)
-            running_var._rebind(new_var)
+            sink = _current_aux_sink()
+            if sink is not None:
+                sink.append((self.running_mean, new_mean))
+                sink.append((self.running_var, new_var))
+            else:
+                running_mean._rebind(new_mean)
+                running_var._rebind(new_var)
         return out
 
 

@@ -4,17 +4,26 @@ Activation :184, BatchNorm :237).
 
 cuDNN and cuBLAS carry these through ``torch.nn.functional``, as XLA
 carried them on the TPU; none of them is a Pallas kernel there.
+
+Under a dtype policy's scope, FullyConnected and Convolution compute in
+their weight's dtype (``dtype_policy.harmonize``), and BatchNorm gives
+the JAX op's dtypes when data and parameters differ: its output takes
+the promoted dtype of the data, the statistics and gamma/beta (bf16 data
+with f32 gamma gives f32), and the batch statistics take the data's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dtype_policy import harmonize
+
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
            "batch_norm", "log_softmax", "pick"]
 
 
 def fully_connected(data, weight, bias=None, flatten=True):
+    data = harmonize(data, weight)
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
     return F.linear(data, weight, bias)
@@ -22,6 +31,7 @@ def fully_connected(data, weight, bias=None, flatten=True):
 
 def convolution(data, weight, bias=None, stride=(1, 1), pad=(0, 0),
                 dilate=(1, 1), num_group=1):
+    data = harmonize(data, weight)
     # symmetric (p, p) padding, as lax.conv_general_dilated is given there
     return F.conv2d(data, weight, bias, stride=tuple(stride),
                     padding=tuple(pad), dilation=tuple(dilate),
@@ -74,18 +84,31 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                fix_gamma=True, use_global_stats=False, training=False):
     """Returns ``(out, mean, var)``: the statistics used, detached.  In
     training they are the batch mean and the BIASED batch variance (as
-    ``jnp.var``); torch's own running-stat update would use the unbiased
-    one, so the caller updates the moving stats from these instead."""
+    ``jnp.var``), in the data's dtype; torch's own running-stat update
+    would use the unbiased one, so the caller updates the moving stats
+    from these instead."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    if use_global_stats or not training:
-        out = F.batch_norm(data, moving_mean, moving_var, g, beta,
-                           training=False, eps=eps)
-        return out, moving_mean, moving_var
+    global_stats = use_global_stats or not training
+    stat_dtype = moving_mean.dtype if global_stats else data.dtype
+    out_dtype = torch.promote_types(
+        torch.promote_types(data.dtype, stat_dtype),
+        torch.promote_types(g.dtype, beta.dtype))
+    # cuDNN and the CPU kernel take reduced-precision data with f32
+    # parameters; any other mix runs with the parameters in the data's
+    # dtype
+    low = (torch.bfloat16, torch.float16)
+    pdt = torch.float32 if data.dtype in low and \
+        g.dtype == torch.float32 else data.dtype
+    g, b = g.to(pdt), beta.to(pdt)
+    if global_stats:
+        out = F.batch_norm(data, moving_mean.to(pdt), moving_var.to(pdt),
+                           g, b, training=False, eps=eps)
+        return out.to(out_dtype), moving_mean, moving_var
     red = [i for i in range(data.dim()) if i != 1]
     with torch.no_grad():
         var, mean = torch.var_mean(data, dim=red, correction=0)
-    out = F.batch_norm(data, None, None, g, beta, training=True, eps=eps)
-    return out, mean, var
+    out = F.batch_norm(data, None, None, g, b, training=True, eps=eps)
+    return out.to(out_dtype), mean, var
 
 
 def log_softmax(data, axis=-1):
