@@ -65,13 +65,34 @@ non-zero, printing no result, without them.  Phases, one line each:
    the card against the CPU (rtol 1e-5), the non-finite guard on a NaN
    batch, and step_many(3) bit for bit equal to 3 steps with
    deterministic cuDNN;
-8. flash times: each kernel, the plain version and
+8. decode: the LM serving path at tools/bench_decode.py's accelerator
+   width (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff 2048,
+   max_len 256; Xavier from a seed): GenerationEngine(slots=16,
+   cache_len=256) greedy, 16 prompts of 16 tokens, one a slot, then 48
+   decode steps, in f32 (TF32 off) and under bf16_mixed.  f32: every
+   step's logits within 1e-4 + 1e-4 |ref| of net(tokens) at that
+   position over the prompt and the tokens so far, each prefill's too
+   (and whether the padded bucket gave them bit for bit), and the tokens
+   equal to the full forward's argmax wherever its top-2 gap is above
+   1e-3 (the positions left out counted); a lane with cache_len 64 runs
+   to at_capacity past the ring.  bf16_mixed: a bf16 cache, and logits
+   within 0.12 + 0.05 |ref| of the policy's prefill of the same
+   sequences.  A TokenServer over the bf16 engine answers 16 requests of
+   max_new_tokens 32, all finishing by 'length' with the engine's own
+   tokens; tests/test_generate.py's small LM gives the same f32 logits
+   (within 1e-5 of the largest) and greedy tokens on the card as on the
+   CPU; the path launches no hand-written kernel.  A 'decode' line per
+   policy: prefill ms per admit (median), step ms (median), tokens/s
+   (16 x steps / their time), the profile of 8 more steps (kernels a
+   step, the card's kernel time against the host's step, idle share),
+   peak memory;
+9. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-9. a {"kernels": [...]} line;
-10. last line: {"ok": true, "device": {...}}.
+10. a {"kernels": [...]} line;
+11. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -89,8 +110,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import kernels, parallel
+from mxnet_tpu_torch import generate, kernels, parallel
 from mxnet_tpu_torch.contrib import compression as comp
+from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.ops import attention as attn
 
@@ -149,6 +171,26 @@ SYNC_STEPS = 8
 ASYNC_CALLS = 2
 # tests/test_torch_sharded_trainer.py's sgd settings for the small ResNet
 SMALL_SGD = {"learning_rate": 3e-5, "momentum": 0.9, "wd": 1e-4}
+# the decode phase: tools/bench_decode.py's LM on an accelerator
+# (:182-200, d_ff 4 x d_model), 16 slots x 256 positions, 16 prompts of 16
+# tokens (:248), 48 steps (:87); then 8 steps under the profiler
+DECODE_LM = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8,
+                 d_ff=2048, max_len=256)
+DECODE_SLOTS, DECODE_CACHE, DECODE_PROMPT, DECODE_STEPS = 16, 256, 16, 48
+DECODE_PROFILE_STEPS = 8
+WRAP_CACHE = 64
+SERVER_NEW = 32
+# f32 with TF32 off: decode logits within 1e-4 + 1e-4 |ref| of the full
+# forward's; tokens compared where the full forward's top-2 gap exceeds
+# 1e-3; bf16_mixed within 0.12 + 0.05 |ref| of the policy's prefill
+# (tests/test_generate.py:140-168)
+F32_LOGIT_TOL, GAP_TOL = 1e-4, 1e-3
+BF16_ATOL, BF16_RTOL = 0.12, 0.05
+# tests/test_generate.py:44's LM, card against CPU: max |d| within 1e-5 of
+# the largest |logit|
+SMALL_LM = dict(vocab_size=48, d_model=32, n_heads=2, n_layers=2,
+                max_len=24)
+SMALL_LM_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -1005,6 +1047,282 @@ def phase_sp(card):
     return launches, worst, max(shares.values()), times
 
 
+def build_lm(cfg, ctx, seed=0):
+    """The port's LM, Xavier from a seeded generator; names start at
+    transformerlm0 (parameters deferred until the first forward)."""
+    mx.random.seed(seed)
+    with mx.name.NameManager():
+        lm = TransformerLM(**cfg)
+    lm.initialize(mx.init.Xavier(), ctx=ctx)
+    return lm
+
+
+def drive_engine(eng, prompts, steps):
+    """Admit every prompt, then run ``steps`` decode steps; each admit
+    and step timed on the host clock (both end in a host read of the
+    tokens, which waits for the card).  Returns the tokens per slot, the
+    logits of each admit and step, and the times in ms."""
+    toks, first_logits, admit_ms, step_ms, logits = {}, {}, [], [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        slot, tok = eng.admit(p)
+        admit_ms.append(1e3 * (time.perf_counter() - t0))
+        toks[slot] = [tok]
+        first_logits[slot] = eng.last_logits[0]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = eng.decode_step()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        for slot, tok in out.items():
+            toks[slot].append(tok)
+        logits.append(eng.last_logits)
+    return toks, first_logits, logits, admit_ms, step_ms
+
+
+def fed_sequences(prompts, toks, steps):
+    """Per slot, the prompt and the tokens fed back by ``steps`` steps."""
+    return np.stack([np.concatenate([p, toks[s][:steps]])
+                     for s, p in enumerate(prompts)])
+
+
+def profile_decode(eng, step_ms):
+    """DECODE_PROFILE_STEPS decode steps under torch.profiler: kernels a
+    step, the card's kernel time a step and its idle share against the
+    unprofiled median step.  A measurement only: a profiler failure is
+    reported, not raised."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(DECODE_PROFILE_STEPS):
+                eng.decode_step()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 - the profile is optional
+        return "not measured (torch.profiler failed: %r)" % (e,)
+    n = DECODE_PROFILE_STEPS
+    rows = [(_self_device_us(ev), ev.count, ev.key) for ev in averages
+            if getattr(ev, "device_type", None) == DeviceType.CUDA
+            and _self_device_us(ev)]
+    total = sum(us for us, _, _ in rows)
+    if not total:
+        return "not measured (torch.profiler recorded no device time)"
+    kernel_ms = total / 1e3 / n
+    step = statistics.median(step_ms)
+    return ("kernels %.1f a step, card kernel time %.3f ms a step against "
+            "the host's %.3f ms step (median, unprofiled): card idle "
+            "%.1f%% | top: %s"
+            % (sum(c for _, c, _ in rows) / n, kernel_ms, step,
+               100 * max(0.0, 1 - kernel_ms / step),
+               "; ".join("%s %.3f ms" % (key[:40], us / 1e3 / n)
+                         for us, _, key in sorted(rows, reverse=True)[:4])))
+
+
+def decode_line(tag, eng, admit_ms, step_ms, profile, card):
+    steps = len(step_ms)
+    print("decode %s: LM %s, GenerationEngine(slots=%d, cache_len=%d, "
+          "buckets %s) greedy, cache %s | %d prompts of %d tokens, prefill "
+          "ms per admit median %.3f | %d steps over %d slots: step ms "
+          "median %.3f (min %.3f, max %.3f), %.1f tokens/s | profile of "
+          "%d steps: %s | peak memory %.3f GB | %s"
+          % (tag, DECODE_LM, eng.slots, eng.cache_len, eng.buckets,
+             str(eng.cache_dtype)[6:], DECODE_SLOTS, DECODE_PROMPT,
+             statistics.median(admit_ms), steps, DECODE_SLOTS,
+             statistics.median(step_ms), min(step_ms), max(step_ms),
+             DECODE_SLOTS * steps / (sum(step_ms) / 1e3),
+             DECODE_PROFILE_STEPS, profile,
+             torch.cuda.max_memory_allocated() / 1e9, card), flush=True)
+
+
+def check_small_lm_against_cpu():
+    """tests/test_generate.py's LM on the card and on the CPU from the
+    same weights: f32 logits and greedy engine tokens."""
+    cpu_lm = build_lm(SMALL_LM, mx.cpu(), seed=3)
+    tokens = np.random.RandomState(3).randint(
+        0, SMALL_LM["vocab_size"], (2, 12))
+    a = cpu_lm(mx.nd.array(tokens, ctx=mx.cpu(), dtype="float32")).asnumpy()
+    weights = {n: p.data().asnumpy()
+               for n, p in cpu_lm.collect_params().items()}
+    gpu_lm = build_lm(SMALL_LM, mx.gpu(0), seed=4)
+    mx.convert.load_from_numpy(gpu_lm, weights)
+    b = gpu_lm(mx.nd.array(tokens, ctx=mx.gpu(0), dtype="float32")).asnumpy()
+    err = float(np.abs(a - b).max())
+    check(err <= SMALL_LM_RTOL * float(np.abs(a).max()),
+          "small LM logits: card vs CPU differ by %g" % err)
+    greedy = []
+    for lm, dev in ((cpu_lm, mx.cpu()), (gpu_lm, mx.gpu(0))):
+        eng = generate.GenerationEngine(lm, slots=2, cache_len=24,
+                                        buckets=[8, 24], device=dev,
+                                        dtype_policy="f32")
+        slot, tok = eng.admit(tokens[0, :6])
+        greedy.append([tok] + [eng.decode_step()[slot] for _ in range(8)])
+    check(greedy[0] == greedy[1], "small LM greedy tokens: CPU %s, card %s"
+          % tuple(greedy))
+    return err / float(np.abs(a).max())
+
+
+def phase_decode(card):
+    """The LM serving path at bench_decode's full width (module doc,
+    phase 8)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    before = dict(kernels.launch_counts)
+    greedy = generate.SamplingConfig(greedy=True)
+    prompts = list(np.random.RandomState(0).randint(
+        0, DECODE_LM["vocab_size"], (DECODE_SLOTS, DECODE_PROMPT)))
+    lm = build_lm(DECODE_LM, mx.gpu(0))
+
+    # f32: decode and prefill logits against the full forward
+    torch.cuda.reset_peak_memory_stats()
+    eng = generate.GenerationEngine(lm, slots=DECODE_SLOTS,
+                                    cache_len=DECODE_CACHE,
+                                    sampling=greedy, dtype_policy="f32")
+    n_params = sum(p.data().size for p in lm.collect_params().values())
+    check(eng.device.type == "cuda" and eng.cache_dtype == torch.float32,
+          "f32 engine on %s, cache %s" % (eng.device, eng.cache_dtype))
+    toks, first, logits, admit_ms, step_ms = drive_engine(
+        eng, prompts, DECODE_STEPS)
+    profile = profile_decode(eng, step_ms)
+    decode_line("f32", eng, admit_ms, step_ms, profile, card)
+    seqs = fed_sequences(prompts, toks, DECODE_STEPS)
+    with torch.inference_mode():
+        full = lm(mx.nd.array(seqs, ctx=mx.gpu(0),
+                              dtype="float32")).asnumpy()
+    top2 = np.sort(full, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    err, err_prefill, excluded, compared = 0.0, 0.0, 0, 0
+    prefill_equal = True
+    for s in range(DECODE_SLOTS):
+        ref = full[s, DECODE_PROMPT - 1]
+        d = np.abs(first[s] - ref)
+        prefill_equal &= bool(np.array_equal(first[s], ref))
+        err_prefill = max(err_prefill, float(d.max()))
+        check(np.all(d <= F32_LOGIT_TOL + F32_LOGIT_TOL * np.abs(ref)),
+              "slot %d prefill logits differ from the full forward by %g"
+              % (s, float(d.max())))
+        for j in range(DECODE_STEPS + 1):
+            pos = DECODE_PROMPT - 1 + j
+            if j:
+                ref = full[s, pos]
+                got = logits[j - 1][s]
+                d = np.abs(got - ref)
+                err = max(err, float(d.max()))
+                check(np.all(d <= F32_LOGIT_TOL + F32_LOGIT_TOL
+                             * np.abs(ref)),
+                      "slot %d step %d logits differ from the full forward "
+                      "by %g" % (s, j, float(d.max())))
+            if gap[s, pos] > GAP_TOL:
+                compared += 1
+                check(toks[s][j] == int(full[s, pos].argmax()),
+                      "slot %d token %d: engine %d, full forward %d (top-2 "
+                      "gap %g)" % (s, j, toks[s][j], full[s, pos].argmax(),
+                                   gap[s, pos]))
+            else:
+                excluded += 1
+    del full
+    print("decode f32 check: %d slots x %d steps, decode logits vs net(tokens) "
+          "max|d| %.3g (limit %g + %g|ref|), prefill (bucket %d) vs net(tokens) "
+          "max|d| %.3g, bit-equal %s | greedy tokens equal to the full "
+          "forward's argmax at %d positions, %d left out (top-2 gap <= %g) "
+          "| %d parameters | %s"
+          % (DECODE_SLOTS, DECODE_STEPS, err, F32_LOGIT_TOL, F32_LOGIT_TOL,
+             eng.bucket_for(DECODE_PROMPT), err_prefill, prefill_equal,
+             compared, excluded, GAP_TOL, n_params, card), flush=True)
+    del eng
+
+    # the ring wraps: cache 64 < max_len, one lane up to at_capacity
+    wrap = generate.GenerationEngine(lm, slots=1, cache_len=WRAP_CACHE,
+                                     sampling=greedy, dtype_policy="f32")
+    slot, tok = wrap.admit(prompts[0])
+    produced = [tok]
+    while not wrap.at_capacity(slot):
+        produced.append(wrap.decode_step()[slot])
+        check(np.all(np.isfinite(wrap.last_logits)), "wrap logits not finite")
+    want = DECODE_LM["max_len"] - DECODE_PROMPT + 1
+    check(len(produced) == want and all(0 <= t < DECODE_LM["vocab_size"]
+                                        for t in produced),
+          "wrap lane produced %d tokens, expected %d" % (len(produced), want))
+    print("decode wrap: cache_len %d, one lane from %d to max_len %d: %d "
+          "tokens, logits finite | %s"
+          % (WRAP_CACHE, DECODE_PROMPT, DECODE_LM["max_len"], len(produced),
+             card), flush=True)
+    del wrap
+
+    # bf16_mixed: decode logits against the policy's prefill
+    torch.cuda.reset_peak_memory_stats()
+    eng = generate.GenerationEngine(lm, slots=DECODE_SLOTS,
+                                    cache_len=DECODE_CACHE,
+                                    sampling=greedy,
+                                    dtype_policy="bf16_mixed")
+    check(eng.cache_dtype == torch.bfloat16 and
+          eng.dtype_policy_tag == "bf16_mixed",
+          "bf16_mixed cache %s tag %s" % (eng.cache_dtype,
+                                          eng.dtype_policy_tag))
+    toks16, _, logits16, admit_ms, step_ms = drive_engine(
+        eng, prompts, DECODE_STEPS)
+    profile = profile_decode(eng, step_ms)
+    decode_line("bf16_mixed", eng, admit_ms, step_ms, profile, card)
+    policy = mx.dtype_policy.get_policy("bf16_mixed")
+    params = list(lm.collect_params().values())
+    cast = [policy.cast_compute(p.name, p.data()._data) for p in params]
+    seqs = fed_sequences(prompts, toks16, DECODE_STEPS)
+    with torch.inference_mode(), mx.dtype_policy.scope(policy), \
+            mx.gluon.block.swapped_params(params, cast):
+        ref_nd, _ = lm.prefill_forward(mx.nd.array(seqs, ctx=mx.gpu(0),
+                                                   dtype="int64"))
+        ref = policy.cast_output(ref_nd._data).cpu().numpy()
+    del cast, ref_nd
+    err16, agree = 0.0, 0
+    for j in range(1, DECODE_STEPS + 1):
+        r = ref[:, DECODE_PROMPT - 1 + j]
+        d = np.abs(logits16[j - 1] - r)
+        err16 = max(err16, float(d.max()))
+        check(np.all(d <= BF16_ATOL + BF16_RTOL * np.abs(r)),
+              "bf16 step %d logits differ from the policy's prefill by %g"
+              % (j, float(d.max())))
+        agree += int((logits16[j - 1].argmax(-1) == r.argmax(-1)).sum())
+    print("decode bf16_mixed check: cache bfloat16, decode logits vs the "
+          "policy's prefill of the same sequences max|d| %.3g (limit %g + "
+          "%g|ref|), argmax equal at %d of %d | %s"
+          % (err16, BF16_ATOL, BF16_RTOL, agree, DECODE_SLOTS * DECODE_STEPS,
+             card), flush=True)
+
+    # the server over the bf16 engine answers with the engine's tokens;
+    # evicting in reverse order frees the lanes so that the requests take
+    # slots 0, 1, ... as the engine's own run did
+    for s in reversed(eng.active_slots()):
+        eng.evict(s, "length")
+    t0 = time.perf_counter()
+    with generate.TokenServer(eng, queue_depth=DECODE_SLOTS) as srv:
+        futs = [srv.submit(p, max_new_tokens=SERVER_NEW) for p in prompts]
+        results = [f.result(timeout=120) for f in futs]
+    server_s = time.perf_counter() - t0
+    for i, r in enumerate(results):
+        check(r.finish_reason == "length" and len(r.tokens) == SERVER_NEW,
+              "request %d finished %s with %d tokens"
+              % (i, r.finish_reason, len(r.tokens)))
+        check(r.tokens == toks16[i][:SERVER_NEW], "request %d: server tokens "
+              "differ from the engine's alone" % i)
+    print("decode server: TokenServer over the bf16_mixed engine, %d "
+          "requests of max_new_tokens %d: all 'length', tokens equal to the "
+          "engine's alone | %.3f s, %.1f tokens/s, ttft s median %.4f | %s"
+          % (len(results), SERVER_NEW, server_s,
+             len(results) * SERVER_NEW / server_s,
+             statistics.median(r.ttft_s for r in results), card), flush=True)
+    del eng
+
+    rel = check_small_lm_against_cpu()
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the decode path launched %s"
+          % launched)
+    print("decode reference: small LM %s card vs CPU logits max|d| %.3g of "
+          "max|logit| (limit %g), greedy tokens equal | hand-written kernels "
+          "launched on the decode path: %s (none is on it) | %s"
+          % (SMALL_LM, rel, SMALL_LM_RTOL, launched, card), flush=True)
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -1060,6 +1378,9 @@ def main():
     torch.cuda.empty_cache()
     flash_worst, flash_share = phase_flash(card)
     sp_launches, sp_worst, sp_share, sp_times = phase_sp(card)
+    torch.cuda.empty_cache()
+    phase_decode(card)
+    torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]

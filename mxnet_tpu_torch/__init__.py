@@ -13,7 +13,11 @@ attention (``ops.attention``, its forward a CUDA kernel) and the ring and
 Ulysses sequence-parallel engines over a ``torch.distributed`` device
 mesh (``parallel``); ``parallel.ShardedTrainer`` on one card under the
 ``dtype_policy`` precision policies (``bf16_mixed``: bf16 compute, f32
-master parameters, dynamic loss scaling).
+master parameters, dynamic loss scaling); the op registry with ``mx.nd``
+generated from it, and the transformer LM's serving path
+(``examples.transformer_lm`` -> ``generate.GenerationEngine``, the ring
+KV-cache engine -> ``generate.TokenServer``, with the typed errors of
+``serving_async``).
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -33,3 +37,5 @@ from . import kvstore as kv  # noqa: F401
 from . import gluon  # noqa: F401
 from . import convert  # noqa: F401
 from . import parallel  # noqa: F401
+from . import serving_async  # noqa: F401
+from . import generate  # noqa: F401

@@ -22,8 +22,20 @@ __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "grad_mode"]
 
 _state = threading.local()
-# every NDArray with an attached gradient; weak, so dropped arrays leave
-_marked = weakref.WeakSet()
+# every NDArray with an attached gradient, by id; weak, so dropped arrays
+# leave.  Not a WeakSet: a set compares members with ``==``, which an
+# NDArray answers elementwise.
+_marked = {}
+
+
+def _mark(var):
+    key = id(var)
+
+    def _drop(ref, key=key):
+        if _marked.get(key) is ref:
+            del _marked[key]
+
+    _marked[key] = weakref.ref(var, _drop)
 
 
 def _st():
@@ -99,7 +111,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         var._grad_req = req
         var._data = var._data.detach().requires_grad_(
             req != "null" and var._data.is_floating_point())
-        _marked.add(var)
+        _mark(var)
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
@@ -121,8 +133,9 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         grads.append(torch.ones_like(h._data) if hg is None else hg._data)
     if not tensors:
         return
-    variables = [v for v in list(_marked)
-                 if v._grad is not None and v._data.requires_grad]
+    variables = [v for v in (r() for r in list(_marked.values()))
+                 if v is not None and v._grad is not None
+                 and v._data.requires_grad]
     for v in variables:
         v._data.grad = None
     prev = set_training(train_mode)

@@ -5,7 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "numeric_types", "torch_dtype", "numpy_dtype"]
+__all__ = ["MXNetError", "numeric_types", "torch_dtype", "numpy_dtype",
+           "_Null"]
 
 
 class MXNetError(RuntimeError):
@@ -13,6 +14,26 @@ class MXNetError(RuntimeError):
 
 
 numeric_types = (float, int, np.generic)
+
+
+class _NullType:
+    """Placeholder for a missing keyword (parity: mxnet.base._Null)."""
+
+    _inst = None
+
+    def __new__(cls):
+        if cls._inst is None:
+            cls._inst = super().__new__(cls)
+        return cls._inst
+
+    def __repr__(self):
+        return "_Null"
+
+    def __bool__(self):
+        return False
+
+
+_Null = _NullType()
 
 _NP_TO_TORCH = {
     np.dtype("float32"): torch.float32,

@@ -50,6 +50,32 @@ FLAGS = {
     "MXNET_NONFINITE_POLICY": (
         "warn", str,
         "step guard for NaN/Inf losses: off|warn|skip|raise"),
+    "MXNET_DECODE_SLOTS": (
+        "8", _pint,
+        "generate.GenerationEngine default decode slots: the fixed batch "
+        "width of the decode step (one KV-cache lane per slot)"),
+    "MXNET_DECODE_CACHE_LEN": (
+        "256", _pint,
+        "default KV-cache ring length per slot (capped at the model's "
+        "max_len); generation past the ring attends over a sliding "
+        "window"),
+    "MXNET_DECODE_BUCKETS": (
+        "32,64,128,256", str,
+        "comma list of prefill length buckets: a prompt pads up to the "
+        "smallest bucket >= its length"),
+    "MXNET_DECODE_QUEUE": (
+        "64", _pint,
+        "generate.TokenServer admission-queue depth: a full queue rejects "
+        "with the typed Overloaded('queue') error"),
+    "MXNET_DECODE_DEADLINE_MS": (
+        "0", _pfloat,
+        "default per-request decode deadline (0 = none): an expired "
+        "request fails with DeadlineExceeded(stage='prefill'|'decode') "
+        "and its cache slot is evicted (reason 'deadline')"),
+    "MXNET_DECODE_MAX_NEW": (
+        "128", _pint,
+        "default cap on generated tokens per request (finish_reason "
+        "'length'); submit's max_new_tokens= overrides"),
 }
 
 _warned = set()

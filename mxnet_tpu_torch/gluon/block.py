@@ -14,10 +14,13 @@ which BatchNorm hands ``(parameter, new_value)`` for its moving stats
 instead of rebinding them, so that the step applies them after the
 update and its non-finite guard can discard them, and it sets the trace
 flag, under which blocks skip their deferred-initialization check (every
-parameter has been swapped in).
+parameter has been swapped in).  ``swapped_params`` is the same recipe
+for inference (``generate.GenerationEngine``): inside it the given
+parameters read as the given tensors, in the calling thread only.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 from collections import OrderedDict
@@ -28,7 +31,7 @@ from .. import autograd
 from ..name import NameManager
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "swapped_params"]
 
 _aux_sink = threading.local()
 
@@ -42,6 +45,48 @@ _trace_state = threading.local()
 
 def _is_tracing():
     return getattr(_trace_state, "active", False)
+
+
+_swap_state = threading.local()
+
+
+@contextlib.contextmanager
+def swapped_params(params, arrays, training=False):
+    """Run a block's forward against supplied parameter tensors (parity:
+    mxnet_tpu/gluon/block.py:54): inside, each gluon ``Parameter`` of
+    ``params`` reads as the matching tensor of ``arrays``, blocks skip
+    their deferred-initialization check, and autograd's training flag is
+    ``training``; all is restored on exit.  The swap is local to the
+    calling thread, so a server's worker can decode with the committed
+    tensors while another thread runs the same block on its own
+    parameters."""
+    prev_map = getattr(_swap_state, "map", None)
+    swap = dict(prev_map or {})
+    swap.update((p, NDArray(a)) for p, a in zip(params, arrays))
+    prev_train = autograd.set_training(training)
+    prev_trace = _is_tracing()
+    _swap_state.map = swap
+    _trace_state.active = True
+    try:
+        yield
+    finally:
+        _swap_state.map = prev_map
+        _trace_state.active = prev_trace
+        autograd.set_training(prev_train)
+
+
+def _abstract_eval_forward(block, args):
+    """Finish deferred parameter inits (parity: block.py:82).  torch has
+    no ``eval_shape``, so this runs ``block`` once on ``args`` for real,
+    under ``autograd.pause()`` and with moving-stat updates discarded.
+    Returns the forward's output."""
+    prev_sink = getattr(_aux_sink, "sink", None)
+    _aux_sink.sink = []
+    try:
+        with autograd.pause():
+            return block(*args)
+    finally:
+        _aux_sink.sink = prev_sink
 
 
 class _BlockScope:
@@ -206,7 +251,9 @@ class HybridBlock(Block):
 
         if not _is_tracing():
             self._ensure_initialized(x, *args)
-        params = {k: p.data() for k, p in self._reg_params.items()}
+        swap = getattr(_swap_state, "map", None)
+        params = {k: swap[p] if swap is not None and p in swap
+                  else p.data() for k, p in self._reg_params.items()}
         return self.hybrid_forward(F, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

@@ -1,5 +1,6 @@
-"""Basic layers of the slice (parity: mxnet_tpu/gluon/nn/basic_layers.py —
-HybridSequential, Dense, Activation, BatchNorm, Flatten, HybridLambda)."""
+"""Basic layers (parity: mxnet_tpu/gluon/nn/basic_layers.py —
+HybridSequential, Dense, Activation, BatchNorm, Embedding :261, Flatten,
+LayerNorm :326, HybridLambda)."""
 from __future__ import annotations
 
 import math
@@ -10,8 +11,8 @@ from ...base import MXNetError
 from ..block import HybridBlock, _current_aux_sink
 from ... import autograd
 
-__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm", "Flatten",
-           "HybridLambda"]
+__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm",
+           "Embedding", "Flatten", "LayerNorm", "HybridLambda"]
 
 
 def _init_by_name(init):
@@ -150,6 +151,51 @@ class BatchNorm(HybridBlock):
                 running_mean._rebind(new_mean)
                 running_var._rebind(new_var)
         return out
+
+
+class Embedding(HybridBlock):
+    """Rows of an ``(input_dim, output_dim)`` weight by integer id."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        self.weight = self.params.get("weight", shape=(input_dim, output_dim),
+                                      init=weight_initializer, dtype=dtype,
+                                      allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` with learned gamma and beta
+    (their length deferred to the first input)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=_init_by_name(gamma_initializer),
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=_init_by_name(beta_initializer),
+            allow_deferred_init=True)
+
+    def _infer_param_shapes(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, data, gamma, beta):
+        return F.LayerNorm(data, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 class Flatten(HybridBlock):

@@ -1,8 +1,9 @@
 """Framework random stream (parity: mxnet_tpu/random.py, mx.random.seed).
 
 One explicit ``torch.Generator`` per device, all reseeded by ``seed``.
-Samplers in the port (the initializers) draw from the generator of the
-device they write to, never from torch's global default generator.
+Samplers in the port (the initializers, token sampling) draw from the
+generator of the device they write to, never from torch's global default
+generator.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "next_key"]
 
 _state = threading.local()
 
@@ -40,3 +41,12 @@ def generator(device):
         gen.manual_seed(st.seed)
         st.gens[key] = gen
     return gen
+
+
+def next_key(device):
+    """The framework stream for a draw on ``device`` (parity:
+    mxnet_tpu/random.py ``next_key``).  JAX splits a fresh key off its
+    global key per draw; a ``torch.Generator`` advances its own state as
+    it draws, so the stream's next key is the device's generator itself.
+    Draws are reproducible under ``seed``, not equal to JAX's."""
+    return generator(device)

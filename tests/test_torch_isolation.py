@@ -1,6 +1,8 @@
 """The port stands alone: importing mxnet_tpu_torch (with its parallel
-engines and flash-attention op) and building a full resnet50_v1 on the
-CPU loads neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
+engines, flash-attention op, generation engine and LM), building a full
+resnet50_v1 on the CPU, and admitting into and decoding with a tiny LM's
+GenerationEngine loads neither jax nor mxnet_tpu, and chip_smoke.py
+imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -23,6 +25,15 @@ out = net(mx.nd.array(np.zeros((1, 3, 64, 64), np.float32), ctx=mx.cpu()))
 assert out.shape == (1, 1000), out.shape
 trainable = [p for p in net.collect_params().values() if p.grad_req != "null"]
 assert len(trainable) == 193, len(trainable)
+import mxnet_tpu_torch.generate
+from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
+lm = TransformerLM(vocab_size=32, d_model=16, n_heads=2, n_layers=1,
+                   max_len=16)
+lm.initialize(mx.init.Xavier(), ctx=mx.cpu())
+eng = mxnet_tpu_torch.generate.GenerationEngine(
+    lm, slots=2, cache_len=16, buckets=[8], device=mx.cpu())
+slot, tok = eng.admit([1, 2, 3])
+assert slot in eng.decode_step() and 0 <= tok < 32
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))
