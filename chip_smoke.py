@@ -86,13 +86,33 @@ non-zero, printing no result, without them.  Phases, one line each:
    (16 x steps / their time), the profile of 8 more steps (kernels a
    step, the card's kernel time against the host's step, idle share),
    peak memory;
-9. flash times: each kernel, the plain version and
+9. paged: the paged KV-cache path on phase 8's LM: PagedGenerationEngine(
+   slots=16, cache_len=256, page_size=16, prefill_chunk=32) greedy f32 on
+   phase 8's prompts for 48 steps, every logit within 1e-4 + 1e-4 |ref|
+   of phase 8's ring engine and the tokens equal where the ring's top-2
+   gap is above 1e-3 (the positions left out counted; where two paths
+   part at such a tie a pair is compared no further); a 160-token prompt
+   in chunks of 16 against one chunk of 160, within the same bound;
+   bench_decode --prefix-share's shape through a TokenServer (8 users,
+   a 112-token system prompt + 8-token tails, 32 new tokens) at 4 slots,
+   its CPU value (8 on an accelerator, :422-423; cut), tokens equal with
+   sharing on and off, the hit rate; --spec's shape (2 slots, a
+   repetitive 24-token prompt, 160 tokens, k 4, ngram 3), greedy
+   tokens equal to spec off, accepted tokens a verify step, and a sampled
+   run (temperature 0.8, top_k 40) bit-equal with spec on and off under
+   one seed; bf16_mixed with a bf16 pool, logits within 0.12 + 0.05
+   |ref| of the policy's prefill; a TokenServer with every lever on
+   answering the 16 prompts with a ring server's tokens; no hand-written
+   kernel launched.  A 'paged' line: prefill-chunk ms, step ms (beside
+   the ring's), tokens/s, pages in use, the profile of 8 steps, peak
+   memory;
+10. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-10. a {"kernels": [...]} line;
-11. last line: {"ok": true, "device": {...}}.
+11. the whole script's wall time, then a {"kernels": [...]} line;
+12. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -191,6 +211,21 @@ BF16_ATOL, BF16_RTOL = 0.12, 0.05
 SMALL_LM = dict(vocab_size=48, d_model=32, n_heads=2, n_layers=2,
                 max_len=24)
 SMALL_LM_RTOL = 1e-5
+# the paged phase, at the decode phase's LM and slots: page 16, chunk 32
+# (the MXNET_DECODE_* defaults); a 160-token prompt in chunks of 16 and
+# in one, 8 steps after; bench_decode --prefix-share's shape (:408-430:
+# 8 users, a 112-token system prompt + 8-token tails, 32 new tokens) cut
+# to 4 slots, its CPU value (8 on an accelerator, :422-423), and
+# --spec's (:562-580: 2 slots, a 24-token prompt tiled from 6 tokens,
+# 160 tokens, k 4, ngram 3), its sampled run at temperature
+# 0.8, top_k 40 under one seed; bf16_mixed for 16 steps
+PAGE, PAGED_CHUNK = 16, 32
+LONG_PROMPT, LONG_CHUNK, LONG_STEPS = 160, 16, 8
+SHARE_USERS, SHARE_SYSTEM, SHARE_TAIL, SHARE_SLOTS, SHARE_NEW = \
+    8, 112, 8, 4, 32
+SPEC_SLOTS, SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_NGRAM, SPEC_SEED = \
+    2, 24, 160, 4, 3, 7
+BF16_PAGED_STEPS = 16
 
 
 def check(cond, msg):
@@ -1184,6 +1219,8 @@ def phase_decode(card):
           "f32 engine on %s, cache %s" % (eng.device, eng.cache_dtype))
     toks, first, logits, admit_ms, step_ms = drive_engine(
         eng, prompts, DECODE_STEPS)
+    ring = {"prompts": prompts, "toks": toks, "first": first,
+            "logits": logits, "step_ms": step_ms}
     profile = profile_decode(eng, step_ms)
     decode_line("f32", eng, admit_ms, step_ms, profile, card)
     seqs = fed_sequences(prompts, toks, DECODE_STEPS)
@@ -1321,6 +1358,357 @@ def phase_decode(card):
           "max|logit| (limit %g), greedy tokens equal | hand-written kernels "
           "launched on the decode path: %s (none is on it) | %s"
           % (SMALL_LM, rel, SMALL_LM_RTOL, launched, card), flush=True)
+    return lm, ring
+
+
+def drive_paged(eng, prompts, steps):
+    """drive_engine for the paged engine: each admit is one prefill chunk
+    here (prompts shorter than the chunk); decode steps return lists.
+    Returns the tokens per slot, the logits of each admit's last prompt
+    position and of each step, and the times in ms."""
+    toks, first, chunk_ms, step_ms, logits = {}, {}, [], [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        slot, tok = eng.admit(p)
+        chunk_ms.append(1e3 * (time.perf_counter() - t0))
+        toks[slot] = [tok]
+        first[slot] = eng.last_logits[0, len(p) - 1]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = eng.decode_step()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        for slot, got in out.items():
+            toks[slot].extend(got)
+        logits.append(eng.last_logits[:, 0])
+    return toks, first, logits, chunk_ms, step_ms
+
+
+def top2_gap(lm, prompt, toks):
+    """The full forward's top-2 gap at the position after ``prompt`` +
+    ``toks`` (f32, TF32 off)."""
+    seq = np.concatenate([np.asarray(prompt), np.asarray(toks, np.int64)])
+    with torch.inference_mode():
+        row = lm(mx.nd.array(seq[None], ctx=mx.gpu(0), dtype="float32")
+                 )._data[0, -1].float().cpu().numpy()
+    top2 = np.sort(row)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def same_tokens(lm, prompt, got, want, what):
+    """``got`` equals ``want``, or the two part where the full forward of
+    ``want``'s sequence has a top-2 gap <= GAP_TOL (a tie the two paths
+    may break apart; such a pair is compared no further).  Returns 1
+    when they parted at a tie, else 0."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            gap = top2_gap(lm, prompt, want[:j])
+            check(gap <= GAP_TOL, "%s: token %d is %d, expected %d (top-2 "
+                  "gap %g)" % (what, j, a, b, gap))
+            return 1
+    check(len(got) == len(want), "%s: %d tokens, expected %d"
+          % (what, len(got), len(want)))
+    return 0
+
+
+def paged_f32_check(eng, ring, toks, first, logits):
+    """Every paged logit within 1e-4 + 1e-4 |ref| of the ring engine's
+    at the same position while the two slots were fed the same tokens;
+    tokens equal wherever the ring's top-2 gap exceeds 1e-3.  Returns the
+    largest |d|, the positions compared and left out, and the slots whose
+    tokens parted at a tie."""
+    err, compared, excluded, parted = 0.0, 0, 0, 0
+    for s in range(DECODE_SLOTS):
+        for j in range(DECODE_STEPS + 1):
+            ref = ring["first"][s] if j == 0 else ring["logits"][j - 1][s]
+            got = first[s] if j == 0 else logits[j - 1][s]
+            d = np.abs(got - ref)
+            err = max(err, float(d.max()))
+            check(np.all(d <= F32_LOGIT_TOL + F32_LOGIT_TOL * np.abs(ref)),
+                  "paged slot %d step %d logits differ from the ring "
+                  "engine's by %g" % (s, j, float(d.max())))
+            top2 = np.sort(ref)[-2:]
+            if top2[1] - top2[0] <= GAP_TOL:
+                excluded += 1
+                if toks[s][j] != ring["toks"][s][j]:
+                    parted += 1
+                    break
+                continue
+            compared += 1
+            check(toks[s][j] == ring["toks"][s][j],
+                  "paged slot %d token %d: %d, ring %d" % (
+                      s, j, toks[s][j], ring["toks"][s][j]))
+    return err, compared, excluded, parted
+
+
+def run_server(eng, prompts, max_new):
+    """``prompts`` through a TokenServer over ``eng``; results in order
+    and the wall time."""
+    t0 = time.perf_counter()
+    with generate.TokenServer(eng, queue_depth=len(prompts)) as srv:
+        futs = [srv.submit(p, max_new_tokens=max_new) for p in prompts]
+        results = [f.result(timeout=300) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def gen_paged(eng, prompt, n):
+    """``n`` tokens of one sequence through admit and decode steps;
+    returns them and the decode steps taken."""
+    slot, tok = eng.admit(prompt)
+    out, steps = [tok], 0
+    while len(out) < n:
+        out.extend(eng.decode_step()[slot])
+        steps += 1
+    eng.evict(slot, "length")
+    return out[:n], steps
+
+
+def phase_paged(card, lm, ring):
+    """The paged engine at bench_decode's full width (module doc, phase
+    9); ``lm`` and ``ring`` are phase 8's LM and its f32 ring run."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    before = dict(kernels.launch_counts)
+    greedy = generate.SamplingConfig(greedy=True)
+    prompts = ring["prompts"]
+    vocab = DECODE_LM["vocab_size"]
+
+    # f32 decode against the ring engine
+    torch.cuda.reset_peak_memory_stats()
+    eng = generate.PagedGenerationEngine(
+        lm, slots=DECODE_SLOTS, cache_len=DECODE_CACHE, page_size=PAGE,
+        prefill_chunk=PAGED_CHUNK, sampling=greedy, dtype_policy="f32")
+    check(eng.device.type == "cuda" and eng.cache_dtype == torch.float32
+          and eng.num_pages == DECODE_SLOTS * DECODE_CACHE // PAGE + 1,
+          "paged engine on %s, cache %s, %d pages"
+          % (eng.device, eng.cache_dtype, eng.num_pages))
+    toks, first, logits, chunk_ms, step_ms = drive_paged(
+        eng, prompts, DECODE_STEPS)
+    pages = eng.pages_in_use()
+    check(pages == DECODE_SLOTS * DECODE_CACHE // PAGE,
+          "%d pages in use with %d slots live" % (pages, DECODE_SLOTS))
+    err, compared, excluded, parted = paged_f32_check(eng, ring, toks,
+                                                      first, logits)
+    profile = profile_decode(eng, step_ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print("paged: LM %s, PagedGenerationEngine(slots=%d, cache_len=%d, "
+          "page_size=%d, prefill_chunk=%d) greedy f32, %d pages | %d "
+          "prompts of %d tokens, prefill-chunk ms median %.3f | %d steps "
+          "over %d slots: step ms median %.3f (min %.3f, max %.3f; the "
+          "ring engine's in phase 8: %.3f), %.1f tokens/s | pages in use %d "
+          "| profile of %d steps: %s | peak memory %.3f GB | %s"
+          % (DECODE_LM, eng.slots, eng.cache_len, eng.page_size,
+             eng.prefill_chunk, eng.num_pages, DECODE_SLOTS, DECODE_PROMPT,
+             statistics.median(chunk_ms), DECODE_STEPS, DECODE_SLOTS,
+             statistics.median(step_ms), min(step_ms), max(step_ms),
+             statistics.median(ring["step_ms"]),
+             DECODE_SLOTS * DECODE_STEPS / (sum(step_ms) / 1e3), pages,
+             DECODE_PROFILE_STEPS, profile, peak, card), flush=True)
+    print("paged f32 check: logits vs the ring engine's max|d| %.3g (limit "
+          "%g + %g|ref|) | greedy tokens equal at %d positions, %d left out "
+          "(ring top-2 gap <= %g), %d slots parted at such a tie | %s"
+          % (err, F32_LOGIT_TOL, F32_LOGIT_TOL, compared, excluded,
+             GAP_TOL, parted, card), flush=True)
+    del eng
+
+    # chunked prefill: one long prompt in chunks of 16 and in one chunk
+    long_prompt = np.random.RandomState(1).randint(0, vocab, LONG_PROMPT)
+    runs = []
+    for chunk in (LONG_CHUNK, LONG_PROMPT):
+        e = generate.PagedGenerationEngine(
+            lm, slots=1, cache_len=DECODE_CACHE, page_size=PAGE,
+            prefill_chunk=chunk, sampling=greedy, dtype_policy="f32")
+        t0 = time.perf_counter()
+        slot, tok = e.admit(long_prompt)
+        ms = 1e3 * (time.perf_counter() - t0)
+        rows = [e.last_logits[0, (LONG_PROMPT - 1) % chunk]]
+        out = [tok]
+        for _ in range(LONG_STEPS):
+            out.extend(e.decode_step()[slot])
+            rows.append(e.last_logits[slot, 0])
+        runs.append((ms, e._chunks_run, out, rows))
+        del e
+    (c_ms, c_n, c_toks, c_rows), (s_ms, s_n, s_toks, s_rows) = runs
+    check(c_n == LONG_PROMPT // LONG_CHUNK + LONG_STEPS and
+          s_n == 1 + LONG_STEPS, "chunks run %d / %d" % (c_n, s_n))
+    long_err = 0.0
+    for j, (a, b) in enumerate(zip(c_rows, s_rows)):
+        d = np.abs(a - b)
+        long_err = max(long_err, float(d.max()))
+        check(np.all(d <= F32_LOGIT_TOL + F32_LOGIT_TOL * np.abs(b)),
+              "chunked prefill logits %d differ from one chunk's by %g"
+              % (j, float(d.max())))
+        if c_toks[j] != s_toks[j]:
+            break
+    long_parted = same_tokens(lm, long_prompt, c_toks, s_toks,
+                              "chunked prefill")
+    print("paged chunked prefill: a %d-token prompt in %d chunks of %d "
+          "(%.3f ms) against one chunk of %d (%.3f ms): first-token and "
+          "%d decode logits max|d| %.3g (limit %g + %g|ref|), tokens "
+          "equal%s | %s"
+          % (LONG_PROMPT, LONG_PROMPT // LONG_CHUNK, LONG_CHUNK, c_ms,
+             LONG_PROMPT, s_ms, LONG_STEPS, long_err, F32_LOGIT_TOL,
+             F32_LOGIT_TOL, " (parted at a tie)" if long_parted else "",
+             card), flush=True)
+
+    # prefix sharing: bench_decode --prefix-share's shape through a server
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, vocab, SHARE_SYSTEM)
+    users = [np.concatenate([system, rng.randint(0, vocab, SHARE_TAIL)])
+             for _ in range(SHARE_USERS)]
+    share = {}
+    for on in (True, False):
+        e = generate.PagedGenerationEngine(
+            lm, slots=SHARE_SLOTS, cache_len=DECODE_CACHE, page_size=PAGE,
+            prefill_chunk=PAGED_CHUNK, prefix_share=on, sampling=greedy,
+            dtype_policy="f32")
+        results, secs = run_server(e, users, SHARE_NEW)
+        share[on] = ([r.tokens for r in results], secs, e.prefix_hit_rate(),
+                     e._chunks_run)
+        check(e.pages_in_use() == 0 and e.free_slots() == SHARE_SLOTS,
+              "the server left %d pages, %d free slots"
+              % (e.pages_in_use(), e.free_slots()))
+        del e
+    share_parted = sum(same_tokens(lm, u, a, b, "prefix share user %d" % i)
+                       for i, (u, a, b) in enumerate(zip(
+                           users, share[True][0], share[False][0])))
+    hit = share[True][2]
+    check(hit is not None and hit > 0 and share[False][2] is None,
+          "prefix hit rate %r with sharing, %r without" % (hit,
+                                                           share[False][2]))
+    total = SHARE_USERS * (SHARE_SYSTEM + SHARE_TAIL + SHARE_NEW)
+    print("paged prefix share: %d users behind one %d-token system prompt "
+          "+ %d-token tails, %d slots, %d new tokens, through TokenServer: "
+          "tokens equal with sharing on and off (%d parted at a tie) | hit "
+          "rate %.4f | %d / %d dispatches (prefill chunks + steps) | %.3f / "
+          "%.3f s, %.1f / %.1f tokens/s (prompt + generated) on / off | %s"
+          % (SHARE_USERS, SHARE_SYSTEM, SHARE_TAIL, SHARE_SLOTS, SHARE_NEW,
+             share_parted, hit, share[True][3], share[False][3],
+             share[True][1], share[False][1], total / share[True][1],
+             total / share[False][1], card), flush=True)
+
+    # speculation: bench_decode --spec's shape, greedy then sampled
+    base = np.random.RandomState(0).randint(0, vocab, 6)
+    spec_prompt = np.tile(base, -(-SPEC_PROMPT // 6))[:SPEC_PROMPT]
+    spec = {}
+    for tag, sampling, ngram in (
+            ("greedy", greedy, SPEC_NGRAM),
+            ("sampled", generate.SamplingConfig(
+                greedy=False, temperature=0.8, top_k=40), SPEC_NGRAM),
+            # near-greedy, so that sampled drafts verify
+            ("sampled top_k 2", generate.SamplingConfig(
+                greedy=False, temperature=0.5, top_k=2), 1)):
+        for k in (SPEC_K, 0):
+            e = generate.PagedGenerationEngine(
+                lm, slots=SPEC_SLOTS, cache_len=DECODE_CACHE,
+                page_size=PAGE, prefill_chunk=PAGED_CHUNK, spec_k=k,
+                spec_ngram=ngram, prefix_share=False,
+                sampling=sampling, dtype_policy="f32")
+            mx.random.seed(SPEC_SEED)
+            t0 = time.perf_counter()
+            out, steps = gen_paged(e, spec_prompt, SPEC_NEW)
+            secs = time.perf_counter() - t0
+            spec[tag, k] = (out, steps, secs, e.spec_accepted_per_step(),
+                            e.spec_accept_rate(), e._spec_drafted,
+                            e._spec_accepted)
+            del e
+    spec_parted = same_tokens(lm, spec_prompt, spec["greedy", SPEC_K][0],
+                              spec["greedy", 0][0], "speculative greedy")
+    for tag in ("sampled", "sampled top_k 2"):
+        check(spec[tag, SPEC_K][0] == spec[tag, 0][0],
+              "%s: speculative tokens differ from plain sampling's" % tag)
+        check(all(0 <= t < vocab for t in spec[tag, 0][0]),
+              "%s: token out of range" % tag)
+
+    def spec_desc(tag):
+        on, off = spec[tag, SPEC_K], spec[tag, 0]
+        return ("%s: %d tokens in %d / %d steps, %.3f / %.3f s on / off, "
+                "accepted a verify step %s, accept rate %s, %d drafted, %d "
+                "accepted" % (tag, SPEC_NEW, on[1], off[1], on[2], off[2],
+                              "%.4f" % on[3] if on[3] is not None
+                              else "none",
+                              "%.4f" % on[4] if on[4] is not None
+                              else "none", on[5], on[6]))
+    print("paged spec: %d slots, a repetitive %d-token prompt, k %d, ngram "
+          "%d | %s, tokens equal to spec off%s | %s and %s (ngram 1), "
+          "tokens bit-equal to spec off under seed %d | %s"
+          % (SPEC_SLOTS, SPEC_PROMPT, SPEC_K, SPEC_NGRAM, spec_desc("greedy"),
+             " (parted at a tie)" if spec_parted else "",
+             spec_desc("sampled"), spec_desc("sampled top_k 2"), SPEC_SEED,
+             card), flush=True)
+
+    # bf16_mixed: a bf16 pool, logits against the policy's prefill
+    e = generate.PagedGenerationEngine(
+        lm, slots=DECODE_SLOTS, cache_len=DECODE_CACHE, page_size=PAGE,
+        prefill_chunk=PAGED_CHUNK, sampling=greedy,
+        dtype_policy="bf16_mixed")
+    check(e.cache_dtype == torch.bfloat16 and e._pool_k.dtype ==
+          torch.bfloat16, "bf16_mixed pool %s" % e._pool_k.dtype)
+    toks16, _, logits16, _, _ = drive_paged(e, prompts, BF16_PAGED_STEPS)
+    del e
+    policy = mx.dtype_policy.get_policy("bf16_mixed")
+    params = list(lm.collect_params().values())
+    cast = [policy.cast_compute(p.name, p.data()._data) for p in params]
+    seqs = np.stack([np.concatenate([p, toks16[s][:BF16_PAGED_STEPS]])
+                     for s, p in enumerate(prompts)])
+    with torch.inference_mode(), mx.dtype_policy.scope(policy), \
+            mx.gluon.block.swapped_params(params, cast):
+        ref_nd, _ = lm.prefill_forward(mx.nd.array(seqs, ctx=mx.gpu(0),
+                                                   dtype="int64"))
+        ref = policy.cast_output(ref_nd._data).cpu().numpy()
+    del cast, ref_nd
+    err16 = 0.0
+    for j in range(1, BF16_PAGED_STEPS + 1):
+        r = ref[:, DECODE_PROMPT - 1 + j]
+        d = np.abs(logits16[j - 1] - r)
+        err16 = max(err16, float(d.max()))
+        check(np.all(d <= BF16_ATOL + BF16_RTOL * np.abs(r)),
+              "paged bf16 step %d logits differ from the policy's prefill "
+              "by %g" % (j, float(d.max())))
+    print("paged bf16_mixed: pool bfloat16, %d steps over %d slots, logits "
+          "vs the policy's prefill of the same sequences max|d| %.3g "
+          "(limit %g + %g|ref|) | %s"
+          % (BF16_PAGED_STEPS, DECODE_SLOTS, err16, BF16_ATOL, BF16_RTOL,
+             card), flush=True)
+
+    # TokenServer with every lever on against the ring server (f32)
+    ring_eng = generate.GenerationEngine(
+        lm, slots=DECODE_SLOTS, cache_len=DECODE_CACHE, sampling=greedy,
+        dtype_policy="f32")
+    ring_res, ring_s = run_server(ring_eng, prompts, SERVER_NEW)
+    del ring_eng
+    e = generate.PagedGenerationEngine(
+        lm, slots=DECODE_SLOTS, cache_len=DECODE_CACHE, page_size=PAGE,
+        prefill_chunk=PAGED_CHUNK, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM,
+        prefix_share=True, sampling=greedy, dtype_policy="f32")
+    paged_res, paged_s = run_server(e, prompts, SERVER_NEW)
+    srv_parted = 0
+    for i, (a, b) in enumerate(zip(paged_res, ring_res)):
+        check(a.finish_reason == "length" and len(a.tokens) == SERVER_NEW,
+              "paged request %d finished %s with %d tokens"
+              % (i, a.finish_reason, len(a.tokens)))
+        check(b.tokens == ring["toks"][i][:SERVER_NEW],
+              "ring request %d: server tokens differ from the engine's" % i)
+        srv_parted += same_tokens(lm, prompts[i], a.tokens, b.tokens,
+                                  "paged server request %d" % i)
+    print("paged server: TokenServer over PagedGenerationEngine(spec_k=%d, "
+          "spec_ngram=%d, prefix_share, prefill_chunk %d) f32, %d requests "
+          "of max_new_tokens %d: all 'length', tokens equal to the ring "
+          "server's (%d parted at a tie) | %.3f s (ring %.3f s), ttft s "
+          "median %.4f (ring %.4f), accepted a verify step %s | %s"
+          % (SPEC_K, SPEC_NGRAM, PAGED_CHUNK, len(paged_res), SERVER_NEW,
+             srv_parted, paged_s, ring_s,
+             statistics.median(r.ttft_s for r in paged_res),
+             statistics.median(r.ttft_s for r in ring_res),
+             e.spec_accepted_per_step(), card), flush=True)
+    del e
+
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the paged path launched %s"
+          % launched)
+    print("paged: hand-written kernels launched on the paged path: %s "
+          "(none is on it) | phase %.1f s | %s"
+          % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
 def time_flash(shape, dtype, causal, card):
@@ -1361,6 +1749,7 @@ def time_flash(shape, dtype, causal, card):
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     net, trainable = build_resnet50()
@@ -1379,7 +1768,10 @@ def main():
     flash_worst, flash_share = phase_flash(card)
     sp_launches, sp_worst, sp_share, sp_times = phase_sp(card)
     torch.cuda.empty_cache()
-    phase_decode(card)
+    lm, ring = phase_decode(card)
+    torch.cuda.empty_cache()
+    phase_paged(card, lm, ring)
+    del lm, ring
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
@@ -1426,6 +1818,8 @@ def main():
             row["bf16_max_abs_err"] = flash_worst[kernel, torch.bfloat16]
             row["bf16_bound_share"] = flash_share[kernel, torch.bfloat16]
         rows.append(row)
+    print("wall: the whole script %.1f s | %s"
+          % (time.perf_counter() - t_start, card), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,6 +76,35 @@ FLAGS = {
         "128", _pint,
         "default cap on generated tokens per request (finish_reason "
         "'length'); submit's max_new_tokens= overrides"),
+    "MXNET_DECODE_PAGE_SIZE": (
+        "16", _pint,
+        "positions per KV page in the paged engine's pool; a slot holds "
+        "ceil(cache_len/page_size) pages and prefix sharing is "
+        "page-aligned"),
+    "MXNET_DECODE_PAGES": (
+        "0", _pint,
+        "total pages in the paged engine's pool, incl. the reserved trash "
+        "page (0 = auto: slots x pages_per_slot + 1, the floor at which "
+        "admission-time allocation can never starve a decode)"),
+    "MXNET_DECODE_PREFILL_CHUNK": (
+        "32", _pint,
+        "chunked-prefill chunk length: prompts stream into the paged "
+        "engine this many positions per dispatch, one chunk per "
+        "TokenServer loop tick"),
+    "MXNET_DECODE_SPEC_K": (
+        "0", _pint,
+        "n-gram speculative decoding draft length for the paged engine "
+        "(0 = off); exact-match acceptance keeps the output equal to "
+        "non-speculative sampling"),
+    "MXNET_DECODE_SPEC_NGRAM": (
+        "2", _pint,
+        "suffix length the n-gram speculator matches against the "
+        "sequence's own history to source drafts"),
+    "MXNET_DECODE_PREFIX_SHARE": (
+        "1", _pint,
+        "paged-engine prefix sharing: full prompt pages are content-"
+        "hashed and later prompts with the same page-aligned prefix "
+        "attach to them refcounted (0 disables)"),
 }
 
 _warned = set()

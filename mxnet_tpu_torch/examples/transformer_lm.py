@@ -10,8 +10,10 @@ letter (``transformerlm0_h0_ln1_gamma``, ...), so its weights carry
 across through ``convert.load_from_numpy``.
 
 ``prefill_forward`` / ``decode_forward`` are the cache-aware halves of
-``hybrid_forward`` that ``generate.GenerationEngine`` drives; where the
-JAX package passes raw jax arrays, these take and return device tensors.
+``hybrid_forward`` that ``generate.GenerationEngine`` drives, and
+``chunk_forward`` the chunk protocol of ``generate.PagedGenerationEngine``
+(chunked prefill, paged decode, speculative verify); where the JAX
+package passes raw jax arrays, these take and return device tensors.
 """
 from __future__ import annotations
 
@@ -128,6 +130,40 @@ class DecoderBlock(HybridBlock):
         return x + self.ffn_down(self.ffn_up(self.ln2(x)))
 
 
+    def forward_chunk(self, F, x, k_cache, v_cache, cache_mask,
+                      causal_mask):
+        """One block's C-position chunk forward against a linear KV cache
+        view: the attention behind chunked prefill, paged decode (C=1)
+        and the speculative verify step (C=K+1).
+
+        ``x`` is the (B, C, D) chunk input NDArray; ``k_cache`` /
+        ``v_cache`` are (B*H, S, dh) tensors holding the cached positions
+        (this chunk's K/V is not in them); ``cache_mask`` (B*H, 1, S)
+        marks the cache positions every chunk query may attend (s <
+        its sequence's start); ``causal_mask`` (1, C, C) is the
+        within-chunk causal triangle.  Returns ``(x_out, k_chunk,
+        v_chunk)``, the chunk's K/V as (B*H, C, dh) tensors for the
+        caller to write into its pool.  The projections, LayerNorms and
+        FFN are the children ``hybrid_forward`` runs; the attention
+        products are plain ``matmul``s, as in the JAX package."""
+        B, C, _D = x.shape
+        dh = self._d_head
+        h = self.ln1(x)
+        q = self._split_heads(self.proj_q(h))._data    # (B*H, C, dh)
+        k_c = self._split_heads(self.proj_k(h))._data
+        v_c = self._split_heads(self.proj_v(h))._data
+        scale = dh ** -0.5
+        s_cache = torch.matmul(q, k_cache.transpose(1, 2)) * scale
+        s_chunk = torch.matmul(q, k_c.transpose(1, 2)) * scale
+        s_cache = torch.where(cache_mask, s_cache, -1e30)
+        s_chunk = torch.where(causal_mask, s_chunk, -1e30)
+        att = torch.softmax(torch.cat([s_cache, s_chunk], dim=-1), dim=-1)
+        out = torch.matmul(att, torch.cat([v_cache, v_c], dim=1))
+        out = self._merge_heads(NDArray(out), B, C)     # (B, C, D)
+        x = x + self.attn_out(out)
+        return x + self.ffn_down(self.ffn_up(self.ln2(x))), k_c, v_c
+
+
 class TransformerLM(HybridBlock):
     """Token + learned-position embeddings, ``n_layers`` decoder blocks,
     final LayerNorm, untied LM head.  Input (batch, seq) token ids ->
@@ -236,6 +272,48 @@ class TransformerLM(HybridBlock):
             x = blk.forward_decode(F, x, kc, vc, write_slot, valid_bh)
         logits = self.head(self.ln_f(x))                    # (B, 1, V)
         return logits.reshape((B, self._cfg["vocab_size"])), caches
+
+    def chunk_forward(self, tokens, caches, start):
+        """C positions per sequence against a linear KV cache: chunked
+        prefill (B=1, C=chunk), paged decode (C=1) and speculative verify
+        (C=K+1).
+
+        ``tokens`` (B, C) int tensor: the tokens at positions ``start_b
+        .. start_b+C-1`` of each sequence; ``caches`` one ``(k, v)``
+        pair of (B, H, S, dh) tensors per layer (a gathered page view in
+        the paged engine) holding the cached positions; ``start`` (B,)
+        int tensor.  Chunk position j attends
+        cache positions ``s < start_b`` (entries at or past it, stale or
+        not, are masked) plus chunk positions ``j' <= j``: the causal
+        window the full forward gives it.  Returns ``(logits NDArray
+        (B, C, V), chunk_caches)``, ``chunk_caches`` one ``(k, v)`` pair
+        of (B, H, C, dh) tensors per layer for the caller to write back
+        (positions past a sequence's real length give values the caller
+        routes to its trash page)."""
+        from .. import ndarray as F
+
+        B, C = tokens.shape
+        H = self._cfg["n_heads"]
+        D = self._cfg["d_model"]
+        dh = D // H
+        S = caches[0][0].shape[2]
+        start = start.to(torch.int64)
+        c_idx = torch.arange(C, device=start.device)
+        pos_ids = (start[:, None] + c_idx).clamp(0, self._cfg["max_len"] - 1)
+        x = self.embed(NDArray(tokens)) + self.pos_embed(
+            NDArray(pos_ids)).reshape((B, C, D))
+        s_idx = torch.arange(S, device=start.device)
+        cache_mask = (s_idx[None, :] < start[:, None]).reshape(
+            (B, 1, 1, S)).expand(B, H, 1, S).reshape((B * H, 1, S))
+        causal_mask = (c_idx[:, None] >= c_idx[None, :]).reshape((1, C, C))
+        chunk_caches = []
+        for blk, (kc, vc) in zip(self._blocks, caches):
+            x, k_c, v_c = blk.forward_chunk(
+                F, x, kc.reshape((B * H, S, dh)), vc.reshape((B * H, S, dh)),
+                cache_mask, causal_mask)
+            chunk_caches.append((k_c.reshape((B, H, C, dh)),
+                                 v_c.reshape((B, H, C, dh))))
+        return self.head(self.ln_f(x)), chunk_caches
 
 
 def lm_loss_fn(vocab_size):

@@ -1,36 +1,43 @@
-"""LM generation: the ring-KV-cache engine with a prefill/decode split and
+"""LM generation: the ring-KV-cache and the paged KV-cache engines and
 continuous-batching token serving (parity: mxnet_tpu/generate.py
 SamplingConfig :132, sample_logits :176, GenerationEngine :225-645,
-GenerationResult / TokenServer :1383-1959).
+PagedGenerationEngine :651-1376, GenerationResult / TokenServer
+:1383-1959).
 
-* **KV cache on the device** — one ring lane per decode slot, two
-  tensors ``(layers, slots, heads, ring, d_head)`` in the dtype policy's
-  compute dtype (bf16 under ``bf16_mixed``), updated in place.
-* **Prefill/decode split** — prefill runs the model's full-sequence
-  forward at a bucketed length (``MXNET_DECODE_BUCKETS``), seeds the
-  admitted sequence's lane and samples its first token.  Decode is one
-  fixed-shape step over every slot; admission and eviction change
-  host-side lane state only.
+* **Ring KV cache on the device** — :class:`GenerationEngine`: one ring
+  lane per decode slot, two tensors ``(layers, slots, heads, ring,
+  d_head)`` in the dtype policy's compute dtype (bf16 under
+  ``bf16_mixed``), updated in place.  Prefill runs the model's
+  full-sequence forward at a bucketed length (``MXNET_DECODE_BUCKETS``);
+  decode is one fixed-shape step over every slot.
+* **Paged KV cache** — :class:`PagedGenerationEngine`: a page pool per
+  K/V with host page tables, chunked prefill (``MXNET_DECODE_PREFILL_
+  CHUNK``), copy-on-write prefix sharing of full prompt pages and n-gram
+  self-speculative decoding (``MXNET_DECODE_SPEC_K``), all through one
+  dispatch of the model's ``chunk_forward``.
 * **Sampling** — greedy is ``argmax`` (the first maximum, as in JAX);
   otherwise :func:`mask_logits` applies temperature, top-k and top-p
-  exactly as the JAX engine does and ``torch.multinomial`` draws from
-  the framework stream (``mx.random.next_key``), so ``mx.random.seed``
-  makes sampled generation reproducible (the draws are not JAX's).
+  exactly as the JAX engine does.  The ring engine draws with
+  ``torch.multinomial`` from the framework stream (``mx.random.next_key``);
+  the paged engine's :func:`sample_positions` draws each position from
+  a key of (the lane's seed, taken from that stream at admission,
+  position), so speculation does not change what is sampled.  Both are
+  reproducible under ``mx.random.seed``; the draws are not JAX's.
 * **Token serving** — :class:`TokenServer` drives an engine from a
   bounded admission queue on a worker thread, with the typed errors of
   ``serving_async``: :class:`Overloaded` at admission,
   :class:`DeadlineExceeded` tagged ``prefill`` or ``decode``,
   :class:`Cancelled`, and a drained ``close()``.
 
-Where the JAX engine compiles its prefill and decode programs, this one
-runs them eagerly under ``torch.inference_mode()`` on one device (by
-default the current context, so the card), with the parameters committed
-and cast once at construction.  Not ported yet: meshes and layouts, AOT,
-the paged engine, speculative decoding, prefix sharing, SLO shedding and
+Where the JAX engines compile their programs, these run them eagerly
+under ``torch.inference_mode()`` on one device (by default the current
+context, so the card), with the parameters committed and cast once at
+construction.  Not ported yet: meshes and layouts, AOT, SLO shedding and
 the telemetry, tracing and event hooks.
 
-Model protocol: ``prefill_forward(tokens)`` / ``decode_forward(tokens,
-caches, pos)`` plus a ``config`` dict with ``vocab_size`` / ``d_model`` /
+Model protocols: ``prefill_forward(tokens)`` / ``decode_forward(tokens,
+caches, pos)`` (ring) and ``chunk_forward(tokens, caches, start)``
+(paged), plus a ``config`` dict with ``vocab_size`` / ``d_model`` /
 ``n_heads`` / ``n_layers`` / ``max_len``
 (``mxnet_tpu_torch/examples/transformer_lm.py``).
 """
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import logging
 import threading
 import time
@@ -55,8 +63,9 @@ from .ndarray.ndarray import NDArray
 from .serving_async import (Cancelled, DeadlineExceeded, Overloaded,
                             ReplicaFailed, ServingError, ServingFuture)
 
-__all__ = ["SamplingConfig", "GenerationEngine", "TokenServer",
-           "GenerationResult", "sample_logits", "mask_logits",
+__all__ = ["SamplingConfig", "GenerationEngine", "PagedGenerationEngine",
+           "TokenServer", "GenerationResult", "sample_logits",
+           "sample_positions", "mask_logits",
            "ServingError", "Overloaded", "DeadlineExceeded", "Cancelled"]
 
 _logger = logging.getLogger("mxnet_tpu_torch.generate")
@@ -168,35 +177,29 @@ def _parse_buckets(spec, cache_len):
 # the engine
 # ---------------------------------------------------------------------------
 
-class GenerationEngine:
-    """Fixed-shape KV-cache generation over a decode-protocol model.
+def _not_ported(engine, **kwargs):
+    for name, value in kwargs.items():
+        if value is not None:
+            raise MXNetError("%s(%s=...) is not ported yet; leave it at "
+                             "its default" % (engine, name))
 
-    ``slots`` decode lanes share one token step; each lane owns a
-    ``cache_len``-position KV ring.  :meth:`admit` prefills a prompt into
-    a free lane (bucketed lengths) and returns its first sampled token;
-    :meth:`decode_step` advances every active lane one token;
-    :meth:`evict` frees a lane.
 
-    Single-consumer: one thread drives the engine (a TokenServer's
-    worker, or a bench loop).  Admission control, deadlines and futures
-    live in :class:`TokenServer`.
-    """
+class _Engine:
+    """What both engines share: the model check, the parameters committed
+    to the device and cast once, the dispatch scope, the prompt check and
+    the lane state's introspection."""
 
-    def __init__(self, net, slots=None, cache_len=None, buckets=None,
-                 mesh=None, layout=None, dtype_policy=None, aot=None,
-                 aot_spec=None, sampling=None, device=None):
-        for name, value in (("mesh", mesh), ("layout", layout),
-                            ("aot", aot), ("aot_spec", aot_spec)):
-            if value is not None:
-                raise MXNetError("GenerationEngine(%s=...) is not ported "
-                                 "yet; leave it at its default" % name)
-        for attr in ("prefill_forward", "decode_forward", "config"):
+    def _bind(self, net, protocol, methods, slots, sampling, device):
+        """Check ``net`` against the decode or chunk protocol, finish its
+        deferred parameter init and take the settings both engines have.
+        Returns the model's config."""
+        for attr in methods + ("config",):
             if not hasattr(net, attr):
                 raise MXNetError(
-                    "GenerationEngine needs a model implementing the "
-                    "decode protocol (prefill_forward / decode_forward / "
-                    "config — see examples/transformer_lm.py); %s lacks "
-                    "%r" % (type(net).__name__, attr))
+                    "%s needs a model implementing the %s protocol (%s / "
+                    "config — see examples/transformer_lm.py); %s lacks %r"
+                    % (type(self).__name__, protocol, " / ".join(methods),
+                       type(net).__name__, attr))
         cfg = dict(net.config)
         for k in ("vocab_size", "d_model", "n_heads", "n_layers",
                   "max_len"):
@@ -209,20 +212,12 @@ class GenerationEngine:
         self._slots = int(slots)
         if self._slots < 1:
             raise MXNetError("slots must be >= 1, got %r" % (slots,))
-        if cache_len is None:
-            cache_len = _config.get("MXNET_DECODE_CACHE_LEN")
-        self._cache_len = int(min(cache_len, cfg["max_len"]))
-        if self._cache_len < 1:
-            raise MXNetError("cache_len must be >= 1, got %r"
-                             % (cache_len,))
-        self._buckets = _parse_buckets(buckets, self._cache_len)
         self.sampling = sampling if sampling is not None \
             else SamplingConfig()
         if device is None:
             device = current_context()
         self._device = device.torch_device if isinstance(device, Context) \
             else torch.device(device)
-
         # finish deferred parameter init: one probe forward where the
         # parameters live
         params = list(net.collect_params().values())
@@ -232,51 +227,33 @@ class GenerationEngine:
         _block._abstract_eval_forward(net, [probe])
         self._net = net
         self._gluon_params = params
+        self._L, self._H = cfg["n_layers"], cfg["n_heads"]
+        self._dh = cfg["d_model"] // self._H
+        return cfg
+
+    def _commit(self, dtype_policy):
+        """Resolve the policy, then commit the parameters to the device
+        once, cast once to the policy's per-parameter compute dtypes: the
+        JAX engines cast inside every compiled call, which gives the same
+        values."""
         policy = _dtp.resolve_policy(dtype_policy)
         self._dtype_policy = policy
         self._cache_dtype = policy.compute_dtype if policy is not None \
             else torch.float32
-        # the parameters are committed to the device once, and cast
-        # once to the policy's per-parameter compute dtypes: the JAX
-        # engine casts inside every compiled call (:339-343), which gives
-        # the same values
         with torch.no_grad():
             committed = []
-            for p in params:
+            for p in self._gluon_params:
                 t = p.data()._data.detach().to(self._device, copy=True)
                 if policy is not None:
                     t = policy.cast_compute(p.name, t)
                 committed.append(t)
         self._params = tuple(committed)
-        L, H = cfg["n_layers"], cfg["n_heads"]
-        dh = cfg["d_model"] // H
-        cache_shape = (L, self._slots, H, self._cache_len, dh)
-        self._cache_k = torch.zeros(cache_shape, dtype=self._cache_dtype,
-                                    device=self._device)
-        self._cache_v = torch.zeros_like(self._cache_k)
-        self._L = L
-
-        # host-side lane state (the continuous-batching control plane)
-        self._pos = np.zeros(self._slots, np.int64)
-        self._active = np.zeros(self._slots, bool)
-        self._cur_tok = np.zeros(self._slots, np.int64)
-        self._free = collections.deque(range(self._slots))
-        self._last_logits = None
 
     # -- introspection ---------------------------------------------------
 
     @property
     def slots(self):
         return self._slots
-
-    @property
-    def cache_len(self):
-        return self._cache_len
-
-    @property
-    def buckets(self):
-        """Prefill length buckets (sorted)."""
-        return list(self._buckets)
 
     @property
     def device(self):
@@ -302,6 +279,97 @@ class GenerationEngine:
         """Tokens resident for ``slot`` (prompt + generated so far)."""
         return int(self._pos[slot])
 
+    def _check_tokens(self, token_ids):
+        """Prompt ids as a 1-D int32 array and their prefill length
+        (:meth:`bucket_for`), checked on the host: an id outside [0,
+        vocab) would index past the embedding, which on the card is a
+        device-side assert that ends the process's CUDA context (XLA
+        clamps or fills instead)."""
+        token_ids = np.asarray(token_ids).astype(np.int64).reshape(-1)
+        if token_ids.size < 1:
+            raise MXNetError("a prompt needs at least one token")
+        vocab = self.model_config["vocab_size"]
+        if token_ids.min() < 0 or token_ids.max() >= vocab:
+            raise MXNetError("prompt token ids must lie in [0, %d), got "
+                             "%d..%d" % (vocab, token_ids.min(),
+                                         token_ids.max()))
+        return token_ids.astype(np.int32), self.bucket_for(token_ids.size)
+
+    # -- dispatch ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _dispatch(self):
+        """The model's forward with the committed parameters, under the
+        policy's scope and without autograd."""
+        with torch.inference_mode(), _dtp.scope(self._dtype_policy), \
+                _block.swapped_params(self._gluon_params, self._params):
+            yield
+
+    def _cast_logits(self, logits):
+        if self._dtype_policy is not None:
+            return self._dtype_policy.cast_output(logits)
+        return logits
+
+    def prewarm(self):
+        """Nothing to compile ahead here (no AOT store in the port):
+        returns the JAX engine's answer without one."""
+        return [{"label": "generate", "status": "disabled"}]
+
+
+class GenerationEngine(_Engine):
+    """Fixed-shape KV-cache generation over a decode-protocol model.
+
+    ``slots`` decode lanes share one token step; each lane owns a
+    ``cache_len``-position KV ring.  :meth:`admit` prefills a prompt into
+    a free lane (bucketed lengths) and returns its first sampled token;
+    :meth:`decode_step` advances every active lane one token;
+    :meth:`evict` frees a lane.
+
+    Single-consumer: one thread drives the engine (a TokenServer's
+    worker, or a bench loop).  Admission control, deadlines and futures
+    live in :class:`TokenServer`.
+    """
+
+    def __init__(self, net, slots=None, cache_len=None, buckets=None,
+                 mesh=None, layout=None, dtype_policy=None, aot=None,
+                 aot_spec=None, sampling=None, device=None):
+        _not_ported("GenerationEngine", mesh=mesh, layout=layout, aot=aot,
+                    aot_spec=aot_spec)
+        cfg = self._bind(net, "decode", ("prefill_forward",
+                                         "decode_forward"),
+                         slots, sampling, device)
+        if cache_len is None:
+            cache_len = _config.get("MXNET_DECODE_CACHE_LEN")
+        self._cache_len = int(min(cache_len, cfg["max_len"]))
+        if self._cache_len < 1:
+            raise MXNetError("cache_len must be >= 1, got %r"
+                             % (cache_len,))
+        self._buckets = _parse_buckets(buckets, self._cache_len)
+        self._commit(dtype_policy)
+        cache_shape = (self._L, self._slots, self._H, self._cache_len,
+                       self._dh)
+        self._cache_k = torch.zeros(cache_shape, dtype=self._cache_dtype,
+                                    device=self._device)
+        self._cache_v = torch.zeros_like(self._cache_k)
+
+        # host-side lane state (the continuous-batching control plane)
+        self._pos = np.zeros(self._slots, np.int64)
+        self._active = np.zeros(self._slots, bool)
+        self._cur_tok = np.zeros(self._slots, np.int64)
+        self._free = collections.deque(range(self._slots))
+        self._last_logits = None
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def cache_len(self):
+        return self._cache_len
+
+    @property
+    def buckets(self):
+        """Prefill length buckets (sorted)."""
+        return list(self._buckets)
+
     @property
     def last_logits(self):
         """f32 logits of the most recent prefill ((1, V), the admitted
@@ -321,21 +389,6 @@ class GenerationEngine:
                 "cache_tokens": tokens, "cache_capacity": cap,
                 "occupancy": tokens / cap if cap else 0.0}
 
-    def _check_tokens(self, token_ids):
-        """Prompt ids as a 1-D int64 array and their prefill bucket,
-        checked on the host: an id outside [0, vocab) would index past
-        the embedding, which on the card is a device-side assert that
-        ends the process's CUDA context (XLA clamps or fills instead)."""
-        token_ids = np.asarray(token_ids).astype(np.int64).reshape(-1)
-        if token_ids.size < 1:
-            raise MXNetError("a prompt needs at least one token")
-        vocab = self.model_config["vocab_size"]
-        if token_ids.min() < 0 or token_ids.max() >= vocab:
-            raise MXNetError("prompt token ids must lie in [0, %d), got "
-                             "%d..%d" % (vocab, token_ids.min(),
-                                         token_ids.max()))
-        return token_ids, self.bucket_for(token_ids.size)
-
     def bucket_for(self, length):
         """Smallest prefill bucket >= ``length`` (raises when the prompt
         exceeds every bucket)."""
@@ -349,17 +402,8 @@ class GenerationEngine:
 
     # -- dispatch ----------------------------------------------------------
 
-    @contextlib.contextmanager
-    def _dispatch(self):
-        """The model's forward with the committed parameters, under the
-        policy's scope and without autograd."""
-        with torch.inference_mode(), _dtp.scope(self._dtype_policy), \
-                _block.swapped_params(self._gluon_params, self._params):
-            yield
-
     def _sample(self, logits):
-        if self._dtype_policy is not None:
-            logits = self._dtype_policy.cast_output(logits)
+        logits = self._cast_logits(logits)
         key = None if self.sampling.greedy \
             else _random.next_key(logits.device)
         return logits, sample_logits(logits, key, self.sampling)
@@ -453,10 +497,613 @@ class GenerationEngine:
         ``cache_len``, but learned positions end at ``max_len``."""
         return self._pos[slot] >= self.model_config["max_len"]
 
-    def prewarm(self):
-        """Nothing to compile ahead here (no AOT store in the port):
-        returns the JAX engine's answer without one."""
-        return [{"label": "generate", "status": "disabled"}]
+
+# ---------------------------------------------------------------------------
+# paged engine
+# ---------------------------------------------------------------------------
+
+def _ngram_draft(history, ngram, k):
+    """Draft up to ``k`` continuation tokens by suffix match: find the
+    most recent earlier occurrence of the last ``ngram`` tokens of
+    ``history`` and propose the tokens that followed it.  Host work,
+    O(len * ngram) at worst; [] when the sequence never repeated its
+    suffix (the verify step then is a plain one-token decode)."""
+    n = len(history)
+    if k <= 0 or ngram <= 0 or n < ngram + 1:
+        return []
+    pat = history[-ngram:]
+    for e in range(n - 2, ngram - 2, -1):
+        if history[e - ngram + 1: e + 1] == pat:
+            return list(history[e + 1: e + 1 + k])
+    return []
+
+
+def _prefix_page_hashes(token_ids, page_size, limit):
+    """Chained content hashes of the first ``limit`` full prompt pages:
+    ``h_i = sha1(h_{i-1} || int32 bytes of page i's tokens)``.  The chain
+    makes a page's identity depend on everything before it, so two
+    prompts share page i only when they agree on pages 0..i.  The bytes
+    are int32, as in the JAX engine, so both give the same hashes."""
+    token_ids = np.asarray(token_ids, np.int32)
+    hashes = []
+    prev = b""
+    for i in range(limit):
+        block = token_ids[i * page_size:(i + 1) * page_size]
+        h = hashlib.sha1(prev + block.tobytes()).hexdigest()
+        hashes.append(h)
+        prev = h.encode()
+    return hashes
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) (numpy or
+    torch), in halves so that no product leaves int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) \
+        & _MASK32
+
+
+def _mix32(x):
+    """A bijection on 32-bit integers held in int64 (numpy or torch; the
+    "lowbias32" finalizer): integer operations only, so the card and the
+    CPU give the same bits."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _position_keys(seeds, start, width):
+    """(B, width) int64 keys of positions ``start_b + j`` of each lane,
+    a function of (the lane's 32-bit seed, position) only."""
+    pos = np.asarray(start, np.int64)[:, None] + np.arange(width)
+    return _mix32(_mix32(pos & _MASK32)
+                  ^ np.asarray(seeds, np.int64)[:, None])
+
+
+def sample_positions(logits, keys, cfg):
+    """Token selection over (B, C, V) logits -> (B, C) int64 ids, every
+    position its own draw.  Greedy takes the first maximum.  Otherwise
+    Gumbel-max over :func:`mask_logits`, the uniforms from
+    :func:`_uniforms` of position (b, c)'s key (``keys`` (B, C) int64,
+    from :func:`_position_keys`), so a draw depends on (lane seed,
+    position) alone and not on how many draws came before (speculative
+    and plain decoding sample alike).  The bits are the same on the card
+    and the CPU; the draws are not JAX's."""
+    if cfg.greedy:
+        return torch.argmax(logits, dim=-1)
+    B, C, V = logits.shape
+    masked = mask_logits(logits.to(torch.float32).reshape(B * C, V), cfg)
+    gumbel = -torch.log(-torch.log(_uniforms(keys.reshape(B * C, 1), V)))
+    return torch.argmax(masked + gumbel, dim=-1).reshape(B, C)
+
+
+def _uniforms(keys, V):
+    """(N, V) f32 uniforms strictly inside (0, 1) for (N, 1) int64
+    ``keys``: 23 bits of ``_mix32(key ^ _mix32(v + 1))`` plus a half,
+    exact in f32.  The index is mixed before it meets the key, so no
+    key's row is a shifted window of another's."""
+    vocab = _mix32(torch.arange(1, V + 1, device=keys.device))
+    bits = _mix32(keys ^ vocab)
+    return ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+class PagedGenerationEngine(_Engine):
+    """Paged KV-cache generation over a chunk-protocol model (parity:
+    mxnet_tpu/generate.py:686-1376).
+
+    Device state is one page pool per K/V, ``(layers, pages, heads,
+    page_size, d_head)`` in the policy's compute dtype, written in place;
+    each slot maps its positions onto pool pages through a host page
+    table (page 0 is the trash page that padded and inactive rows write
+    to).  One dispatch, :meth:`_chunk_dispatch`, serves three shapes:
+
+    * **prefill chunk** ``(1, prefill_chunk)``: prompts stream in
+      fixed-size chunks (:meth:`prefill_step`, one chunk a call), so a
+      long admission interleaves with decode steps;
+    * **decode** ``(slots, 1)``: every active slot advances one token;
+    * **verify** ``(slots, spec_k + 1)``: with n-gram speculation on,
+      each step carries the current token plus up to ``spec_k`` drafts
+      and verifies them at once.  Acceptance is exact match against the
+      position-keyed sampler (:func:`sample_positions`), so the output
+      is the one non-speculative sampling gives.
+
+    **Prefix sharing** is page-aligned copy-on-write: full prompt pages
+    are content-hashed (chained) and registered after prefill; a later
+    admission attaches to matching pages refcounted and prefills only the
+    tail.  Shared pages are never written again, so sharing needs no
+    device copy; pages whose refcount drops to 0 stay cached (LRU) until
+    the pool runs dry.
+
+    Greedy decode gives the ring :class:`GenerationEngine`'s tokens.
+    Eager under ``torch.inference_mode()`` on one device (by default the
+    current context, so the card), parameters committed and cast once;
+    not ported yet: meshes and layouts, AOT.  Single-consumer, like the
+    ring engine.
+    """
+
+    # TokenServer admits incrementally (admit, then one prefill chunk a
+    # loop tick) when it sees this flag
+    incremental = True
+
+    def __init__(self, net, slots=None, cache_len=None, page_size=None,
+                 num_pages=None, prefill_chunk=None, spec_k=None,
+                 spec_ngram=None, prefix_share=None, mesh=None,
+                 layout=None, dtype_policy=None, aot=None, aot_spec=None,
+                 sampling=None, device=None):
+        _not_ported("PagedGenerationEngine", mesh=mesh, layout=layout,
+                    aot=aot, aot_spec=aot_spec)
+        cfg = self._bind(net, "chunk", ("chunk_forward",), slots, sampling,
+                         device)
+        if cache_len is None:
+            cache_len = _config.get("MXNET_DECODE_CACHE_LEN")
+        cache_len = int(min(cache_len, cfg["max_len"]))
+        if page_size is None:
+            page_size = _config.get("MXNET_DECODE_PAGE_SIZE")
+        self._page_size = int(page_size)
+        if self._page_size < 1:
+            raise MXNetError("page_size must be >= 1, got %r"
+                             % (page_size,))
+        self._pages_per_slot = -(-cache_len // self._page_size)
+        self._capacity = self._pages_per_slot * self._page_size
+        if num_pages is None:
+            num_pages = _config.get("MXNET_DECODE_PAGES")
+        if not num_pages:
+            # the floor at which every slot can back its full capacity
+            # (+1 trash page): decode-time allocation cannot starve
+            num_pages = self._slots * self._pages_per_slot + 1
+        self._num_pages = int(num_pages)
+        if self._num_pages < self._pages_per_slot + 1:
+            raise MXNetError(
+                "num_pages=%d cannot back even one slot (%d pages per "
+                "slot + the trash page)" % (self._num_pages,
+                                            self._pages_per_slot))
+        if prefill_chunk is None:
+            prefill_chunk = _config.get("MXNET_DECODE_PREFILL_CHUNK")
+        self._chunk = max(1, int(prefill_chunk))
+        if spec_k is None:
+            spec_k = _config.get("MXNET_DECODE_SPEC_K")
+        self._spec_k = max(0, int(spec_k))
+        if spec_ngram is None:
+            spec_ngram = _config.get("MXNET_DECODE_SPEC_NGRAM")
+        self._spec_ngram = max(1, int(spec_ngram))
+        if prefix_share is None:
+            prefix_share = _config.get("MXNET_DECODE_PREFIX_SHARE")
+        self._prefix_share = bool(prefix_share)
+        self._commit(dtype_policy)
+        L, H, dh = self._L, self._H, self._dh
+        pool_shape = (L, self._num_pages, H, self._page_size, dh)
+        self._pool_k = torch.zeros(pool_shape, dtype=self._cache_dtype,
+                                   device=self._device)
+        self._pool_v = torch.zeros_like(self._pool_k)
+        # index constants of the gather and the scatter
+        self._layer_idx = torch.arange(L, device=self._device)
+        self._head_idx = torch.arange(H, device=self._device)
+        self._offset_idx = torch.arange(self._capacity,
+                                        device=self._device) \
+            % self._page_size
+
+        # host control plane: page tables, slot state, the prefix map
+        P = self._pages_per_slot
+        self._page_table = np.zeros((self._slots, P), np.int64)
+        self._pos = np.zeros(self._slots, np.int64)
+        self._active = np.zeros(self._slots, bool)
+        self._cur_tok = np.zeros(self._slots, np.int64)
+        self._free = collections.deque(range(self._slots))
+        self._lane_seeds = np.zeros(self._slots, np.int64)
+        self._free_pages = collections.deque(range(1, self._num_pages))
+        self._page_ref = np.zeros(self._num_pages, np.int64)
+        self._prefix_map = {}                 # chain hash -> page id
+        self._page_hash = {}                  # page id -> chain hash
+        self._reclaim = collections.OrderedDict()  # refcount-0 LRU
+        self._pending = collections.OrderedDict()  # slot -> prefill state
+        self._history = {}                    # slot -> prompt + emitted
+        self._last_logits = None
+        self.last_prefix_hit_tokens = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_lookup_tokens = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_steps = 0
+        self._chunks_run = 0
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def cache_len(self):
+        """Positions one slot can hold (pages_per_slot x page_size)."""
+        return self._capacity
+
+    @property
+    def page_size(self):
+        return self._page_size
+
+    @property
+    def num_pages(self):
+        """Pool pages including the reserved trash page 0."""
+        return self._num_pages
+
+    @property
+    def pages_per_slot(self):
+        return self._pages_per_slot
+
+    @property
+    def prefill_chunk(self):
+        return self._chunk
+
+    @property
+    def spec_k(self):
+        return self._spec_k
+
+    def pending_prefill(self):
+        """Slots admitted but still streaming prefill chunks."""
+        return len(self._pending)
+
+    @property
+    def last_logits(self):
+        """f32 logits (B, C, V) of the most recent dispatch, as numpy:
+        (1, prefill_chunk, V) after a prefill chunk, (slots, 1 or
+        spec_k + 1, V) after a decode step."""
+        out = self._last_logits
+        return None if out is None else out.to(torch.float32).cpu().numpy()
+
+    def pages_in_use(self):
+        """Distinct pool pages referenced by live slots (the trash page
+        and retained-but-unreferenced prefix pages excluded)."""
+        live = np.unique(self._page_table)
+        return int((live != 0).sum())
+
+    def prefix_hit_rate(self):
+        """Fraction of shareable prompt tokens served from the prefix
+        cache (None before any lookup)."""
+        if not self._prefix_lookup_tokens:
+            return None
+        return self._prefix_hit_tokens / self._prefix_lookup_tokens
+
+    def spec_accept_rate(self):
+        """Fraction of drafted tokens accepted by verify steps (None
+        before any draft)."""
+        if not self._spec_drafted:
+            return None
+        return self._spec_accepted / self._spec_drafted
+
+    def spec_accepted_per_step(self):
+        """Mean drafted-and-accepted tokens per verify step that carried
+        at least one draft (each such step emits 1 + this)."""
+        if not self._spec_steps:
+            return None
+        return self._spec_accepted / self._spec_steps
+
+    def occupancy(self):
+        active = int(self._active.sum()) + len(self._pending)
+        tokens = int(np.minimum(self._pos[self._active],
+                                self._capacity).sum()) \
+            if self._active.any() else 0
+        cap = self._slots * self._capacity
+        out = {"active_slots": active, "slots": self._slots,
+               "cache_tokens": tokens, "cache_capacity": cap,
+               "occupancy": tokens / cap if cap else 0.0,
+               "pages_in_use": self.pages_in_use(),
+               "pages_total": self._num_pages - 1,
+               "page_size": self._page_size,
+               "prefix_cached_pages": len(self._prefix_map),
+               "pending_prefill": len(self._pending)}
+        hr = self.prefix_hit_rate()
+        if hr is not None:
+            out["prefix_hit_rate"] = round(hr, 4)
+        ar = self.spec_accept_rate()
+        if ar is not None:
+            out["spec_accept_rate"] = round(ar, 4)
+            out["spec_accepted_per_step"] = round(
+                self.spec_accepted_per_step(), 4)
+        return out
+
+    def bucket_for(self, length):
+        """Admissibility check of the ring engine's API: raises when
+        ``length`` exceeds a slot's capacity, else returns the
+        chunk-padded prefill length (advisory; a prefix hit shortens the
+        work)."""
+        limit = min(self._capacity, self.model_config["max_len"])
+        if length > limit:
+            raise MXNetError(
+                "prompt length %d exceeds the paged cache capacity %d "
+                "(%d pages x %d positions; shorten the prompt or build "
+                "the engine with a longer cache)"
+                % (length, limit, self._pages_per_slot, self._page_size))
+        return self._chunk * (-(-length // self._chunk))
+
+    def at_capacity(self, slot):
+        return self._pos[slot] >= min(self._capacity,
+                                      self.model_config["max_len"])
+
+    # -- the one dispatch ------------------------------------------------
+
+    def _chunk_dispatch(self, page_table, tokens, start, wpage, woff,
+                        seeds):
+        """Gather each row's pages into a linear (B, H, S, dh) view, run
+        the model's ``chunk_forward``, sample every chunk position with
+        its position-keyed draw, and write the chunk's K/V into the pools
+        at (``wpage``, ``woff``) in place.  ``page_table`` (B, P),
+        ``tokens`` (B, C), ``start`` (B,), ``wpage``/``woff`` (B, C),
+        ``seeds`` (B,): host arrays, sent to the device in one copy.
+        Returns the sampled (B, C) ids on the host.
+
+        The gather takes all layers at once, one index op per pool, as
+        JAX does: the step is bound by the host's time per op (fewer ops
+        beat a smaller peak), and the view costs 2 x L x B x H x S x dh
+        elements."""
+        B, C = tokens.shape
+        L, H, S = self._L, self._H, self._capacity
+        parts = [tokens.reshape(-1), start,
+                 np.repeat(page_table, self._page_size, axis=1).reshape(-1),
+                 wpage.reshape(-1), woff.reshape(-1)]
+        sizes = [B * C, B, B * S, B * C, B * C]
+        if not self.sampling.greedy:
+            parts.append(_position_keys(seeds, start, C).reshape(-1))
+            sizes.append(B * C)
+        host = torch.from_numpy(np.concatenate(parts).astype(np.int64))
+        tok, st, page_of, wp, wo, *keys = torch.split(
+            host.to(self._device), sizes)
+        gather = (page_of.reshape(B, 1, S), self._head_idx.reshape(H, 1),
+                  self._offset_idx)
+        scatter = (self._layer_idx.reshape(L, 1, 1, 1),
+                   wp.reshape(1, B, 1, C), self._head_idx.reshape(1, 1, H, 1),
+                   wo.reshape(1, B, 1, C))
+        with self._dispatch():
+            gk = self._pool_k[(slice(None),) + gather]   # (L, B, H, S, dh)
+            gv = self._pool_v[(slice(None),) + gather]
+            logits_nd, chunk_caches = self._net.chunk_forward(
+                tok.reshape(B, C), [(gk[li], gv[li]) for li in range(L)],
+                st)
+            del gk, gv
+            logits = self._cast_logits(logits_nd._data)
+            sampled = sample_positions(
+                logits, keys[0].reshape(B, C) if keys else None,
+                self.sampling)
+            # (L, B, H, C, dh) values at broadcast (L, B, H, C) indices;
+            # padded and inactive rows all land on (page 0, offset 0)
+            for pool, part in ((self._pool_k, 0), (self._pool_v, 1)):
+                pool.index_put_(scatter, torch.stack(
+                    [kv[part] for kv in chunk_caches]).to(pool.dtype))
+        self._last_logits = logits
+        self._chunks_run += 1
+        return sampled.cpu().numpy()
+
+    @staticmethod
+    def _check_writes(wpage, live):
+        """Only the trash page may take duplicate writes (which of them
+        lands is undefined on the card): no live position maps to it."""
+        if (wpage[live] == 0).any():
+            raise MXNetError("a live position maps to the trash page 0 "
+                             "(page table corrupt)")
+
+    # -- page bookkeeping ------------------------------------------------
+
+    def _take_page(self):
+        """A free page, reclaiming the LRU retained prefix page when the
+        free list is dry (reclaim unregisters it)."""
+        if self._free_pages:
+            return self._free_pages.popleft()
+        if self._reclaim:
+            pg, h = self._reclaim.popitem(last=False)
+            del self._prefix_map[h]
+            del self._page_hash[pg]
+            return int(pg)
+        return None
+
+    def _release_slot_pages(self, slot):
+        row = self._page_table[slot]
+        for pg in row.tolist():
+            if pg == 0:
+                continue
+            self._page_ref[pg] -= 1
+            if self._page_ref[pg] <= 0:
+                h = self._page_hash.get(pg)
+                if h is not None:
+                    # a registered prefix page stays (LRU) until pool
+                    # pressure reclaims it: a follow-up request with the
+                    # same prompt still hits
+                    self._reclaim[pg] = h
+                    self._reclaim.move_to_end(pg)
+                else:
+                    self._free_pages.appendleft(pg)
+        row[:] = 0
+
+    def _register_prefix(self, slot, token_ids, n):
+        """After a prompt fully prefilled: register its full pages below
+        position n-1 in the prefix map (first writer wins; an attached
+        page is registered under the same chain hash already)."""
+        limit = min((n - 1) // self._page_size, self._pages_per_slot)
+        if limit <= 0:
+            return
+        row = self._page_table[slot]
+        for i, h in enumerate(_prefix_page_hashes(
+                token_ids, self._page_size, limit)):
+            if h in self._prefix_map:
+                continue
+            pg = int(row[i])
+            self._prefix_map[h] = pg
+            self._page_hash[pg] = h
+
+    # -- lifecycle of one sequence ---------------------------------------
+
+    def admit_incremental(self, token_ids):
+        """Claim a slot for ``token_ids``: attach any shared prefix pages,
+        allocate the rest of the slot's pages up front (so decode never
+        starves mid-flight), and queue the unshared prompt tail for
+        chunked prefill.  Returns the slot; the first token comes from
+        the :meth:`prefill_step` that completes the prompt.  Raises
+        :class:`Overloaded` (``slots`` / ``pages``)."""
+        token_ids, _ = self._check_tokens(token_ids)
+        n = token_ids.size
+        if not self._free:
+            raise Overloaded("slots", "all %d decode slots busy"
+                             % self._slots)
+        # prefix attach: the longest chain of registered full prompt
+        # pages, never the page holding token n-1 (the tail must prefill
+        # so that the first token's logits exist)
+        attached = []
+        if self._prefix_share:
+            limit = min((n - 1) // self._page_size, self._pages_per_slot)
+            for h in _prefix_page_hashes(token_ids, self._page_size, limit):
+                pg = self._prefix_map.get(h)
+                if pg is None:
+                    break
+                attached.append(pg)
+            self._prefix_lookup_tokens += limit * self._page_size
+            self._prefix_hit_tokens += len(attached) * self._page_size
+        self.last_prefix_hit_tokens = len(attached) * self._page_size
+        # count before taking: an attached page parked in the reclaim LRU
+        # is not free, and _take_page must never hand it out again (the
+        # JAX engine takes fresh pages first and can, mxnet_tpu/
+        # generate.py:1182-1196: the row then holds that page twice)
+        need = self._pages_per_slot - len(attached)
+        parked = sum(1 for pg in attached if pg in self._reclaim)
+        if need > len(self._free_pages) + len(self._reclaim) - parked:
+            raise Overloaded(
+                "pages", "page pool exhausted (%d/%d in use)"
+                % (self.pages_in_use(), self._num_pages - 1))
+        for pg in attached:
+            self._reclaim.pop(pg, None)
+            self._page_ref[pg] += 1
+        fresh = [self._take_page() for _ in range(need)]
+        for pg in fresh:
+            self._page_ref[pg] += 1
+        slot = self._free.popleft()
+        self._page_table[slot, :] = attached + fresh
+        start = len(attached) * self._page_size
+        self._pending[slot] = {"tokens": token_ids, "filled": start, "n": n}
+        self._history[slot] = token_ids.tolist()
+        # the lane's seed: one draw from the framework stream (host side)
+        self._lane_seeds[slot] = 0 if self.sampling.greedy else int(
+            torch.randint(0, 2 ** 32, (1,),
+                          generator=_random.next_key(torch.device("cpu"))))
+        return slot
+
+    def prefill_step(self, slot=None):
+        """Run one prefill chunk (round-robin over the pending slots, or
+        the given ``slot``).  Returns ``(slot, first_token)`` when that
+        chunk completed its prompt, else None.  The TokenServer calls
+        this once a loop tick, interleaving long prefills with decode
+        steps; the round-robin keeps a short prompt's time to first
+        token from hiding behind a long prompt admitted just before."""
+        if not self._pending:
+            return None
+        if slot is None:
+            slot = next(iter(self._pending))
+            self._pending.move_to_end(slot)
+        st = self._pending[slot]
+        toks, filled, n = st["tokens"], st["filled"], st["n"]
+        count = min(self._chunk, n - filled)
+        chunk = np.zeros((1, self._chunk), np.int64)
+        chunk[0, :count] = toks[filled:filled + count]
+        p = filled + np.arange(count)
+        wpage = np.zeros((1, self._chunk), np.int64)
+        woff = np.zeros((1, self._chunk), np.int64)
+        wpage[0, :count] = self._page_table[slot, p // self._page_size]
+        woff[0, :count] = p % self._page_size
+        self._check_writes(wpage[0], slice(0, count))
+        sampled = self._chunk_dispatch(
+            self._page_table[slot:slot + 1], chunk,
+            np.asarray([filled], np.int64), wpage, woff,
+            self._lane_seeds[slot:slot + 1])
+        if filled + count < n:
+            st["filled"] = filled + count
+            return None
+        tok = int(sampled[0, count - 1])
+        del self._pending[slot]
+        self._pos[slot] = n
+        self._cur_tok[slot] = tok
+        self._active[slot] = True
+        self._history[slot].append(tok)
+        if self._prefix_share:
+            self._register_prefix(slot, toks, n)
+        return slot, tok
+
+    def admit(self, token_ids, slot=None):
+        """Synchronous admission (the ring engine's drop-in; ``slot`` is
+        taken for its signature and ignored, as in the JAX engine): claim
+        a slot and run every prefill chunk back to back.  Returns
+        ``(slot, first_token)``."""
+        sl = self.admit_incremental(token_ids)
+        while True:
+            res = self.prefill_step(slot=sl)
+            if res is not None:
+                return res
+
+    def decode_step(self):
+        """One fixed-shape step for every active slot.  Returns ``{slot:
+        [tokens...]}``: one token a slot without speculation, up to
+        ``spec_k + 1`` with it (the drafts that verified, plus the one
+        token sampling always yields).  Rejected drafts leave K/V at
+        positions >= the new ``pos``; ``chunk_forward``'s cache mask
+        hides them and decode overwrites them as it advances."""
+        if not self._active.any():
+            return {}
+        B, K = self._slots, self._spec_k
+        cap = min(self._capacity, self.model_config["max_len"])
+        active = [int(b) for b in np.nonzero(self._active)[0]]
+        C = K + 1 if K > 0 else 1
+        tokens = np.zeros((B, C), np.int64)
+        width = np.zeros(B, np.int64)          # positions written a row
+        drafts = {}
+        for b in active:
+            tokens[b, 0] = self._cur_tok[b]
+            d = []
+            if K > 0:
+                room = cap - 1 - int(self._pos[b])
+                if room > 0:
+                    d = _ngram_draft(self._history[b], self._spec_ngram,
+                                     min(K, room))
+                tokens[b, 1:1 + len(d)] = d
+            drafts[b] = d
+            width[b] = len(d) + 1
+        pos = self._pos[:, None] + np.arange(C)
+        live = np.arange(C)[None, :] < width[:, None]
+        if (pos[live] >= self._capacity).any():
+            raise MXNetError("a slot is at its capacity of %d positions; "
+                             "evict it before the next decode step"
+                             % self._capacity)
+        page = np.where(live, pos // self._page_size, 0)
+        wpage = np.where(live, np.take_along_axis(self._page_table, page,
+                                                  axis=1), 0)
+        woff = np.where(live, pos % self._page_size, 0)
+        self._check_writes(wpage, live)
+        sampled = self._chunk_dispatch(self._page_table, tokens, self._pos,
+                                       wpage, woff, self._lane_seeds)
+        out = {}
+        for b in active:
+            d = drafts[b]
+            acc = 0
+            while acc < len(d) and d[acc] == sampled[b, acc]:
+                acc += 1
+            emitted = [int(t) for t in sampled[b, :acc + 1]]
+            if d:
+                self._spec_drafted += len(d)
+                self._spec_accepted += acc
+                self._spec_steps += 1
+            out[b] = emitted
+            self._cur_tok[b] = emitted[-1]
+            self._pos[b] += len(emitted)
+            self._history[b].extend(emitted)
+        return out
+
+    def evict(self, slot, reason):
+        """Free ``slot`` (mid-prefill pendings included): drop its
+        refcounts, return private pages to the free list, park refcount-0
+        prefix pages in the retained LRU."""
+        if slot not in self._pending and not self._active[slot]:
+            return
+        self._pending.pop(slot, None)
+        self._history.pop(slot, None)
+        self._active[slot] = False
+        self._pos[slot] = 0
+        self._release_slot_pages(slot)
+        # LIFO slot reuse, for the ring engine's reproducibility reason
+        self._free.appendleft(int(slot))
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +1130,7 @@ class GenerationResult(dict):
 
 class _GenRequest:
     __slots__ = ("tokens", "future", "deadline", "t_submit", "max_new",
-                 "out", "slot", "ttft", "on_token")
+                 "out", "slot", "ttft", "prefix_hit", "on_token")
 
     def __init__(self, tokens, deadline, max_new, on_token=None):
         self.tokens = tokens
@@ -494,18 +1141,22 @@ class _GenRequest:
         self.out = []
         self.slot = None
         self.ttft = None
+        self.prefix_hit = None     # prompt tokens served by prefix pages
         self.on_token = on_token   # streaming observer
 
 
 class TokenServer:
     """Continuous-batching token front end over one
-    :class:`GenerationEngine`.
+    :class:`GenerationEngine` or :class:`PagedGenerationEngine`.
 
     ``submit`` admits a prompt through a bounded queue and returns a
     :class:`ServingFuture` resolving to a :class:`GenerationResult`.  A
     worker thread (pinned to the engine's device) admits queued prompts
     into free slots (prefill), steps every active slot one token per
-    tick, and evicts on EOS, deadline, length cap or cancellation:
+    tick, and evicts on EOS, deadline, length cap or cancellation.  Over
+    a paged engine admission only claims a slot and its pages; the loop
+    then streams one prefill chunk a tick between decode steps, and a
+    step's several verified tokens are delivered one at a time:
 
     * admission: :class:`Overloaded` — ``queue`` (queue full),
       ``shutdown``; cooperative backpressure via ``block=True``.
@@ -525,6 +1176,10 @@ class TokenServer:
             raise MXNetError("TokenServer(slo_ms=...) shedding needs the "
                              "TTFT histogram, which is not ported yet")
         self._engine = engine
+        # paged engines admit incrementally: the loop streams one prefill
+        # chunk a tick between decode steps instead of running the whole
+        # prompt inside admission
+        self._incremental = bool(getattr(engine, "incremental", False))
         if queue_depth is None:
             queue_depth = _config.get("MXNET_DECODE_QUEUE")
         self._depth = int(queue_depth)
@@ -677,6 +1332,23 @@ class TokenServer:
                 req = self._admit_locked_pop()
             if req is None:
                 return
+            if self._incremental:
+                # claim the slot and pages only; the time to first token
+                # runs on until the chunk that completes the prompt
+                try:
+                    slot = eng.admit_incremental(req.tokens)
+                except ServingError as e:
+                    self._fail(req, e)
+                    continue
+                except Exception as e:
+                    self._fail(req, ReplicaFailed(
+                        "prefill admission failed: %s" % (e,), cause=e))
+                    continue
+                req.slot = slot
+                req.prefix_hit = eng.last_prefix_hit_tokens or None
+                with self._cond:
+                    self._by_slot[slot] = req
+                continue
             try:
                 slot, tok = eng.admit(req.tokens)
             except ServingError as e:
@@ -732,6 +1404,39 @@ class TokenServer:
             self._by_slot.pop(slot, None)
             self._cond.notify_all()
 
+    def _prefill_tick(self):
+        """One chunked-prefill step (incremental engines): evict
+        cancelled or expired mid-prefill requests first, then run one
+        chunk; when it completes a prompt, its sampled first token starts
+        the request's delivery (time to first token taken here)."""
+        eng = self._engine
+        now = time.monotonic()
+        with self._cond:
+            stale = [(s, r) for s, r in self._by_slot.items()
+                     if r.ttft is None and
+                     (r.future.done() or
+                      (r.deadline is not None and now >= r.deadline))]
+        for slot, req in stale:
+            if req.future.done():          # cancelled while prefilling
+                reason = "cancelled"
+            else:
+                reason = "deadline"
+                self._fail(req, DeadlineExceeded(
+                    "prefill", "deadline hit mid-prefill"))
+            self._release(slot)
+            eng.evict(slot, reason)
+        res = eng.prefill_step()
+        if res is None:
+            return
+        slot, tok = res
+        with self._cond:
+            req = self._by_slot.get(slot)
+        if req is None:
+            eng.evict(slot, "cancelled")
+            return
+        req.ttft = time.monotonic() - req.t_submit
+        self._deliver(req, slot, tok)
+
     def _loop(self):
         if self._engine.device.type == "cuda":
             torch.cuda.set_device(self._engine.device)
@@ -745,6 +1450,8 @@ class TokenServer:
             try:
                 self._sweep_queue()
                 self._admissions()
+                if self._incremental:
+                    self._prefill_tick()
                 toks = self._engine.decode_step()
                 for slot, tok in toks.items():
                     with self._cond:
@@ -752,7 +1459,12 @@ class TokenServer:
                     if req is None:
                         self._engine.evict(slot, "cancelled")
                         continue
-                    self._deliver(req, slot, tok)
+                    # a paged step may emit several verified tokens; the
+                    # finish rules apply token by token, so speculative
+                    # overshoot past eos or max_new is cut off here
+                    for t in (tok if isinstance(tok, list) else [tok]):
+                        if not self._deliver(req, slot, t):
+                            break
             except Exception as e:
                 # a failed dispatch can leave the engine half-updated:
                 # fail everything typed and stop

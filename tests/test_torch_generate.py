@@ -217,7 +217,14 @@ def test_engine_surface(nets, teng):
     ("MXNET_DECODE_SLOTS", None), ("MXNET_DECODE_SLOTS", "12"),
     ("MXNET_DECODE_CACHE_LEN", "bad"), ("MXNET_DECODE_BUCKETS", None),
     ("MXNET_DECODE_BUCKETS", "16,48"), ("MXNET_DECODE_QUEUE", "3"),
-    ("MXNET_DECODE_DEADLINE_MS", "250.5"), ("MXNET_DECODE_MAX_NEW", None)])
+    ("MXNET_DECODE_DEADLINE_MS", "250.5"), ("MXNET_DECODE_MAX_NEW", None),
+    ("MXNET_DECODE_PAGE_SIZE", None), ("MXNET_DECODE_PAGE_SIZE", "bad"),
+    ("MXNET_DECODE_PAGES", None), ("MXNET_DECODE_PAGES", "129"),
+    ("MXNET_DECODE_PREFILL_CHUNK", None),
+    ("MXNET_DECODE_PREFILL_CHUNK", "16"), ("MXNET_DECODE_SPEC_K", None),
+    ("MXNET_DECODE_SPEC_K", "4"), ("MXNET_DECODE_SPEC_NGRAM", None),
+    ("MXNET_DECODE_SPEC_NGRAM", "3"), ("MXNET_DECODE_PREFIX_SHARE", None),
+    ("MXNET_DECODE_PREFIX_SHARE", "0")])
 def test_decode_knobs_parse_like_jax(monkeypatch, name, raw):
     if raw is None:
         monkeypatch.delenv(name, raising=False)
