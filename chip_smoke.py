@@ -106,18 +106,40 @@ non-zero, printing no result, without them.  Phases, one line each:
    kernel launched.  A 'paged' line: prefill-chunk ms, step ms (beside
    the ring's), tokens/s, pages in use, the profile of 8 steps, peak
    memory;
-10. flash times: each kernel, the plain version and
+10. zoo: one network per vision family at ImageNet width (alexnet,
+   vgg16, resnet50_v2, densenet121, squeezenet1.1, mobilenet1.0 and
+   mobilenetv2_1.0 at 3x224x224, inceptionv3 at 3x299x299; classes 1000,
+   Xavier from a seed, batch 32, f32 with TF32 off) through the port's
+   examples/train_imagenet.py entry, --benchmark 1, sgd lr 0.01 momentum
+   0.9, 1 warm-up + 5 steps: every loss finite, the last below the first
+   for the families without Dropout, every step on the fused SGD update,
+   parameters, gradients and optimizer states on the card; a 'zoo' line
+   each with images/s, the step median, trainer.step ms, kernels a step
+   and trainer.step's share of them and the card's idle share
+   (torch.profiler, one more step), peak memory, and its predict-mode
+   logits at batch 2 within 1e-4 x max|ref| of the port on the CPU from
+   the same weights.  On mobilenet1.0's real gradients: one fused SGD
+   update against the per-parameter loop within 1e-6 x max|w| (the
+   kernels of each); the 15 optimizers, 3 steps on the card against the
+   CPU within 1e-5 relative, multi_precision f16 for SGD and Adam, SGLD
+   on its deterministic part (its noise drawn again from the seed) and
+   the noise's mean and spread.  Then
+   Trainer.save_states -> load_states -> 2 steps bit-equal to 4 steps
+   (resnet18_v2, batch 8, deterministic cuDNN), and no hand-written
+   kernel launched in the phase;
+11. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-11. the whole script's wall time, then a {"kernels": [...]} line;
-12. last line: {"ok": true, "device": {...}}.
+12. the whole script's wall time, then a {"kernels": [...]} line;
+13. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -226,6 +248,18 @@ SHARE_USERS, SHARE_SYSTEM, SHARE_TAIL, SHARE_SLOTS, SHARE_NEW = \
 SPEC_SLOTS, SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_NGRAM, SPEC_SEED = \
     2, 24, 160, 4, 3, 7
 BF16_PAGED_STEPS = 16
+# the zoo phase: one network per vision family at ImageNet width through
+# the port's examples/train_imagenet.py entry, --benchmark 1, batch 32,
+# classes 1000, f32 with TF32 off, sgd momentum 0.9 at lr 0.01 (AlexNet
+# and VGG have no BatchNorm and start from Xavier), 1 warm-up + 5 steps
+ZOO = (("alexnet", 224), ("vgg16", 224), ("resnet50_v2", 224),
+       ("densenet121", 224), ("squeezenet1.1", 224), ("inceptionv3", 299),
+       ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224))
+ZOO_DROPOUT = ("alexnet", "vgg16", "squeezenet1.1", "inceptionv3")
+ZOO_BATCH, ZOO_STEPS, ZOO_LR = 32, 5, 0.01
+# card against CPU: logits within 1e-4 x max|ref|; the fused SGD update
+# within 1e-6 x max|w| of the loop; optimizers within 1e-5 relative
+ZOO_LOGIT_REL, ZOO_FUSED_REL, ZOO_OPT_REL = 1e-4, 1e-6, 1e-5
 
 
 def check(cond, msg):
@@ -1711,6 +1745,343 @@ def phase_paged(card, lm, ring):
           % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
+def device_kernels(fn):
+    """fn() under torch.profiler: (kernels launched, their card time in
+    ms), or the reason it was not measured.  A measurement only: a
+    profiler failure is reported, not raised."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(ev.count, _self_device_us(ev)) for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == DeviceType.CUDA
+                and _self_device_us(ev)]
+    except Exception as e:  # noqa: BLE001 - the profile is optional
+        return "not measured (torch.profiler failed: %r)" % (e,)
+    if not rows:
+        return "not measured (torch.profiler recorded no device time)"
+    return sum(c for c, _ in rows), sum(us for _, us in rows) / 1e3
+
+
+def kernels_text(res):
+    if isinstance(res, tuple):
+        return "%d kernels, %.3f ms on the card" % res
+    return res
+
+
+def zoo_step(net, trainer, x, y, loss_fn):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(ZOO_BATCH)
+
+
+def on_card(trainer, net):
+    """Every parameter, gradient and optimizer state on the card."""
+    tensors = [p.data()._data for p in net.collect_params().values()]
+    tensors += [p.grad()._data for p in net.collect_params().values()
+                if p.grad_req != "null"]
+    for st in trainer._updaters[0].states.values():
+        tensors += [st._data] if st is not None else []
+    return all(t.is_cuda for t in tensors)
+
+
+def zoo_logits_against_cpu(name, side, net):
+    """Predict-mode logits at batch 2 on the card against the port on the
+    CPU from the same weights: max |d| / max |ref|."""
+    x = np.random.RandomState(1).rand(2, 3, side, side).astype(np.float32)
+    with mx.name.NameManager():
+        cpu_net = vision.get_model(name, classes=1000)
+    cpu_net.initialize(mx.init.Zero(), ctx=mx.cpu())
+    with mx.autograd.pause():
+        cpu_net(mx.nd.array(x, ctx=mx.cpu()))
+    # the card net's prefix counts the networks the process built before
+    # it (`_resnet2_` after phases 4 and 7); the names match past it
+    mx.convert.load_from_numpy(cpu_net, {
+        cpu_net.prefix + n[len(net.prefix):]: p.data().asnumpy()
+        for n, p in net.collect_params().items()})
+    with mx.autograd.predict_mode():
+        ref = cpu_net(mx.nd.array(x, ctx=mx.cpu())).asnumpy()
+        got = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    err = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    check(err <= ZOO_LOGIT_REL, "%s logits card vs CPU: %g of max|ref|"
+          % (name, err))
+    return err
+
+
+class LoopSGD(mx.optimizer.SGD):
+    """SGD itself, but not the class that gluon.Trainer fuses: its
+    updates run the per-parameter loop (sgd_mom_update a parameter)."""
+
+
+def check_fused_against_loop(net, trainer, card):
+    """One fused SGD update on the card over the network's real gradients
+    against the per-parameter loop from the same weights and momentum:
+    within ZOO_FUSED_REL x max|w| per tensor; the kernels each launches."""
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    w0 = [p.data()._data.detach().clone() for p in params]
+    states = trainer._updaters[0].states
+    m0 = {i: st._data.clone() for i, st in states.items()}
+    fused_k = device_kernels(lambda: trainer.step(ZOO_BATCH))
+    fused = [p.data()._data.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, w in zip(params, w0):
+            p.data()._data.copy_(w)
+    loop = mx.gluon.Trainer(params, LoopSGD(learning_rate=ZOO_LR,
+                                            momentum=0.9))
+    upd = loop._updaters[0]
+    idx = {p.name: i for i, p in enumerate(trainer._params)}
+    for j, p in enumerate(params):
+        upd.states[j] = mx.nd.NDArray(m0[idx[p.name]].clone())
+        upd.states_synced[j] = True
+    loop_k = device_kernels(lambda: loop.step(ZOO_BATCH))
+    check(loop._fused_updates == 0, "the loop took the fused update")
+    worst = 0.0
+    for p, f in zip(params, fused):
+        w = p.data()._data.detach()
+        err = float((w - f).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+    check(worst <= ZOO_FUSED_REL, "fused SGD vs the loop: %g of max|w|"
+          % worst)
+    print("zoo fused: one fused SGD update over mobilenet1.0's %d "
+          "gradients vs the per-parameter loop from the same weights and "
+          "momentum: max |d| %.3g of max|w| (bound %g) | fused %s | loop %s "
+          "| %s" % (len(params), worst, ZOO_FUSED_REL, kernels_text(fused_k),
+                    kernels_text(loop_k), card), flush=True)
+
+
+ZOO_OPTIMIZERS = (
+    ("sgd", {"momentum": 0.9}), ("lbsgd", {"momentum": 0.9}),
+    ("signum", {}), ("ftml", {}), ("dcasgd", {"momentum": 0.9}),
+    ("adam", {}), ("adagrad", {}), ("rmsprop", {"centered": True}),
+    ("adadelta", {}), ("ftrl", {}), ("adamax", {}), ("nadam", {}),
+    ("nag", {"momentum": 0.9}), ("test", {}))
+
+
+def run_optimizer(name, kw, weights, grads, ctx, steps, dtype=np.float32):
+    opt = mx.optimizer.create(name, learning_rate=0.01, wd=1e-4,
+                              clip_gradient=1.0, rescale_grad=1.0 / ZOO_BATCH,
+                              **kw)
+    upd = mx.optimizer.get_updater(opt)
+    ws = [mx.nd.array(w.astype(dtype), ctx=ctx, dtype=dtype)
+          for w in weights]
+    gs = [mx.nd.array(g.astype(dtype), ctx=ctx, dtype=dtype) for g in grads]
+    for _ in range(steps):
+        for i, (w, g) in enumerate(zip(ws, gs)):
+            upd(i, g, w)
+    return ws, upd
+
+
+def rel_err(got, want):
+    """max over tensors of max|got - want| / max|want|."""
+    return max(float(np.abs(g.asnumpy().astype(np.float64)
+                            - w.asnumpy().astype(np.float64)).max())
+               / max(float(np.abs(w.asnumpy()).max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def check_optimizers(net, card):
+    """The 15 optimizers over mobilenet1.0's parameters and gradients, 3
+    steps on the card against the port on the CPU; multi_precision f16
+    for SGD and Adam; SGLD on its deterministic part and its noise."""
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    weights = [p.data().asnumpy() for p in params]
+    grads = [p.grad().asnumpy() for p in params]
+    errs = {}
+    for name, kw in ZOO_OPTIMIZERS:
+        card_w, _ = run_optimizer(name, kw, weights, grads, mx.gpu(0), 3)
+        cpu_w, _ = run_optimizer(name, kw, weights, grads, mx.cpu(), 3)
+        errs[name] = rel_err(card_w, cpu_w)
+        check(errs[name] <= ZOO_OPT_REL, "%s card vs CPU: %g relative"
+              % (name, errs[name]))
+    for name, kw in (("sgd", {"momentum": 0.9}), ("adam", {})):
+        kw = dict(kw, multi_precision=True)
+        card_w, card_u = run_optimizer(name, kw, weights, grads, mx.gpu(0),
+                                       3, np.float16)
+        cpu_w, cpu_u = run_optimizer(name, kw, weights, grads, mx.cpu(), 3,
+                                     np.float16)
+        check(card_w[0].dtype == np.float16, "mp weights not f16")
+        masters = [card_u.states[i][1] for i in range(len(params))]
+        cpu_masters = [cpu_u.states[i][1] for i in range(len(params))]
+        errs["mp_" + name] = rel_err(masters, cpu_masters)
+        check(errs["mp_" + name] <= ZOO_OPT_REL, "multi_precision %s card "
+              "vs CPU: %g relative" % (name, errs["mp_" + name]))
+        # the f16 weights are the masters rounded: one f16 step apart at
+        # most, 2^-10 of the largest |w|
+        f16 = max(float(np.abs(a.asnumpy().astype(np.float32)
+                               - b.asnumpy().astype(np.float32)).max())
+                  / max(float(np.abs(b.asnumpy()).max()), 1e-30)
+                  for a, b in zip(card_w, cpu_w))
+        check(f16 <= 2.0 ** -10, "multi_precision %s f16 weights differ "
+              "by %g of max|w|" % (name, f16))
+    # SGLD, 3 steps: w - lr/2 (clip(g / batch) + wd w) + N(0, lr).  Its
+    # noise is drawn again from the same seed on the card (same order:
+    # step by step, tensor by tensor) and the steps recomputed in float64
+    # from it: the deterministic part within ZOO_OPT_REL, the noise N(0,
+    # 0.01) by its mean and spread
+    mx.random.seed(5)
+    card_w, _ = run_optimizer("sgld", {}, weights, grads, mx.gpu(0), 3)
+    mx.random.seed(5)
+    dev = mx.gpu(0).torch_device
+    gen = mx.random.generator(dev)
+    ws = [w.astype(np.float64) for w in weights]
+    noise = []
+    for _ in range(3):
+        for k, (w, g) in enumerate(zip(ws, grads)):
+            n = torch.normal(0.0, math.sqrt(0.01), tuple(w.shape),
+                             generator=gen, device=dev).cpu().numpy()
+            g = np.clip(g.astype(np.float64) / ZOO_BATCH, -1.0, 1.0)
+            ws[k] = w - 0.01 / 2 * (g + 1e-4 * w) + n
+            noise.append(n.ravel())
+    errs["sgld"] = max(float(np.abs(got.asnumpy() - want).max())
+                       / float(np.abs(want).max())
+                       for got, want in zip(card_w, ws))
+    check(errs["sgld"] <= ZOO_OPT_REL, "SGLD's deterministic part: %g "
+          "relative" % errs["sgld"])
+    noise = np.concatenate(noise)
+    mean, std = float(noise.mean()), float(noise.std())
+    n = noise.size
+    check(abs(mean) <= 4 * 0.1 / np.sqrt(n) and abs(std - 0.1) <= 1e-3,
+          "SGLD noise mean %g std %g over %d values (N(0, 0.01) expected)"
+          % (mean, std, n))
+    print("zoo optimizers: 3 steps over mobilenet1.0's %d tensors (%d "
+          "values), card vs CPU (sgld: vs its float64 recomputation from "
+          "the redrawn noise) max relative difference %s (bound %g); "
+          "SGLD noise mean %.3g std %.5f (0.1 expected) over %d values | %s"
+          % (len(params), sum(w.size for w in weights),
+             ", ".join("%s %.2g" % kv for kv in errs.items()), ZOO_OPT_REL,
+             mean, std, n, card), flush=True)
+
+
+def check_resume(card):
+    """Trainer.save_states -> load_states -> 2 steps equals 4 steps bit
+    for bit (resnet18_v2, batch 8, deterministic cuDNN)."""
+    import shutil
+    import tempfile
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(2)
+    x = mx.nd.array(rng.rand(8, 3, IMAGE, IMAGE).astype(np.float32),
+                    ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, 8).astype(np.float32),
+                    ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def run(weights, steps, load=None, save=None):
+        with mx.name.NameManager():
+            net = vision.resnet18_v2(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        with mx.autograd.pause():
+            net(x)
+        if weights is not None:
+            mx.convert.load_from_numpy(net, weights)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": ZOO_LR, "momentum": 0.9,
+                               "wd": 1e-4})
+        if load:
+            tr.load_states(load)
+        for _ in range(steps):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            tr.step(8)
+        if save:
+            tr.save_states(save)
+        return {n: p.data().asnumpy() for n, p in
+                net.collect_params().items()}
+
+    tmp = tempfile.mkdtemp()
+    try:
+        mx.random.seed(3)
+        w0 = run(None, 0)
+        straight = run(w0, 4)
+        fname = tmp + "/trainer.states"
+        half = run(w0, 2, save=fname)
+        resumed = run(half, 2, load=fname)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic = prev
+    same = all(np.array_equal(resumed[n], straight[n]) for n in straight)
+    check(same, "save_states/load_states + 2 steps != 4 steps")
+    print("zoo resume: resnet18_v2 batch 8, save_states after 2 steps, "
+          "load_states into a new Trainer, 2 more steps: all %d parameters "
+          "bit-equal to 4 uninterrupted steps (deterministic cuDNN) | %s"
+          % (len(straight), card), flush=True)
+
+
+def phase_zoo(card):
+    """One network per vision family through the port's train_imagenet
+    entry at ImageNet width (see the module doc, phase 10)."""
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    for name, side in ZOO:
+        mx.random.seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_imagenet.train(
+            ["--benchmark", "1", "--network", name, "--batch-size",
+             str(ZOO_BATCH), "--num-classes", "1000", "--image-shape",
+             "3,%d,%d" % (side, side), "--steps", str(ZOO_STEPS), "--lr",
+             str(ZOO_LR)])
+        net, trainer, losses = res["net"], res["trainer"], res["losses"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(np.isfinite(losses).all(), "%s: non-finite loss %s"
+              % (name, losses))
+        if name not in ZOO_DROPOUT:
+            check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+                  % (name, losses))
+        check(trainer._fused_updates == 1 + ZOO_STEPS,
+              "%s: %d of %d steps took the fused SGD update"
+              % (name, trainer._fused_updates, 1 + ZOO_STEPS))
+        check(on_card(trainer, net), "%s: state off the card" % name)
+        rng = np.random.RandomState(0)  # the entry's batch again
+        x = mx.nd.array(rng.rand(ZOO_BATCH, 3, side, side)
+                        .astype(np.float32), ctx=mx.gpu(0))
+        y = mx.nd.array(rng.randint(0, 1000, ZOO_BATCH)
+                        .astype(np.float32), ctx=mx.gpu(0))
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        step_ms = 1e3 * statistics.median(res["step_s"])
+        whole = device_kernels(lambda: zoo_step(net, trainer, x, y, loss_fn))
+        upd = device_kernels(lambda: trainer.step(ZOO_BATCH))
+        ts_ms = 1e3 * statistics.median(
+            timed_s(lambda: trainer.step(ZOO_BATCH))[0] for _ in range(3))
+        if isinstance(whole, tuple) and isinstance(upd, tuple):
+            prof = ("kernels a step %d (trainer.step %d, %.1f%%), card "
+                    "kernel time %.2f ms a step: idle %.1f%% of the step"
+                    % (whole[0], upd[0], 100.0 * upd[0] / whole[0], whole[1],
+                       100 * max(0.0, 1 - whole[1] / step_ms)))
+        else:
+            prof = "profile %s / %s" % (whole, upd)
+        err = zoo_logits_against_cpu(name, side, net)
+        print("zoo: %s 3x%dx%d batch %d f32 (TF32 off), sgd lr %g momentum "
+              "0.9, 1 warm-up + %d steps | %.1f img/s | step median %.2f ms "
+              "| trainer.step %.2f ms (fused) | %s | peak %.2f GB | loss %s "
+              "| logits card vs CPU %.2g of max|ref| | %s"
+              % (name, side, side, ZOO_BATCH, ZOO_LR, ZOO_STEPS,
+                 res["images_per_sec"], step_ms, ts_ms, prof, peak,
+                 ["%.4f" % v for v in losses], err, card), flush=True)
+        if name == "mobilenet1.0":
+            check_fused_against_loop(net, trainer, card)
+            check_optimizers(net, card)
+        del net, trainer, res
+    torch.cuda.empty_cache()
+    check_resume(card)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the zoo path launched %s" % launched)
+    print("zoo: hand-written kernels launched on the zoo path: %s (none is "
+          "on it) | phase %.1f s | %s"
+          % (launched, time.perf_counter() - t_phase, card), flush=True)
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -1772,6 +2143,8 @@ def main():
     torch.cuda.empty_cache()
     phase_paged(card, lm, ring)
     del lm, ring
+    torch.cuda.empty_cache()
+    phase_zoo(card)
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):

@@ -16,8 +16,12 @@ mesh (``parallel``); ``parallel.ShardedTrainer`` on one card under the
 master parameters, dynamic loss scaling); the op registry with ``mx.nd``
 generated from it, and the transformer LM's serving path
 (``examples.transformer_lm`` -> ``generate.GenerationEngine``, the ring
-KV-cache engine -> ``generate.TokenServer``, with the typed errors of
-``serving_async``).
+KV-cache engine, and ``generate.PagedGenerationEngine`` ->
+``generate.TokenServer``, with the typed errors of ``serving_async``);
+the vision model zoo (34 networks) and the eager gluon training loop of
+``examples.train_imagenet``, with ``gluon.nn``, ``gluon.loss``, the 15
+optimizers, ``lr_scheduler``, ``metric`` and the Trainer's fused SGD
+update.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -31,6 +35,8 @@ from . import ndarray as nd  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import metric  # noqa: F401
 from . import contrib  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401

@@ -1,12 +1,14 @@
 """The non-finite step guard's policy (parity: mxnet_tpu/checkpoint.py
-``NonfiniteError`` and ``nonfinite_policy`` / ``check_finite``).
+``NonfiniteError`` and ``nonfinite_policy`` / ``check_finite``) and
+``atomic_write``, which the Trainer's and the KVStore's state files use.
 
-Checkpointing itself (atomic, sharded, topology-elastic) is not ported
-yet.
+Checkpointing itself (sharded, topology-elastic) is not ported yet.
 """
 from __future__ import annotations
 
 import logging
+import os
+import tempfile
 import warnings
 
 import numpy as np
@@ -15,7 +17,25 @@ from .base import MXNetError
 from . import config as _config
 
 __all__ = ["NonfiniteError", "NONFINITE_POLICIES", "nonfinite_policy",
-           "check_finite"]
+           "check_finite", "atomic_write"]
+
+
+def atomic_write(fname, data):
+    """Write ``data`` (bytes) to ``fname`` through a temporary file in its
+    directory and a rename: a reader sees the old file or the whole new
+    one, never a torn one."""
+    dirname = os.path.dirname(os.path.abspath(fname))
+    fd, tmp = tempfile.mkstemp(dir=dirname, prefix=".tmp_")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, fname)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 class NonfiniteError(MXNetError):

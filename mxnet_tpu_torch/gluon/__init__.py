@@ -5,3 +5,4 @@ from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import utils  # noqa: F401

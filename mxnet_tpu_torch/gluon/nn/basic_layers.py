@@ -1,6 +1,7 @@
-"""Basic layers (parity: mxnet_tpu/gluon/nn/basic_layers.py —
-HybridSequential, Dense, Activation, BatchNorm, Embedding :261, Flatten,
-LayerNorm :326, HybridLambda)."""
+"""Basic layers (parity: mxnet_tpu/gluon/nn/basic_layers.py — Sequential
+:18, HybridSequential, Dense, Dropout :158, Activation, BatchNorm,
+Embedding, Flatten, InstanceNorm :289, LayerNorm, Lambda :360,
+HybridLambda)."""
 from __future__ import annotations
 
 import math
@@ -8,11 +9,12 @@ import math
 import torch
 
 from ...base import MXNetError
-from ..block import HybridBlock, _current_aux_sink
+from ..block import Block, HybridBlock, _current_aux_sink
 from ... import autograd
 
-__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm",
-           "Embedding", "Flatten", "LayerNorm", "HybridLambda"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Activation", "BatchNorm", "Embedding", "Flatten", "InstanceNorm",
+           "LayerNorm", "Lambda", "HybridLambda"]
 
 
 def _init_by_name(init):
@@ -21,6 +23,44 @@ def _init_by_name(init):
     if isinstance(init, str):
         return initializer.create(init)
     return init
+
+
+class Sequential(Block):
+    """Children run in order, eagerly (a ``Block``, not hybridizable)."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            import warnings
+
+            warnings.warn("All children of this Sequential layer are "
+                          "HybridBlocks. Consider using HybridSequential.",
+                          stacklevel=2)
+        super().hybridize(active, **kwargs)
 
 
 class HybridSequential(HybridBlock):
@@ -78,6 +118,24 @@ class Dense(HybridBlock):
         if self.act is not None:
             act = self.act(act)
         return act
+
+
+class Dropout(HybridBlock):
+    """Dropout with rate ``rate`` (the op's ``p``); ``axes`` share one
+    draw.  The identity, as a copy, at rate 0."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return F._copy(x)
+
+    def __repr__(self):
+        return "Dropout(p = {_rate}, axes={_axes})".format(**self.__dict__)
 
 
 class Activation(HybridBlock):
@@ -169,6 +227,42 @@ class Embedding(HybridBlock):
         return F.Embedding(x, weight, **self._kwargs)
 
 
+class InstanceNorm(HybridBlock):
+    """Instance normalization over the spatial axes, per sample and
+    channel (channel ``axis``), with the JAX package's defaults: epsilon
+    1e-5, ``center`` True, ``scale`` False (gamma stays at one)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=_init_by_name(gamma_initializer),
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=_init_by_name(beta_initializer),
+            allow_deferred_init=True)
+
+    def _infer_param_shapes(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+    def __repr__(self):
+        return "InstanceNorm(eps=%s, axis=%s)" % (self._epsilon, self._axis)
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization over ``axis`` with learned gamma and beta
     (their length deferred to the first input)."""
@@ -201,6 +295,34 @@ class LayerNorm(HybridBlock):
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class Lambda(Block):
+    """Wrap ``function(*args)`` (or the name of an ``mx.nd`` function) as
+    a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            if not hasattr(nd, function):
+                raise MXNetError("Function name %s is not found in nd."
+                                 % function)
+            self._func_impl = getattr(nd, function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: {}".format(
+                function))
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "Lambda({})".format(self._func_name)
 
 
 class HybridLambda(HybridBlock):

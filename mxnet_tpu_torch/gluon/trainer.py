@@ -5,14 +5,20 @@ allreduce_grads :327, update :359).
 Store rules as in the JAX package (trainer.py:71-91): a string store on a
 single context is bypassed (local updates); a ``KVStore`` object is used.
 With ``update_on_kvstore`` the store runs the optimizer and ``step``
-pulls the new weights back.  The local update is a plain loop over the
-parameters (the JAX package fuses it into one jitted program).
+pulls the new weights back.  The local update of a plain ``SGD`` (not
+``multi_precision``) with no store on one context is one multi-tensor
+program over all the parameters (``_try_fused_update``, the counterpart
+of the JAX package's one jitted update, trainer.py:177-257); any other
+optimizer loops over the parameters through the ``Updater``.
 """
 from __future__ import annotations
+
+import torch
 
 from .parameter import ParameterDict, Parameter
 from .. import optimizer as opt
 from .. import kvstore as kvs
+from ..checkpoint import atomic_write
 
 __all__ = ["Trainer"]
 
@@ -45,6 +51,9 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = None
         self._params_to_init = list(self._params)
+        # the fused SGD update's plan key and how many steps it took
+        self._fused_key = None
+        self._fused_updates = 0
 
     def _check_contexts(self):
         contexts = None
@@ -99,7 +108,8 @@ class Trainer:
                                    param.list_data()[0])
         self._params_to_init = []
 
-    def _ensure_kvstore(self):
+    def _prepare_states(self):
+        """Set up the store and its keys on first use."""
         if not self._kv_initialized:
             self._init_kvstore()
         if self._params_to_init:
@@ -120,13 +130,13 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce gradients and update, rescaling by 1 / batch_size."""
-        self._ensure_kvstore()
+        self._prepare_states()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update()
 
     def allreduce_grads(self):
-        self._ensure_kvstore()
+        self._prepare_states()
         self._allreduce_grads()
 
     def _trainable(self):
@@ -144,7 +154,7 @@ class Trainer:
             self._kvstore.pull(keys, grads, priority=0, ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
-        self._ensure_kvstore()
+        self._prepare_states()
         if self._kvstore and self._update_on_kvstore:
             raise ValueError("update() when parameters are updated on "
                              "kvstore is not supported. Try setting "
@@ -153,6 +163,8 @@ class Trainer:
         self._update()
 
     def _update(self):
+        if self._try_fused_update():
+            return
         keys = self._trainable()
         if self._kvstore and self._update_on_kvstore:
             if keys:
@@ -164,3 +176,85 @@ class Trainer:
             for upd, arr, grad in zip(self._updaters, param.list_data(),
                                       param.list_grad()):
                 upd(i, grad, arr)
+
+    def _try_fused_update(self):
+        """The SGD update of every parameter as one multi-tensor program
+        (``torch._foreach_*``, a few launches over all the tensors in
+        place of 2-3 per parameter), in the per-parameter ops' order:
+        g = rescale * grad, clipped, + wd * w; then mom = momentum * mom -
+        lr * g and w += mom, or w -= lr * g.  The momentum buffers are the
+        Updater's states, so ``save_states`` sees them.  The plan (the
+        parameters in order and their state) is rebuilt when the
+        parameters, ``momentum`` or ``clip_gradient`` change, as the JAX
+        trainer's jit key is.  Returns False, and the loop runs, for any
+        other optimizer (an SGD subclass too), ``multi_precision``, a
+        kvstore or several contexts."""
+        o = self._optimizer
+        if type(o) is not opt.SGD or o.multi_precision or \
+                self._kvstore is not None or len(self._contexts) != 1:
+            return False
+        params = [p for p in self._params
+                  if p.grad_req != "null" and p._data is not None]
+        if not params:
+            return False
+        key = (tuple(p.name for p in params), float(o.momentum),
+               o.clip_gradient)
+        if self._fused_key != key:
+            self._fused_idxs = [self._param2idx[p.name] for p in params]
+            self._fused_key = key
+        upd = self._updaters[0]
+        idxs = self._fused_idxs
+        states = [upd.state(i, p.list_data()[0])
+                  for i, p in zip(idxs, params)]
+        for i in idxs:
+            o._update_count(i)
+        lrs = [float(o._get_lr(i)) for i in idxs]
+        wds = [float(o._get_wd(i)) for i in idxs]
+        ws = [p.list_data()[0]._data for p in params]
+        gs = [p.list_grad()[0]._data for p in params]
+        clip = o.clip_gradient
+        with torch.no_grad():
+            g = torch._foreach_mul(gs, float(o.rescale_grad))
+            if clip:
+                torch._foreach_clamp_min_(g, -clip)
+                torch._foreach_clamp_max_(g, clip)
+            torch._foreach_add_(g, torch._foreach_mul(ws, wds))
+            torch._foreach_mul_(g, lrs)
+            if states[0] is None:
+                torch._foreach_sub_(ws, g)
+            else:
+                ms = [st._data for st in states]
+                torch._foreach_mul_(ms, float(o.momentum))
+                torch._foreach_sub_(ms, g)
+                torch._foreach_add_(ws, ms)
+        self._fused_updates += 1
+        return True
+
+    def save_states(self, fname):
+        """Write the optimizer and its states (parity: trainer.py:259):
+        through the store's updater with ``update_on_kvstore``, else the
+        local Updater's ``get_states(dump_optimizer=True)``."""
+        self._prepare_states()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+        else:
+            atomic_write(fname,
+                         self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read what ``save_states`` wrote (or a states blob without the
+        optimizer, the JAX package's included); the optimizer gets this
+        trainer's parameters back."""
+        self._prepare_states()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            for updater in self._updaters:
+                updater.set_states(states)
+                updater.optimizer = self._updaters[0].optimizer
+            self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = {i: param for i, param
+                                      in enumerate(self._params)}

@@ -11,7 +11,7 @@ from .base import MXNetError
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Xavier", "create", "register"]
+           "Normal", "Xavier", "create", "register"]
 
 _INIT_REGISTRY = {}
 
@@ -106,6 +106,21 @@ class Uniform(Initializer):
 
     def _init_weight(self, _, arr):
         _uniform_(arr, -self.scale, self.scale)
+
+    _init_default = _init_weight
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma^2) weights (VGG's Dense layers take it by name)."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        t = arr._data
+        with torch.no_grad():
+            t.normal_(0.0, self.sigma, generator=_random.generator(t.device))
 
     _init_default = _init_weight
 

@@ -21,6 +21,7 @@ import os
 import torch
 
 from .base import MXNetError
+from .checkpoint import atomic_write
 from . import optimizer as opt
 
 __all__ = ["KVStore", "create"]
@@ -132,6 +133,18 @@ class KVStore:
     def set_optimizer(self, optimizer):
         self._optimizer = optimizer
         self.set_updater(opt.get_updater(optimizer))
+
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the updater's states (parity: kvstore.py:199)."""
+        if self._updater is None:
+            raise MXNetError("there is no optimizer")
+        atomic_write(fname, self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        if self._updater is None:
+            raise MXNetError("there is no optimizer")
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
 
     def set_gradient_compression(self, compression_params):
         """Engage 2-bit compression (parity: kvstore.py:394): every later

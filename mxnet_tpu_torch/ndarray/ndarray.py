@@ -7,8 +7,8 @@ construction (``array``, ``zeros``, ``ones``, ``arange``), ``asnumpy``,
 ``copy``/``copyto``, ``astype``, ``reshape``, ``transpose``, basic and
 array indexing, the arithmetic operators with broadcasting and their
 reflected forms, the comparisons (which return the lhs dtype, as the
-reference's do), in-place ``+=``, ``attach_grad``/``.grad``, and
-``shape``/``dtype``/``context``.
+reference's do), in-place ``+=``, ``attach_grad``/``.grad``,
+``shape``/``dtype``/``context``, ``swapaxes`` and ``slice_axis``.
 """
 from __future__ import annotations
 
@@ -50,6 +50,10 @@ def _invoke_nd(op_name, inputs, attrs, out=None):
     inputs to the results."""
     info = get_op(op_name)
     attrs = clean_attrs(attrs)
+    # an array given by keyword (CTCLoss's lengths) reaches the op as
+    # that keyword's tensor
+    attrs = {k: v._data if isinstance(v, NDArray) else v
+             for k, v in attrs.items()}
     anchor = next((x for x in inputs if isinstance(x, NDArray)), None)
     device = anchor._data.device if anchor is not None \
         else (attrs.get("ctx") or current_context()).torch_device
@@ -66,7 +70,8 @@ def _invoke_nd(op_name, inputs, attrs, out=None):
     rets = result if isinstance(result, tuple) else (result,)
     if info.mutate_inputs:
         for idx, r in zip(info.mutate_inputs, rets):
-            nd_inputs[idx]._rebind(r)
+            if r is not nd_inputs[idx]._data:  # else updated in place
+                nd_inputs[idx]._rebind(r)
         main = nd_inputs[info.mutate_inputs[0]]
         if out is not None and out is not main:
             out._rebind(main._data)
@@ -221,6 +226,13 @@ class NDArray:
         if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
             axes = tuple(axes[0])
         return _invoke_nd("transpose", [self], {"axes": axes or None})
+
+    def swapaxes(self, dim1, dim2):
+        return _invoke_nd("swapaxes", [self], {"dim1": dim1, "dim2": dim2})
+
+    def slice_axis(self, axis, begin, end):
+        return _invoke_nd("slice_axis", [self],
+                          {"axis": axis, "begin": begin, "end": end})
 
     def __getitem__(self, key):
         key, has_array = _index_key(key, self._data.device)

@@ -1,7 +1,8 @@
 """Neural-net ops on torch tensors, registered in the op registry (parity:
-mxnet_tpu/ops/nn.py — FullyConnected :30, Convolution :62, Pooling :129,
-Activation :184, BatchNorm :237, LayerNorm :271, Embedding :474; and
-log_softmax and pick of mxnet_tpu/ops/tensor.py).
+mxnet_tpu/ops/nn.py — FullyConnected :30, Convolution :62, Deconvolution
+:87, Pooling :129, Activation :184, LeakyReLU :200, BatchNorm :237,
+LayerNorm :271, InstanceNorm :295, Dropout :341, Embedding :474,
+CTCLoss :691; and log_softmax and pick of mxnet_tpu/ops/tensor.py).
 
 cuDNN and cuBLAS carry these through ``torch.nn.functional``, as XLA
 carried them on the TPU; none of them is a Pallas kernel there.
@@ -17,15 +18,21 @@ so it has the same dtype flow: bf16 data with f32 gamma gives f32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from .. import autograd
+from .. import random as _random
 from ..dtype_policy import harmonize
 from .registry import register
-from .utils import pbool, pfloat, pint, paxis, normalize_axis
+from .utils import pbool, pfloat, pint, ptuple, paxis, normalize_axis
 
-__all__ = ["fully_connected", "convolution", "pooling", "activation",
-           "batch_norm", "layer_norm", "embedding", "log_softmax", "pick"]
+__all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
+           "activation", "leaky_relu", "batch_norm", "layer_norm",
+           "instance_norm", "dropout", "ctc_loss", "embedding",
+           "log_softmax", "pick"]
 
 
 @register("FullyConnected", num_inputs=-1)
@@ -39,40 +46,99 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     return F.linear(data, weight, bias)
 
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_LAYOUTS = (None, "NCW", "NCHW", "NCDHW")
+
+
+def _window_attrs(kernel, stride, dilate, pad, nd):
+    """Kernel, stride, dilation and padding as ``nd``-tuples (a single
+    value is repeated, as ``ptuple(..., ndim=nd)`` does there)."""
+    return (ptuple(kernel, ndim=nd), ptuple(stride, ndim=nd, default=(1,) * nd),
+            ptuple(dilate, ndim=nd, default=(1,) * nd),
+            ptuple(pad, ndim=nd, default=(0,) * nd))
+
+
 @register("Convolution", num_inputs=-1)
-def convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
-                dilate=(1, 1), pad=(0, 0), num_filter=None, num_group=1,
-                no_bias=False, layout="NCHW", **kw):
-    if layout not in (None, "NCHW"):
-        raise ValueError("only the NCHW layout is ported")
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None, **kw):
+    """1-D, 2-D or 3-D convolution (channels first), symmetric (p, p)
+    padding as lax.conv_general_dilated is given there."""
+    if layout not in _LAYOUTS:
+        raise ValueError("only the channels-first layouts are ported")
     data = harmonize(data, weight)
     if pbool(no_bias):
         bias = None
-    # symmetric (p, p) padding, as lax.conv_general_dilated is given there
-    return F.conv2d(data, weight, bias, stride=tuple(stride),
-                    padding=tuple(pad), dilation=tuple(dilate),
-                    groups=num_group)
+    nd = data.dim() - 2
+    _, stride, dilate, pad = _window_attrs(kernel, stride, dilate, pad, nd)
+    return _CONV[nd](data, weight, bias, stride=stride, padding=pad,
+                     dilation=dilate, groups=pint(num_group, 1))
+
+
+@register("Deconvolution", num_inputs=-1)
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=True, target_shape=None, layout=None,
+                  **kw):
+    """Transposed convolution, weight (in_c, out_c / groups, *k) as in the
+    reference; output (in - 1) * stride + dilated kernel - 2 pad + adj.
+    ``target_shape`` is accepted and, as in the JAX op, not used; no bias
+    unless ``no_bias=False`` (the JAX op's default)."""
+    if layout not in _LAYOUTS:
+        raise ValueError("only the channels-first layouts are ported")
+    nd = data.dim() - 2
+    _, stride, dilate, pad = _window_attrs(kernel, stride, dilate, pad, nd)
+    adj = ptuple(adj, ndim=nd, default=(0,) * nd)
+    if pbool(no_bias, True):
+        bias = None
+    out = _DECONV[nd](data, weight, None, stride=stride, padding=pad,
+                      output_padding=adj, groups=pint(num_group, 1),
+                      dilation=dilate)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _sum_pool(data, kernel, stride):
+    """Window sums over already padded data (avg_pool with divisor 1;
+    1-D runs as 2-D with a unit height, avg_pool1d having no divisor)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(data.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    fn = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return fn(data, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
 @register("Pooling")
-def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
-            stride=None, pad=(0, 0), pooling_convention="valid", **kw):
-    """2-D max or average pooling with the reference's padding rules: the
-    input is padded explicitly (-inf for max, 0 for avg, and the average
-    counts the padding) and the window never sees more; the 'full'
-    convention pads the high edge so every window fits, which is ceil mode
-    without torch's rule of dropping a last window that starts in the
-    padding."""
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, p_value=None, layout=None, **kw):
+    """1-D, 2-D or 3-D max, avg, sum or lp pooling with the reference's
+    padding rules: the input is padded explicitly (-inf for max, 0
+    otherwise) and the window never sees more; the 'full' convention pads
+    the high edge so every window fits, which is ceil mode without
+    torch's rule of dropping a last window that starts in the padding.
+    avg divides by the kernel's size, or with ``count_include_pad=False``
+    by the number of real elements in the window; lp is
+    (sum |x|^p)^(1/p)."""
     nd = data.dim() - 2
-    if global_pool:
+    pool_type = pool_type or "max"
+    if pbool(global_pool):
+        if pool_type == "avg":
+            return data.mean(dim=tuple(range(2, data.dim())), keepdim=True)
         kernel = tuple(data.shape[2:])
-        stride = (1,) * nd
-        pad = (0,) * nd
-    kernel = tuple(kernel)
-    stride = tuple(stride) if stride is not None else (1,) * nd
-    pad = tuple(pad)
+        stride = pad = None
+    kernel = ptuple(kernel, ndim=nd, default=(1,) * nd)
+    stride = ptuple(stride, ndim=nd, default=(1,) * nd)
+    pad = ptuple(pad, ndim=nd, default=(0,) * nd)
     extra = [0] * nd
-    if pooling_convention == "full":
+    if (pooling_convention or "valid") == "full":
         for i in range(nd):
             rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
             extra[i] = 0 if rem == 0 else stride[i] - rem
@@ -80,15 +146,31 @@ def pooling(data, kernel=(1, 1), pool_type="max", global_pool=False,
     widths = []
     for i in reversed(range(nd)):
         widths += [pad[i], pad[i] + extra[i]]
+    padded = any(widths)
     if pool_type == "max":
-        if any(widths):
+        if padded:
             data = F.pad(data, widths, value=float("-inf"))
-        return F.max_pool2d(data, kernel, stride)
-    if pool_type == "avg":
-        if any(widths):
+        return _MAX_POOL[nd](data, kernel, stride)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise ValueError("unknown pool_type %r" % pool_type)
+    if pool_type == "lp":
+        p = pfloat(p_value, 2.0)
+        data = torch.abs(data) ** p
+    if pool_type == "avg" and pbool(count_include_pad, True):
+        if padded:
             data = F.pad(data, widths)
-        return F.avg_pool2d(data, kernel, stride)
-    raise ValueError("pool_type %r is not ported" % pool_type)
+        return _AVG_POOL[nd](data, kernel, stride)
+    if padded:
+        ones = F.pad(torch.ones_like(data[:1, :1]), widths)
+        data = F.pad(data, widths)
+    s = _sum_pool(data, kernel, stride)
+    if pool_type == "sum":
+        return s
+    if pool_type == "lp":
+        return s ** (1.0 / p)
+    if not padded:
+        return s / float(math.prod(kernel))
+    return s / _sum_pool(ones, kernel, stride)
 
 
 _ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid,
@@ -101,6 +183,32 @@ def activation(data, act_type="relu", **kw):
     if act_type not in _ACTIVATIONS:
         raise ValueError("act_type %r is not ported" % act_type)
     return _ACTIVATIONS[act_type](data)
+
+
+@register("LeakyReLU", num_inputs=-1)
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, **kw):
+    """The LeakyReLU family: leaky, elu (alpha = ``slope``), selu, gelu
+    (exact erf), prelu (a learned ``gamma`` per channel) and rrelu at its
+    eval-time mean slope, as the JAX op has them."""
+    act = act_type or "leaky"
+    if act == "leaky":
+        return torch.where(data >= 0, data, pfloat(slope, 0.25) * data)
+    if act == "elu":
+        return F.elu(data, pfloat(slope, 0.25))
+    if act == "selu":
+        return F.selu(data)
+    if act == "gelu":
+        return F.gelu(data)
+    if act == "prelu":
+        g = gamma
+        if g.dim() < data.dim() and data.dim() > 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act == "rrelu":
+        s = (pfloat(lower_bound, 0.125) + pfloat(upper_bound, 0.334)) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise ValueError("unknown act_type %r" % act)
 
 
 @register("BatchNorm", num_inputs=5, num_outputs=3,
@@ -150,6 +258,97 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
     shape[ax] = data.shape[ax]
     out = (data - mean) * torch.rsqrt(var + eps)
     return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("InstanceNorm", num_inputs=3)
+def instance_norm(data, gamma, beta, eps=1e-3, **kw):
+    """Normalize each (sample, channel) over its spatial axes (biased
+    variance), then scale and shift per channel."""
+    red = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=red, keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + pfloat(eps, 1e-3)) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("Dropout", uses_rng=True)
+def dropout(data, p=0.5, mode="training", axes=None, **kw):
+    """Zero each element (or each slice along ``axes``, which share one
+    draw) with probability ``p`` and scale the kept ones by 1 / (1 - p);
+    the identity outside training unless ``mode='always'``.  The mask is
+    drawn on the data's device from the framework generator there."""
+    p = pfloat(p, 0.5)
+    if p == 0.0 or (mode != "always" and not autograd.is_training()):
+        return data
+    axes = ptuple(axes)
+    shape = data.shape
+    if axes:
+        shape = tuple(1 if i in axes else s for i, s in enumerate(shape))
+    keep = 1.0 - p
+    u = torch.rand(shape, generator=_random.next_key(data.device),
+                   device=data.device)
+    mask = (u < keep).to(data.dtype) / keep
+    return data * mask
+
+
+_CTC_NEG_INF = -1e30
+
+
+@register("CTCLoss", num_inputs=-1,
+          aliases=("ctc_loss", "_contrib_CTCLoss", "_contrib_ctc_loss"))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first", **kw):
+    """CTC negative log-likelihood by the forward (alpha) recursion in log
+    space, a loop over time.  data: (T, N, C) unnormalized; label: (N, L).
+    blank_label 'first': blank id 0, labels 1-based, padded with 0;
+    'last': blank id C - 1, padded with -1.  The JAX op's recursion,
+    its -1e30 for an impossible state, and its start states."""
+    T, N, C = data.shape
+    logp = F.log_softmax(data, dim=-1)
+    blank_first = (blank_label or "first") == "first"
+    blank = 0 if blank_first else C - 1
+    lab = label.to(torch.int64)
+    if pbool(use_label_lengths):
+        lab_len = label_lengths.to(torch.int64)
+    else:
+        lab_len = (lab != (0 if blank_first else -1)).sum(dim=1)
+    if pbool(use_data_lengths):
+        dat_len = data_lengths.to(torch.int64)
+    else:
+        dat_len = torch.full((N,), T, dtype=torch.int64, device=data.device)
+    S = 2 * lab.shape[1] + 1
+    ext = torch.full((N, S), blank, dtype=torch.int64, device=data.device)
+    ext[:, 1::2] = lab
+    # a padding label (-1 with blank 'last') indexes the last class, as
+    # jnp's take_along_axis wraps it; those states are never reached
+    ext_idx = ext % C
+    ext_m2 = torch.cat([torch.full((N, 2), -1, dtype=torch.int64,
+                                   device=data.device), ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & (ext != ext_m2)
+    rows = torch.arange(N, device=data.device)
+    alpha = torch.full((N, S), _CTC_NEG_INF, dtype=logp.dtype,
+                       device=data.device)
+    first = logp[0, rows, ext_idx[:, 0]]
+    second = logp[0, rows, ext_idx[:, 1]]
+    alpha = torch.cat([first[:, None],
+                       torch.where(lab_len > 0, second,
+                                   alpha[:, 1])[:, None],
+                       alpha[:, 2:]], dim=1)
+    pad1 = torch.full((N, 1), _CTC_NEG_INF, dtype=logp.dtype,
+                      device=data.device)
+    for t in range(1, T):
+        a_m1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        a_m2 = torch.cat([pad1, pad1, alpha[:, :-2]], dim=1)
+        a = torch.logaddexp(alpha, a_m1)
+        a = torch.where(can_skip, torch.logaddexp(a, a_m2), a)
+        new = a + torch.gather(logp[t], 1, ext_idx)
+        alpha = torch.where((t < dat_len)[:, None], new, alpha)
+    end1 = torch.gather(alpha, 1, (2 * lab_len)[:, None])[:, 0]
+    end2 = torch.gather(alpha, 1, (2 * lab_len - 1).clamp(min=0)[:, None])[:, 0]
+    ll = torch.logaddexp(end1, torch.where(
+        lab_len > 0, end2, torch.full_like(end2, _CTC_NEG_INF)))
+    return -ll
 
 
 @register("Embedding", num_inputs=2)

@@ -224,6 +224,15 @@ for _name in ("sum", "mean", "prod", "max", "min"):
             **kw: _reduce(k, data, axis, keepdims, exclude))(_name))
 
 
+@register("norm")
+def _norm(data, ord=2, axis=None, keepdims=False, **kw):
+    """The L1 norm (``ord=1``) or the L2 norm over ``axis`` (all by
+    default), as sqrt(sum(x^2)) there."""
+    if pint(ord, 2) == 1:
+        return _reduce("sum", torch.abs(data), axis, keepdims)
+    return torch.sqrt(_reduce("sum", torch.square(data), axis, keepdims))
+
+
 def _arg(fn, data, axis, keepdims):
     axis = paxis(axis)
     keepdims = pbool(keepdims)
@@ -482,6 +491,28 @@ def _arange(start=0.0, stop=None, step=1.0, repeat=1, infer_range=False,
                        dtype=pdtype(dtype), device=ctx)
     r = pint(repeat, 1)
     return torch.repeat_interleave(out, r) if r > 1 else out
+
+
+@register("Pad", aliases=("pad",))
+def _pad(data, mode="constant", pad_width=None, constant_value=0.0, **kw):
+    """Pad by ``pad_width`` = (before, after) per axis, flattened:
+    'constant' with ``constant_value``, 'reflect' (the edge not
+    repeated) or 'edge'.  torch pads the reflect and edge modes over the
+    last 1-3 axes only, so the leading pairs must be zero there."""
+    pw = ptuple(pad_width)
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode == "constant":
+        widths = [w for lo_hi in reversed(pairs) for w in lo_hi]
+        return torch.nn.functional.pad(
+            data, widths, value=pfloat(constant_value, 0.0))
+    n = data.dim()
+    m = n - 2 if 1 <= n - 2 <= 3 else n - 1
+    if any(sum(pairs[:n - m], ())):
+        raise ValueError("Pad %s: only the last %d axes can be padded"
+                         % (mode, m))
+    widths = [w for lo_hi in reversed(pairs[n - m:]) for w in lo_hi]
+    return torch.nn.functional.pad(
+        data, widths, mode="reflect" if mode == "reflect" else "replicate")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 """The port stands alone: importing mxnet_tpu_torch (with its parallel
-engines, flash-attention op, generation engine and LM), building a full
-resnet50_v1 on the CPU, and admitting into and decoding with a tiny LM's
+engines, flash-attention op, generation engine and LM, the optimizers
+and their update ops, lr_scheduler, metric, gluon.utils and the
+train_imagenet example), building a full resnet50_v1 and every zoo
+network on the CPU, training two steps through the train_imagenet
+entry, and admitting into and decoding with a tiny LM's
 GenerationEngine loads neither jax nor mxnet_tpu, and chip_smoke.py
 imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
@@ -25,6 +28,20 @@ out = net(mx.nd.array(np.zeros((1, 3, 64, 64), np.float32), ctx=mx.cpu()))
 assert out.shape == (1, 1000), out.shape
 trainable = [p for p in net.collect_params().values() if p.grad_req != "null"]
 assert len(trainable) == 193, len(trainable)
+import mxnet_tpu_torch.lr_scheduler
+import mxnet_tpu_torch.metric
+import mxnet_tpu_torch.gluon.utils
+import mxnet_tpu_torch.ops.optimizer_ops
+from mxnet_tpu_torch.examples import train_imagenet
+nets = [vision.get_model(name, classes=10) for name in sorted(vision._models)]
+assert len(nets) == 34
+res = train_imagenet.train(["--benchmark", "1", "--network", "mobilenet0.25",
+                            "--num-classes", "4", "--image-shape", "3,32,32",
+                            "--batch-size", "2", "--steps", "1"], ctx=mx.cpu())
+assert res["losses"].shape == (2,)
+metric = mx.metric.create(["acc", "ce"])
+metric.update([mx.nd.array(np.array([1.0]), ctx=mx.cpu())],
+              [mx.nd.array(np.array([[0.2, 0.8]]), ctx=mx.cpu())])
 import mxnet_tpu_torch.generate
 from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
 lm = TransformerLM(vocab_size=32, d_model=16, n_heads=2, n_layers=1,
