@@ -127,23 +127,55 @@ non-zero, printing no result, without them.  Phases, one line each:
    Trainer.save_states -> load_states -> 2 steps bit-equal to 4 steps
    (resnet18_v2, batch 8, deterministic cuDNN), and no hand-written
    kernel launched in the phase;
-11. flash times: each kernel, the plain version and
+11. imperative: the imperative core and the weight store at resnet50_v1's
+   full width (classes 1000, 3x224x224, Xavier from a seed, f32, TF32
+   off).  Weight store: save_parameters (npz) and nd.save(format=
+   "binary") to a temporary root, get_model(pretrained=True, root=...)
+   from each with no mirror and no registered SHA-1, and once more
+   through MXNET_GLUON_REPO=file://<dir> into an empty root (download +
+   check_sha1); each leg's file checked by SHA-1 after its load; predict
+   logits at batch 32 bit for bit the source's; file sizes, save and
+   load ms.  Fine-tuning: a
+   Dense(100) head grafted on, backbone lr_mult 0.1
+   (collect_params().setattr), reset_ctx(gpu(0)), sgd lr 0.01 momentum
+   0.9 at batch 64, 1 warm-up + 5 steps on batches cropped and flipped on
+   the card (mx.random.uniform, nd.slice, nd.flip): losses finite, the
+   head's lr 10x the backbone's and its relative step larger, every
+   parameter, gradient and state on the card; img/s, step median, peak
+   memory.  One more step by hand (w -= lr * lr_mult * grad in place,
+   zero_grad) against a momentum-free sgd Trainer step on the same
+   gradients within 1e-6 x max|w|.  Second order: autograd.grad(loss,
+   [x], create_graph=True) and backward of |dx|^2 at batch 16, parameter
+   gradients finite; a small ResNet's the same on the card vs the CPU
+   within 1e-4 x max|ref|.  cast("float16"): BatchNorm parameters stay
+   f32, logits within 5e-2 + 5e-2|ref| of f32.  Every deterministic op
+   of this slice (68 aliases, 35 tensor ops, 22 linalg names) card vs
+   CPU within 1e-5 relative (potrf, potri, trsm 1e-4; gelqf and syevd by
+   reconstruction and up to sign); each mx.random sampler's 2^20 draws
+   within 6 standard errors of its mean and variance, a reseed bit-equal;
+   examples/dcgan.py's port 24 steps with D's loss falling; faults 4-6
+   on the card; no hand-written kernel launched;
+12. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-12. the whole script's wall time, then a {"kernels": [...]} line;
-13. last line: {"ok": true, "device": {...}}.
+13. the whole script's wall time, then a {"kernels": [...]} line;
+14. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
 import functools
+import hashlib
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -155,8 +187,9 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import generate, kernels, parallel
 from mxnet_tpu_torch.contrib import compression as comp
 from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
-from mxnet_tpu_torch.gluon.model_zoo import vision
-from mxnet_tpu_torch.ops import attention as attn
+from mxnet_tpu_torch.gluon import utils as gutils
+from mxnet_tpu_torch.gluon.model_zoo import model_store, vision
+from mxnet_tpu_torch.ops import attention as attn, registry
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
@@ -260,6 +293,25 @@ ZOO_BATCH, ZOO_STEPS, ZOO_LR = 32, 5, 0.01
 # card against CPU: logits within 1e-4 x max|ref|; the fused SGD update
 # within 1e-6 x max|w| of the loop; optimizers within 1e-5 relative
 ZOO_LOGIT_REL, ZOO_FUSED_REL, ZOO_OPT_REL = 1e-4, 1e-6, 1e-5
+# the imperative phase: resnet50_v1 at full width (classes 1000, Xavier
+# from seed 0, f32 with TF32 off), its weights saved and loaded back
+# through the model store with predict logits at batch 32; fine-tuning
+# with a 100-class head at batch 64 (crops of 240x240 data at random
+# offsets, random flips), backbone lr_mult 0.1, sgd lr 0.01 momentum 0.9,
+# 1 warm-up + 5 steps; second order at batch 16; 2^20 draws a sampler;
+# DCGAN 24 steps at batch 32.  Bounds: the hand update within 1e-6 x
+# max|w| of the sgd Trainer; the small ResNet's double backward card vs
+# CPU within 1e-4 x max|ref|; f16 logits within 5e-2 + 5e-2|ref|; ops
+# card vs CPU within 1e-5 relative (potrf, potri, trsm 1e-4); sample
+# moments within 6 standard errors
+IMP_NET, IMP_CLASSES, IMP_SIDE, IMP_PAD = "resnet50_v1", 1000, 224, 16
+IMP_PRED_BATCH, IMP_FT_BATCH, IMP_SO_BATCH = 32, 64, 16
+IMP_FT_CLASSES, IMP_FT_STEPS, IMP_FT_LR, IMP_BACKBONE_MULT = 100, 5, 0.01, 0.1
+IMP_DRAWS, IMP_SE = 1 << 20, 6.0
+IMP_DCGAN_STEPS, IMP_DCGAN_BATCH = 24, 32
+IMP_UPDATE_REL, IMP_SO_REL, IMP_F16_TOL, IMP_OP_REL = 1e-6, 1e-4, 5e-2, 1e-5
+IMP_LINALG_REL = {"linalg_potrf": 1e-4, "linalg_potri": 1e-4,
+                  "linalg_trsm": 1e-4}
 
 
 def check(cond, msg):
@@ -2082,6 +2134,689 @@ def phase_zoo(card):
           % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the imperative core and the weight store
+# ---------------------------------------------------------------------------
+
+
+def imp_peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def imp_file_mb(path):
+    return os.path.getsize(path) / 2 ** 20
+
+
+def imp_sha1(path):
+    with open(path, "rb") as f:
+        return hashlib.sha1(f.read()).hexdigest()
+
+
+def imp_store(card, root):
+    """save_parameters (npz) and nd.save(binary) of a Xavier resnet50_v1;
+    get_model(pretrained=True) from each local root and through a file://
+    mirror into an empty root; predict-mode logits bit-equal to the
+    source's.  Returns the net loaded through the mirror and a batch."""
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    with mx.name.NameManager():
+        src = vision.get_model(IMP_NET, classes=IMP_CLASSES)
+    src.initialize(mx.init.Xavier(), ctx=gpu)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(IMP_PRED_BATCH, 3, IMP_SIDE, IMP_SIDE)
+                    .astype(np.float32), ctx=gpu)
+    with mx.autograd.predict_mode():
+        ref = src(x)._data.clone()
+    dirs = {k: os.path.join(root, k) for k in ("npz", "bin", "mirror",
+                                               "empty")}
+    for d in dirs.values():
+        os.makedirs(d)
+    fname = IMP_NET + ".params"
+    npz_s, _ = timed_s(lambda: src.save_parameters(
+        os.path.join(dirs["npz"], fname)))
+    bin_s, _ = timed_s(lambda: mx.nd.save(
+        os.path.join(dirs["bin"], fname),
+        {k: p._reduce() for k, p in src._collect_params_with_prefix()
+         .items()}, format="binary"))
+    shutil.copy(os.path.join(dirs["bin"], fname),
+                os.path.join(dirs["mirror"], fname))
+    digest = {k: imp_sha1(os.path.join(dirs[k], fname))
+              for k in ("npz", "bin", "mirror")}
+    sizes = {k: imp_file_mb(os.path.join(dirs[k], fname))
+             for k in ("npz", "bin")}
+    check(digest["npz"] != digest["bin"], "the npz and binary files are "
+          "the same bytes")
+    # the local legs run with no mirror and no registered SHA-1, so each
+    # reads the file in its root or raises; the mirror leg registers the
+    # binary file's SHA-1 and fetches it into an empty root
+    legs = (("npz", "npz", None), ("binary", "bin", None),
+            ("mirror", "empty", digest["mirror"]))
+    loads = {}
+    prev_repo = os.environ.pop("MXNET_GLUON_REPO", None)
+    try:
+        for label, key, sha1 in legs:
+            if sha1 is not None:
+                model_store._model_sha1[IMP_NET] = sha1
+                os.environ["MXNET_GLUON_REPO"] = "file://" + dirs["mirror"]
+
+            def load(key=key):
+                with mx.name.NameManager():
+                    return vision.get_model(IMP_NET, classes=IMP_CLASSES,
+                                            pretrained=True,
+                                            root=dirs[key], ctx=gpu)
+            try:
+                load_s, net = timed_s(load)
+            finally:
+                model_store._model_sha1.pop(IMP_NET, None)
+                os.environ.pop("MXNET_GLUON_REPO", None)
+            want = digest["mirror"] if key == "empty" else digest[key]
+            check(gutils.check_sha1(os.path.join(dirs[key], fname), want),
+                  "%s: the %s leg's file is not the one written for it"
+                  % (IMP_NET, label))
+            with mx.autograd.predict_mode():
+                same = torch.equal(net(x)._data, ref)
+            check(same, "%s: logits of the %s load differ from the source's"
+                  % (IMP_NET, label))
+            loads[label] = load_s
+    finally:
+        if prev_repo is not None:
+            os.environ["MXNET_GLUON_REPO"] = prev_repo
+    print("imperative store: %s full width (classes %d, Xavier seed 0) | "
+          "npz %.1f MB saved in %.1f ms | binary %.1f MB saved in %.1f ms | "
+          "get_model(pretrained=True) from npz %.1f ms, binary %.1f ms, "
+          "file:// mirror (download + sha1 + load) %.1f ms; each leg's file "
+          "unchanged after its load | predict logits at batch %d bit-equal "
+          "to the source's for all three | %s"
+          % (IMP_NET, IMP_CLASSES, sizes["npz"], 1e3 * npz_s, sizes["bin"],
+             1e3 * bin_s, 1e3 * loads["npz"], 1e3 * loads["binary"],
+             1e3 * loads["mirror"], IMP_PRED_BATCH, card), flush=True)
+    del src
+    return net, x
+
+
+def imp_augment(raw):
+    """A crop at a random offset (mx.random.uniform) through nd.slice and
+    a random horizontal flip (nd.flip), on the card."""
+    off = mx.random.uniform(0, IMP_PAD, shape=(2,), ctx=mx.gpu(0))
+    oy, ox = (int(v) for v in off.asnumpy())
+    crop = mx.nd.slice(raw, begin=(None, None, oy, ox),
+                       end=(None, None, oy + IMP_SIDE, ox + IMP_SIDE))
+    coin = mx.random.uniform(shape=(1,), ctx=mx.gpu(0))
+    return mx.nd.flip(crop, axis=3) if coin.asscalar() > 0.5 else crop
+
+
+def imp_finetune(card, net):
+    """Graft a 100-class head, lr_mult 0.1 on the backbone, reset_ctx,
+    then 1 warm-up + 5 timed sgd steps (momentum 0.9) at batch 64 on
+    augmented batches."""
+    gpu = mx.gpu(0)
+    with net.name_scope():
+        net.output = mx.gluon.nn.Dense(IMP_FT_CLASSES)
+    net.output.initialize(mx.init.Xavier(), ctx=gpu)
+    net.features.collect_params().setattr("lr_mult", IMP_BACKBONE_MULT)
+    net.collect_params().reset_ctx(mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": IMP_FT_LR, "momentum": 0.9})
+    rng = np.random.RandomState(1)
+    raw = mx.nd.array(rng.rand(IMP_FT_BATCH, 3, IMP_SIDE + IMP_PAD,
+                               IMP_SIDE + IMP_PAD).astype(np.float32),
+                      ctx=gpu)
+    y = mx.nd.array(rng.randint(0, IMP_FT_CLASSES, IMP_FT_BATCH)
+                    .astype(np.float32), ctx=gpu)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    head = net.output.weight
+    back = next(iter(net.features.collect_params().values()))  # stem conv
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+
+    def step():
+        x = imp_augment(raw)
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(IMP_FT_BATCH)
+        return loss.mean().asscalar()
+
+    with mx.autograd.predict_mode():
+        net(imp_augment(raw))       # the head's deferred initialization
+    w_start = {p: p.data()._data.detach().clone() for p in (head, back)}
+    for i in range(1 + IMP_FT_STEPS):
+        if i == 1:
+            # the warm-up step started from zero momentum: its update is
+            # -lr * lr_mult * grad / batch, so the step per unit gradient
+            # is each parameter's learning rate as the Trainer applied it
+            applied = {p: float(-((p.data()._data.detach() - w_start[p])
+                                  * p.grad()._data).sum()
+                                / (p.grad()._data ** 2).sum()
+                                * IMP_FT_BATCH) for p in (head, back)}
+            w0 = {p: p.data()._data.detach().clone() for p in (head, back)}
+        s, loss = timed_s(step)
+        losses.append(loss)
+        if i:
+            step_s.append(s)
+    moved = {p: float(torch.linalg.norm(p.data()._data.detach() - w0[p])
+                      / torch.linalg.norm(w0[p])) for p in (head, back)}
+    check(np.isfinite(losses).all(), "fine-tune: non-finite loss %s"
+          % losses)
+    ratio = applied[head] / applied[back]
+    check(abs(applied[head] / IMP_FT_LR - 1) < 1e-3
+          and abs(ratio * IMP_BACKBONE_MULT - 1) < 1e-3,
+          "fine-tune: applied learning rates head %g, backbone %g"
+          % (applied[head], applied[back]))
+    check(on_card(trainer, net), "fine-tune: state off the card")
+    print("imperative finetune: %s + Dense(%d) head, backbone lr_mult %g, "
+          "reset_ctx(gpu(0)), sgd lr %g momentum 0.9, batch %d of 3x%dx%d "
+          "crops (mx.random.uniform offsets, nd.slice, nd.flip on the card), "
+          "1 warm-up + %d steps | %.1f img/s | step median %.2f ms | loss %s "
+          "| the warm-up step's update per unit gradient: head %.6g, stem "
+          "conv %.6g (%.4fx) | relative step over the %d steps: head %.3g, "
+          "stem conv %.3g | state on the card | peak %.2f GB | %s"
+          % (IMP_NET, IMP_FT_CLASSES, IMP_BACKBONE_MULT, IMP_FT_LR,
+             IMP_FT_BATCH, IMP_SIDE, IMP_SIDE, IMP_FT_STEPS,
+             IMP_FT_BATCH * IMP_FT_STEPS / sum(step_s),
+             1e3 * statistics.median(step_s),
+             ["%.4f" % v for v in losses], applied[head], applied[back],
+             ratio, IMP_FT_STEPS, moved[head], moved[back], imp_peak_gb(),
+             card), flush=True)
+    return trainer, raw, y, loss_fn
+
+
+def imp_hand_update(card, net, raw, y, loss_fn):
+    """One more step by hand, w -= lr * lr_mult * grad in place, against a
+    momentum-free sgd Trainer step on the same gradients."""
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    x = imp_augment(raw)
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    w0 = [p.data()._data.detach().clone() for p in params]
+    g0 = [p.grad()._data.detach().clone() for p in params]
+    ptrs = [p.data()._data.data_ptr() for p in params]
+    for p in params:
+        w = p.data()
+        w -= IMP_FT_LR * p.lr_mult * p.grad()
+        p.zero_grad()
+    hand = [p.data()._data.detach().clone() for p in params]
+    check(all(p.data()._data.data_ptr() == q for p, q in zip(params, ptrs)),
+          "hand update: a parameter got a new buffer")
+    changed = sum(not torch.equal(h, w) for h, w in zip(hand, w0))
+    check(changed and not torch.equal(hand[params.index(net.output.weight)],
+                                      w0[params.index(net.output.weight)]),
+          "hand update: the parameters did not change")
+    check(not any(bool(p.grad()._data.any()) for p in params),
+          "hand update: zero_grad left a gradient")
+    sgd = mx.gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": IMP_FT_LR, "wd": 0.0})
+    with torch.no_grad():
+        for p, w, g in zip(params, w0, g0):
+            p.data()._data.copy_(w)
+            p.grad()._data.copy_(g)
+    sgd.step(1)
+    with torch.no_grad():
+        worst = max(float((p.data()._data - h).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+                    for p, h, w in zip(params, hand, w0))
+    check(worst <= IMP_UPDATE_REL, "hand update vs sgd Trainer: %g of "
+          "max|w|" % worst)
+    print("imperative update: w -= lr * lr_mult * grad by hand over %d "
+          "parameters, in place (no new buffer; %d changed), zero_grad after "
+          "| against a momentum-free sgd Trainer step on the same gradients: "
+          "%.3g of max|w| (bound %g) | %s"
+          % (len(params), changed, worst, IMP_UPDATE_REL, card), flush=True)
+
+
+def imp_double_backward(net, x, y, loss_fn):
+    """Parameter gradients of |d loss / d x|^2 (autograd.grad with
+    create_graph, then backward)."""
+    x = mx.nd.array(x, ctx=x.context)
+    x.attach_grad()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).mean()
+        (gx,) = mx.autograd.grad(loss, [x], create_graph=True)
+        penalty = (gx * gx).sum()
+    penalty.backward()
+    return {n: p.grad() for n, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def imp_small_resnet(ctx):
+    with mx.name.NameManager():
+        net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                              [16, 32, 64, 128, 256], classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def imp_second_order(card, net, raw, loss_fn):
+    gpu = mx.gpu(0)
+    rng = np.random.RandomState(2)
+    x = mx.nd.array(raw.asnumpy()[:IMP_SO_BATCH, :, :IMP_SIDE, :IMP_SIDE],
+                    ctx=gpu)
+    y = mx.nd.array(rng.randint(0, IMP_FT_CLASSES, IMP_SO_BATCH)
+                    .astype(np.float32), ctx=gpu)
+    torch.cuda.reset_peak_memory_stats()
+    so_s, grads = timed_s(lambda: imp_double_backward(net, x, y, loss_fn))
+    finite = all(bool(torch.isfinite(g._data).all()) for g in grads.values())
+    check(finite, "second order: non-finite parameter gradient")
+    check(any(bool(g._data.any()) for g in grads.values()),
+          "second order: every parameter gradient is zero")
+    peak = imp_peak_gb()
+    # the same double backward on a small ResNet, card against CPU
+    xs = np.random.RandomState(3).randn(4, 3, 64, 64).astype(np.float32)
+    ys = np.array([0, 3, 1, 9], np.float32)
+    small = {c: imp_small_resnet(c) for c in (mx.cpu(), gpu)}
+    small[mx.cpu()](mx.nd.array(xs, ctx=mx.cpu()))
+    small[gpu](mx.nd.array(xs, ctx=gpu))
+    mx.convert.load_from_numpy(small[gpu], {
+        n: p.data().asnumpy() for n, p in small[mx.cpu()].collect_params()
+        .items()})
+    got, want = (
+        {n: g.asnumpy() for n, g in imp_double_backward(
+            small[c], mx.nd.array(xs, ctx=c), mx.nd.array(ys, ctx=c),
+            loss_fn).items()} for c in (gpu, mx.cpu()))
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    err = max(float(np.abs(got[n] - want[n]).max()) for n in want) / scale
+    check(err <= IMP_SO_REL, "small ResNet double backward card vs CPU: "
+          "%g of max|ref|" % err)
+    print("imperative second order: autograd.grad(loss, [x], "
+          "create_graph=True) then backward of |dx|^2 through %s "
+          "(training-mode BatchNorm) at batch %d | %.1f ms | every parameter "
+          "gradient finite | peak %.2f GB | small ResNet card vs CPU %.3g of "
+          "max|ref| (bound %g) | %s"
+          % (IMP_NET, IMP_SO_BATCH, 1e3 * so_s, peak, err, IMP_SO_REL, card),
+          flush=True)
+
+
+def imp_cast(card, net, raw):
+    gpu = mx.gpu(0)
+    x = mx.nd.array(raw.asnumpy()[:IMP_SO_BATCH, :, :IMP_SIDE, :IMP_SIDE],
+                    ctx=gpu)
+    with mx.autograd.predict_mode():
+        ref = net(x).asnumpy()
+    net.cast("float16")
+    for n, p in net.collect_params().items():
+        want = np.float32 if "batchnorm" in n else np.float16
+        check(p.data().dtype == want, "cast: %s is %s" % (n, p.data().dtype))
+    with mx.autograd.predict_mode():
+        got = net(x.astype("float16")).asnumpy()
+    check(got.dtype == np.float16, "cast: logits are %s" % got.dtype)
+    err = np.abs(got.astype(np.float32) - ref)
+    worst = float((err / (IMP_F16_TOL + IMP_F16_TOL * np.abs(ref))).max())
+    check(worst <= 1.0, "cast: f16 logits off by %g of the bound" % worst)
+    print("imperative cast: net.cast('float16'), BatchNorm parameters kept "
+          "f32 | f16 logits vs f32 at batch %d: max |d| %.4g, %.3f of the "
+          "bound %g + %g|ref| | %s"
+          % (IMP_SO_BATCH, float(err.max()), worst, IMP_F16_TOL,
+             IMP_F16_TOL, card), flush=True)
+
+
+# the deterministic registry ops of this slice, one case each on the card
+# against the port on the CPU; shapes large enough for real launches
+def imp_op_cases():
+    r = np.random.RandomState(0)
+
+    def a(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def pos(*s):
+        return (r.rand(*s) * 0.8 + 0.3).astype(np.float32)
+
+    def spd(n, *batch):
+        m = a(*batch, n, n)
+        return (m @ np.swapaxes(m, -1, -2) + n * np.eye(n)).astype(
+            np.float32)
+
+    def separated(n, *batch):
+        """Symmetric, eigenvalues 1..n: eigenvectors stable to ~n eps."""
+        q = np.linalg.qr(a(*batch, n, n))[0]
+        return ((q * np.arange(1, n + 1)) @ np.swapaxes(q, -1, -2))\
+            .astype(np.float32)
+
+    def lower(n):
+        m = np.tril(a(n, n)) * (0.3 / math.sqrt(n))
+        return (m + np.diag(np.where(np.diag(m) >= 0, 2.0, -2.0))).astype(
+            np.float32)
+
+    x = a(48, 64)
+    distinct = (r.permutation(48 * 64).astype(np.float32) / 3072 - 0.5)\
+        .reshape(48, 64)
+    nan = a(48, 64)
+    nan[::3, ::5] = np.nan
+    idx = r.randint(0, 64, 48).astype(np.float32)
+    cases = [
+        ("cbrt", [np.sign(x) * (np.abs(x) + 0.2)], {}),
+        ("rcbrt", [np.sign(x) * (np.abs(x) + 0.2)], {}),
+        ("nansum", [nan], {"axis": 1}), ("nanprod", [nan], {"axis": 0}),
+        ("hard_sigmoid", [x * 4], {}),
+        ("moveaxis", [a(8, 16, 32)], {"source": 0, "destination": 2}),
+        ("slice", [x], {"begin": (4, 60), "end": (40, None),
+                        "step": (2, -3)}),
+        ("crop", [x], {"begin": (1, 2), "end": (30, 50)}),
+        ("slice_like", [x, a(20, 30)], {}),
+        ("SliceChannel", [x], {"num_outputs": 4}),
+        ("split", [x], {"num_outputs": 3, "axis": 0}),
+        ("tile", [x], {"reps": (2, 3)}),
+        ("repeat", [x], {"repeats": 3, "axis": 1}),
+        ("reverse", [x], {"axis": 1}), ("flip", [a(4, 8, 16)],
+                                        {"axis": (0, 2)}),
+        ("depth_to_space", [a(4, 16, 8, 8)], {"block_size": 2}),
+        ("space_to_depth", [a(4, 4, 16, 16)], {"block_size": 4}),
+        ("diag", [x], {"k": 3}), ("shape_array", [x], {}),
+        ("size_array", [x], {}), ("batch_take", [x, idx], {}),
+        ("one_hot", [idx], {"depth": 64, "on_value": 2.0}),
+        ("gather_nd", [x, np.stack([idx % 48, idx])], {}),
+        ("scatter_nd", [a(48), np.stack([np.arange(48), idx])
+                        .astype(np.float32)], {"shape": (48, 64)}),
+        ("_linspace", [], {"start": -3.0, "stop": 5.0, "num": 1000}),
+        ("_eye", [], {"N": 300, "M": 200, "k": 5}),
+        ("sort", [distinct], {"axis": 1, "is_ascend": False}),
+        ("argsort", [distinct], {"axis": 0}),
+        ("topk", [distinct], {"k": 5, "ret_typ": "both"}),
+        ("smooth_l1", [x * 3], {"scalar": 2.0}),
+        ("softmin", [x], {"axis": 1}),
+        ("khatri_rao", [a(16, 32), a(24, 32)], {}),
+        ("_scatter_elemwise_div", [x, pos(48, 64)], {}),
+        ("_scatter_plus_scalar", [x], {"scalar": 1.5}),
+        ("_scatter_minus_scalar", [x], {"scalar": 1.5}),
+    ]
+    for p in ("_", ""):
+        cases += [
+            (p + "linalg_gemm", [a(8, 64, 32), a(8, 32, 48), a(8, 64, 48)],
+             {"alpha": 1.5, "beta": 0.5}),
+            (p + "linalg_gemm2", [a(8, 32, 64), a(8, 32, 48)],
+             {"transpose_a": True}),
+            (p + "linalg_potrf", [spd(64, 4)], {}),
+            (p + "linalg_potri", [np.linalg.cholesky(spd(64))
+                                  .astype(np.float32)], {}),
+            (p + "linalg_trmm", [lower(64), a(64, 32)], {"alpha": 2.0}),
+            (p + "linalg_trsm", [lower(64), a(32, 64)],
+             {"rightside": True, "transpose": True}),
+            (p + "linalg_syrk", [a(8, 32, 64)], {"transpose": True}),
+            (p + "linalg_sumlogdiag", [spd(32, 4)], {}),
+            (p + "linalg_extractdiag", [a(8, 32, 32)], {"offset": 2}),
+            (p + "linalg_gelqf", [a(4, 32, 64)], {}),
+            (p + "linalg_syevd", [separated(32, 4)], {}),
+        ]
+    s = x + 1.5
+    ints = r.randint(0, 4, (48, 64)).astype(np.float32)
+    by_canonical = {
+        "elemwise": [x, a(48, 64)], "broadcast": [x, pos(1, 64)],
+        "cmp": [ints, r.randint(0, 3, (1, 64)).astype(np.float32)],
+        "power": [pos(48, 64), a(1, 64)], "scalar": [np.abs(s)],
+        "BatchNorm": [a(8, 16, 12, 12), pos(16), a(16), a(16), pos(16)],
+        "Convolution": [a(8, 16, 12, 12), a(32, 16, 3, 3), a(32)],
+        "Pooling": [a(8, 16, 12, 12)],
+        "Embedding": [idx.reshape(6, 8), a(64, 32)], "pick": [x, idx[:48]],
+        "Concat": [x, a(16, 64)]}
+    attrs = {"BatchNorm": {"fix_gamma": False},
+             "Convolution": {"kernel": (3, 3), "num_filter": 32,
+                             "pad": (1, 1)},
+             "Pooling": {"kernel": (2, 2), "stride": (2, 2)},
+             "Embedding": {"input_dim": 64, "output_dim": 32},
+             "Concat": {"dim": 0}}
+    for name in imp_new_aliases():
+        canonical = registry.get_op(name).name
+        if canonical.endswith("_scalar"):
+            kind = "cmp" if any(c in canonical for c in (
+                "equal", "greater", "lesser", "logical")) else "scalar"
+            inputs = [ints] if kind == "cmp" else by_canonical["scalar"]
+            cases.append((name, inputs, {"scalar": 2.0}))
+            continue
+        if canonical.startswith("elemwise_"):
+            key = "elemwise"
+        elif canonical == "broadcast_power":
+            key = "power"
+        elif canonical.startswith("broadcast_logical") or any(
+                canonical == "broadcast_" + c for c in (
+                    "equal", "not_equal", "greater", "greater_equal",
+                    "lesser", "lesser_equal")):
+            key = "cmp"
+        elif canonical.startswith("broadcast_"):
+            key = "broadcast"
+        else:
+            key = canonical
+        cases.append((name, by_canonical[key], attrs.get(key, {})))
+    return cases
+
+
+# the aliases the port had before this slice (held by earlier phases), and
+# the ops new in this slice whose other names come with them
+IMP_EARLIER_ALIASES = (
+    "SwapAxis", "_adamw_update", "_add", "_contrib_CTCLoss",
+    "_contrib_adamw_update", "_contrib_ctc_loss", "_div", "_mul", "_sub",
+    "broadcast_axes", "cast", "concat", "ctc_loss", "flatten", "max_axis",
+    "min_axis", "pad", "reshape", "stop_gradient", "sum_axis")
+
+
+def imp_new_aliases():
+    """The 68 names this slice gave to ops the port had."""
+    out = []
+    for name in registry.list_ops():
+        info = registry.get_op(name)
+        if info.name == name or name in IMP_EARLIER_ALIASES:
+            continue
+        new_op = info.name.lstrip("_").startswith("linalg") \
+            or info.name in ("slice", "SliceChannel", "reverse") \
+            or info.fn.__module__.endswith("random_ops")
+        if not new_op:
+            out.append(name)
+    return out
+
+
+def imp_run_op(name, inputs, attrs, ctx):
+    kw = dict(attrs)
+    if not inputs:
+        kw["ctx"] = ctx
+    out = getattr(mx.nd, name)(*[mx.nd.array(v, ctx=ctx, dtype=v.dtype)
+                                  for v in inputs], **kw)
+    return [o.asnumpy() for o in (out if isinstance(out, list) else [out])]
+
+
+def imp_rel(got, want):
+    scale = max(float(np.nanmax(np.abs(want))), 1e-30) if want.size else 1.0
+    same_nan = np.array_equal(np.isnan(got), np.isnan(want))
+    if not same_nan:
+        return np.inf
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return float(np.nanmax(d)) / scale if d.size else 0.0
+
+
+def imp_ops(card):
+    gpu = mx.gpu(0)
+    cases = imp_op_cases()
+    names = {c[0] for c in cases}
+    worst = {}
+    for name, inputs, attrs in cases:
+        got = imp_run_op(name, inputs, attrs, gpu)
+        want = imp_run_op(name, inputs, attrs, mx.cpu())
+        base = name.lstrip("_")
+        if base in ("linalg_gelqf", "linalg_syevd"):
+            a = inputs[0]
+            if base == "linalg_gelqf":
+                (q, low), (q_ref, _) = got, want
+                recon = low @ q
+            else:
+                (q, lam), (q_ref, lam_ref) = got, want
+                recon = np.swapaxes(q, -1, -2) @ (lam[..., :, None] * q)
+                check(imp_rel(lam, lam_ref) <= IMP_OP_REL,
+                      "%s eigenvalues card vs CPU" % name)
+            sign = np.sign(np.sum(q * q_ref, -1, keepdims=True))
+            err = max(imp_rel(recon, a), imp_rel(q * sign, q_ref))
+        else:
+            check(all(g.dtype == w.dtype and g.shape == w.shape
+                      for g, w in zip(got, want)),
+                  "%s: card %s vs CPU %s" % (
+                      name, [(g.dtype, g.shape) for g in got],
+                      [(w.dtype, w.shape) for w in want]))
+            err = max(imp_rel(g, w) for g, w in zip(got, want))
+        bound = IMP_LINALG_REL.get(base, IMP_OP_REL)
+        check(err <= bound, "%s card vs CPU: %g relative (bound %g)"
+              % (name, err, bound))
+        worst[name] = err
+    aliases = imp_new_aliases()
+    check(len(aliases) == 68, "%d new aliases, not 68" % len(aliases))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    print("imperative ops: %d deterministic op names of this slice (68 "
+          "aliases, 35 tensor ops, 22 linalg names) on the card vs the port "
+          "on the CPU | all within %g relative (linalg potrf/potri/trsm "
+          "%g; gelqf and syevd by reconstruction and up to each row's "
+          "sign) | worst %s | registry %d names | %s"
+          % (len(names), IMP_OP_REL, IMP_LINALG_REL["linalg_potrf"],
+             ", ".join("%s %.2g" % kv for kv in top),
+             len(registry.list_ops()), card), flush=True)
+
+
+def imp_samplers():
+    gpu = mx.gpu(0)
+    n = (IMP_DRAWS,)
+    return [
+        ("uniform", lambda: mx.random.uniform(-1.0, 3.0, shape=n, ctx=gpu),
+         1.0, 16.0 / 12),
+        ("normal", lambda: mx.random.normal(0.5, 2.0, shape=n, ctx=gpu),
+         0.5, 4.0),
+        ("randint", lambda: mx.random.randint(-3, 7, shape=n, ctx=gpu),
+         1.5, 99 / 12.0),
+        ("randn", lambda: mx.random.randn(*n, loc=1.0, scale=0.5, ctx=gpu),
+         1.0, 0.25),
+        ("exponential", lambda: mx.random.exponential(2.0, shape=n,
+                                                      ctx=gpu), 0.5, 0.25),
+        ("gamma", lambda: mx.random.gamma(2.5, 1.5, shape=n, ctx=gpu),
+         3.75, 5.625),
+        ("poisson", lambda: mx.random.poisson(3.5, shape=n, ctx=gpu),
+         3.5, 3.5),
+        ("negative_binomial", lambda: mx.random.negative_binomial(
+            3, 0.4, shape=n, ctx=gpu), 4.5, 11.25),
+        ("generalized_negative_binomial",
+         lambda: mx.random.generalized_negative_binomial(
+             2.0, 0.5, shape=n, ctx=gpu), 2.0, 4.0),
+        ("shuffle", lambda: mx.random.shuffle(mx.nd.arange(
+            IMP_DRAWS, ctx=gpu)), (IMP_DRAWS - 1) / 2.0,
+         (IMP_DRAWS ** 2 - 1) / 12.0),
+        ("multinomial", lambda: mx.random.multinomial(
+            mx.nd.array([0.1, 0.2, 0.3, 0.4], ctx=gpu), shape=n),
+         2.0, 1.0),
+    ]
+
+
+def imp_random(card):
+    rows = []
+    for name, draw, mean, var in imp_samplers():
+        mx.random.seed(17)
+        t_s, x = timed_s(draw)
+        check(x.context == mx.gpu(0), "%s drew off the card" % name)
+        v = x.asnumpy().astype(np.float64).ravel()
+        m = v.mean()
+        se_m = math.sqrt(var / v.size)
+        dev2 = (v - m) ** 2
+        se_v = dev2.std() / math.sqrt(v.size)
+        zm, zv = abs(m - mean) / se_m, abs(dev2.mean() - var) / se_v
+        if name == "shuffle":
+            check(np.array_equal(np.sort(v), np.arange(IMP_DRAWS)),
+                  "shuffle is not a permutation")
+        check(zm <= IMP_SE and zv <= IMP_SE, "%s: mean %g (want %g, %.1f "
+              "SE), variance %g (want %g, %.1f SE)"
+              % (name, m, mean, zm, dev2.mean(), var, zv))
+        mx.random.seed(17)
+        check(np.array_equal(draw().asnumpy(), x.asnumpy()),
+              "%s: a reseed did not repeat the draws" % name)
+        rows.append("%s %.1f/%.1f SE %.2f ms" % (name, zm, zv, 1e3 * t_s))
+    print("imperative random: 2^%d draws a sampler on the card, mean / "
+          "variance off by (standard errors, bound %g), then a reseed "
+          "bit-equal | %s | %s"
+          % (int(math.log2(IMP_DRAWS)), IMP_SE, " | ".join(rows), card),
+          flush=True)
+
+
+def imp_dcgan(card):
+    from mxnet_tpu_torch.examples import dcgan
+
+    with mx.name.NameManager():
+        t_s, (_, _, hist) = timed_s(lambda: dcgan.train(
+            epochs=1, batch_size=IMP_DCGAN_BATCH,
+            steps_per_epoch=IMP_DCGAN_STEPS, verbose=False, ctx=mx.gpu(0)))
+    d = hist["d_steps"]
+    check(len(d) == IMP_DCGAN_STEPS and np.isfinite(d + hist["g_steps"])
+          .all(), "dcgan: losses %s" % hist)
+    first, last = np.mean(d[:4]), np.mean(d[-4:])
+    check(last < first, "dcgan: D's loss did not fall (%g -> %g)"
+          % (first, last))
+    print("imperative dcgan: examples/dcgan.py's port, %d steps at batch %d "
+          "(two Adam Trainers, detach) | %.1f ms a step | D loss %.4f -> "
+          "%.4f (first / last 4 steps), G loss %.4f -> %.4f | %s"
+          % (IMP_DCGAN_STEPS, IMP_DCGAN_BATCH, 1e3 * t_s / IMP_DCGAN_STEPS,
+             first, last, np.mean(hist["g_steps"][:4]),
+             np.mean(hist["g_steps"][-4:]), card), flush=True)
+
+
+def imp_faults(card):
+    gpu = mx.gpu(0)
+    # fault 4: the hand-written update changes the parameter
+    net = mx.gluon.nn.Dense(1, in_units=2)
+    net.initialize(mx.init.One(), ctx=gpu)
+    x = mx.nd.array(np.ones((1, 2), np.float32), ctx=gpu)
+    with mx.autograd.record():
+        y = net(x).sum()
+    y.backward()
+    for p in net.collect_params().values():
+        w = p.data()
+        w -= 0.1 * p.grad()
+    check(np.allclose(net.weight.data().asnumpy(), [[0.9, 0.9]], rtol=1e-6),
+          "fault 4: weight %s" % net.weight.data().asnumpy())
+    # fault 5: nd.array's dtype and context
+    lst = mx.nd.array([[1, 2]], ctx=gpu)
+    narrow = mx.nd.array(np.arange(3), ctx=gpu)
+    kept = mx.nd.array(lst)
+    check(lst.dtype == np.float32 and narrow.dtype == np.int32
+          and kept.context == gpu, "fault 5: %s %s %s"
+          % (lst.dtype, narrow.dtype, kept.context))
+    # fault 6: iteration ends after the last row; np.asarray reads it
+    rows = mx.nd.array(np.arange(6, dtype=np.float32).reshape(3, 2), ctx=gpu)
+    check(len(list(rows)) == 3 and np.asarray(rows).shape == (3, 2),
+          "fault 6: iteration")
+    try:
+        rows[3]
+        check(False, "fault 6: rows[3] did not raise")
+    except IndexError:
+        pass
+    print("imperative faults: 4 (w -= 0.1 g gives [[0.9, 0.9]]), 5 (list -> "
+          "float32, int64 -> int32, array(ndarray) keeps gpu(0)) and 6 (3 "
+          "rows, then IndexError) hold on the card | %s" % card, flush=True)
+
+
+def phase_imperative(card):
+    """The imperative core and the weight store at resnet50_v1's full
+    width (see the module doc, phase 11)."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="imperative_")
+    try:
+        net, _ = imp_store(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.deterministic = prev_det
+    trainer, raw, y, loss_fn = imp_finetune(card, net)
+    imp_hand_update(card, net, raw, y, loss_fn)
+    del trainer
+    torch.cuda.empty_cache()
+    imp_second_order(card, net, raw, loss_fn)
+    imp_cast(card, net, raw)
+    del net, raw
+    torch.cuda.empty_cache()
+    imp_ops(card)
+    imp_random(card)
+    imp_dcgan(card)
+    imp_faults(card)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the imperative path launched %s"
+          % launched)
+    print("imperative: hand-written kernels launched on the imperative "
+          "path: %s (none is on it) | phase %.1f s | %s"
+          % (launched, time.perf_counter() - t_phase, card), flush=True)
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -2145,6 +2880,8 @@ def main():
     del lm, ring
     torch.cuda.empty_cache()
     phase_zoo(card)
+    torch.cuda.empty_cache()
+    phase_imperative(card)
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):

@@ -21,13 +21,22 @@ KV-cache engine, and ``generate.PagedGenerationEngine`` ->
 the vision model zoo (34 networks) and the eager gluon training loop of
 ``examples.train_imagenet``, with ``gluon.nn``, ``gluon.loss``, the 15
 optimizers, ``lr_scheduler``, ``metric`` and the Trainer's fused SGD
-update.
+update; the imperative core (the whole NDArray with ``save``/``load`` in
+both formats, ``autograd.grad`` and ``Function``, the ``engine`` facade,
+``runtime.Features``, ``util``, the aliases, ``linalg_*``, ordering and
+random ops of the registry and ``mx.random``'s samplers) and the weight
+store (``Parameter``/``Block`` save, load, cast and ``reset_ctx``, the
+initializers, ``gluon.utils.download`` and ``model_zoo.model_store``
+behind ``get_model(pretrained=True)``), with ``examples.dcgan``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
 from . import name  # noqa: F401
 from . import random  # noqa: F401
 from . import config  # noqa: F401
+from . import engine  # noqa: F401
+from . import runtime  # noqa: F401
+from . import util  # noqa: F401
 from . import dtype_policy  # noqa: F401
 from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401

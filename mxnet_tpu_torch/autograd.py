@@ -1,6 +1,6 @@
 """Autograd over ``torch.autograd`` (parity: mxnet_tpu/autograd.py,
 python/mxnet/autograd.py record/pause :122,146, mark_variables :197,
-backward :243).
+backward :243, grad :270, Function :385).
 
 Recording is MXNet's explicit scope: ops run with torch's grad mode on
 only inside ``record()`` (the NDArray ops and blocks ask ``grad_mode()``).
@@ -9,6 +9,11 @@ runs ``torch.autograd.backward`` and then moves each leaf's ``.grad`` into
 the variable's MXNet gradient buffer, honouring ``grad_req`` ('write'
 replaces, 'add' accumulates), so torch's own accumulation never leaks
 from one backward to the next.
+
+``grad`` returns the gradients instead (``torch.autograd.grad``); with
+``create_graph=True`` they are themselves recorded, so a ``backward``
+through them gives second derivatives.  ``Function`` runs a user's
+forward and backward on NDArrays as a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -18,14 +23,19 @@ import weakref
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_training", "mark_variables", "backward",
-           "grad_mode"]
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad", "Function", "grad_mode"]
 
 _state = threading.local()
 # every NDArray with an attached gradient, by id; weak, so dropped arrays
 # leave.  Not a WeakSet: a set compares members with ``==``, which an
 # NDArray answers elementwise.
 _marked = {}
+# the leaves a marked variable held before an in-place operator rebound
+# it inside record(), by the variable's id: the graph recorded before the
+# rebind ends there, and their gradients count for the variable as the
+# JAX package's tape counts both values for one variable
+_retired = {}
 
 
 def _mark(var):
@@ -36,6 +46,12 @@ def _mark(var):
             del _marked[key]
 
     _marked[key] = weakref.ref(var, _drop)
+
+
+def retire(var):
+    """Keep ``var``'s current leaf as a gradient source of ``var`` (it is
+    about to be rebound inside ``record()``)."""
+    _retired.setdefault(id(var), []).append(var._data)
 
 
 def _st():
@@ -51,6 +67,13 @@ def is_recording():
 
 def is_training():
     return _st().training
+
+
+def set_recording(is_record):
+    st = _st()
+    prev = st.recording
+    st.recording = bool(is_record)
+    return prev
 
 
 def set_training(train_mode_):
@@ -107,6 +130,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for var, g, req in zip(variables, gradients, grad_reqs):
+        _retired.pop(id(var), None)
         var._grad = g
         var._grad_req = req
         var._data = var._data.detach().requires_grad_(
@@ -114,9 +138,8 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         _mark(var)
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Gradients of ``heads`` into the marked variables' buffers; the
-    default head gradient is ones (parity: autograd.backward)."""
+def _heads(heads, head_grads):
+    """The recorded head tensors and their gradients (ones by default)."""
     from .ndarray.ndarray import NDArray
 
     if isinstance(heads, NDArray):
@@ -131,24 +154,124 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
             continue
         tensors.append(h._data)
         grads.append(torch.ones_like(h._data) if hg is None else hg._data)
+    return tensors, grads
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` into the marked variables' buffers; the
+    default head gradient is ones (parity: autograd.backward)."""
+    tensors, grads = _heads(heads, head_grads)
     if not tensors:
         return
     variables = [v for v in (r() for r in list(_marked.values()))
                  if v is not None and v._grad is not None
                  and v._data.requires_grad]
-    for v in variables:
-        v._data.grad = None
+    leaves = {id(v): [v._data] + _retired.get(id(v), []) for v in variables}
+    for ts in leaves.values():
+        for t in ts:
+            t.grad = None
     prev = set_training(train_mode)
     try:
         torch.autograd.backward(tensors, grads, retain_graph=retain_graph)
     finally:
         set_training(prev)
     for v in variables:
-        g = v._data.grad
-        if g is None:
+        parts = [t.grad for t in leaves[id(v)] if t.grad is not None]
+        for t in leaves[id(v)]:
+            t.grad = None
+        if not retain_graph:
+            _retired.pop(id(v), None)
+        if not parts:
             continue
-        v._data.grad = None
+        g = parts[0] if len(parts) == 1 else sum(parts)
         if v._grad_req == "add":
             v._grad._data.add_(g)
         elif v._grad_req != "null":
             v._grad._data = g.to(v._grad._data.dtype)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """Gradients of ``heads`` with respect to ``variables`` (each with an
+    attached gradient), returned as NDArrays; the variables' gradient
+    buffers stay as they are (parity: autograd.grad, autograd.py:329).
+    With ``create_graph=True`` the gradients are recorded, so they can be
+    differentiated again.  A variable the heads do not reach gets
+    zeros."""
+    from .base import MXNetError
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(variables, NDArray):
+        variables = [variables]
+    for v in variables:
+        if not v._data.requires_grad:
+            raise MXNetError("variables passed to grad() must have attached "
+                             "grad (attach_grad) and participate in the "
+                             "graph")
+    tensors, grads = _heads(heads, head_grads)
+    if retain_graph is None:
+        retain_graph = create_graph
+    prev = set_training(train_mode)
+    try:
+        got = torch.autograd.grad(
+            tensors, [v._data for v in variables], grads,
+            retain_graph=retain_graph, create_graph=create_graph,
+            allow_unused=True)
+    finally:
+        set_training(prev)
+    return [NDArray(torch.zeros_like(v._data.detach()) if g is None else g)
+            for v, g in zip(variables, got)]
+
+
+class Function:
+    """A differentiable function written on NDArrays (parity:
+    autograd.Function, autograd.py:451): subclasses define ``forward``
+    and ``backward``, which torch runs as a ``torch.autograd.Function``
+    when the call is recorded.  ``save_for_backward`` keeps arrays for
+    ``backward`` in ``saved_tensors``."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if not is_recording():
+            with pause(is_training()):
+                return self.forward(*inputs)
+        fn = self
+        single = []
+
+        class _Apply(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *raw):
+                with pause(is_training()):
+                    outs = fn.forward(*[NDArray(r) for r in raw])
+                single.append(not isinstance(outs, (list, tuple)))
+                outs = [outs] if single[0] else list(outs)
+                return tuple(o._data for o in outs)
+
+            @staticmethod
+            def backward(ctx, *out_grads):
+                with pause(is_training()):
+                    igrads = fn.backward(*[NDArray(g) for g in out_grads])
+                if not isinstance(igrads, (list, tuple)):
+                    igrads = [igrads]
+                return tuple(g._data if isinstance(g, NDArray) else g
+                             for g in igrads)
+
+        outs = [NDArray(t) for t in _Apply.apply(*[x._data for x in inputs])]
+        return outs[0] if single[0] else outs

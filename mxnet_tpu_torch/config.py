@@ -25,6 +25,15 @@ def _pfloat(v):
 
 # name -> (default, parser, note)
 FLAGS = {
+    "MXNET_ENGINE_TYPE": (
+        "ThreadedEnginePerDevice", str,
+        "NaiveEngine synchronizes the card after every op (the reference's "
+        "race-free oracle); anything else leaves torch's asynchronous "
+        "dispatch (engine.py)"),
+    "MXNET_GLUON_REPO": (
+        "", str,
+        "base URL of the gluon model zoo's weight mirror (file:// works "
+        "offline); '' disables fetching (model_store.get_model_file)"),
     "MXNET_DTYPE_POLICY": (
         "", str,
         "default mixed-precision dtype policy of ShardedTrainer: '' or "

@@ -52,16 +52,19 @@ class DecoderBlock(HybridBlock):
             self.ffn_down = nn.Dense(d_model, flatten=False,
                                      prefix="ffn_down_")
 
+    # The head split and merge work on the tensor: torch's reshape copies
+    # only where the layout needs it (never at T == 1, a decode step),
+    # where NDArray's transpose always copies (upstream's storage rule).
     def _split_heads(self, a):  # (B, T, D) -> (B*H, T, dh)
         B, T, _D = a.shape
         H, dh = self._n_heads, self._d_head
-        return a.reshape((B, T, H, dh)).transpose(
-            (0, 2, 1, 3)).reshape((B * H, T, dh))
+        return NDArray(a._data.reshape(B, T, H, dh).transpose(1, 2)
+                       .reshape(B * H, T, dh))
 
     def _merge_heads(self, a, B, T):  # (B*H, T, dh) -> (B, T, D)
         H, dh = self._n_heads, self._d_head
-        return a.reshape((B, H, T, dh)).transpose(
-            (0, 2, 1, 3)).reshape((B, T, H * dh))
+        return NDArray(a._data.reshape(B, H, T, dh).transpose(1, 2)
+                       .reshape(B, T, H * dh))
 
     def _attend_capture(self, F, x):
         """Causal MHA over the full sequence; also returns this layer's

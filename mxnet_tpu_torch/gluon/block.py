@@ -8,6 +8,12 @@ its parent's scope counter, so parameter names (e.g.
 across by name.  ``hybridize()`` is accepted and the block still runs
 eagerly: there is no compiled path in this port yet.
 
+``save_parameters`` writes the block's parameters under their structural
+names (``features.0.weight``, the attribute path), as the JAX package's
+does, as npz; ``load_parameters`` reads npz or the reference binary
+format from either package, and also a file of full names
+(``ParameterDict.save``).
+
 ``parallel.ShardedTrainer`` runs a block's forward with its parameters
 swapped for the step's tensors.  It installs an aux sink, a list into
 which BatchNorm hands ``(parameter, new_value)`` for its moving stats
@@ -25,7 +31,10 @@ import re
 import threading
 from collections import OrderedDict
 
+import numpy as np
+
 from ..base import MXNetError
+from ..context import cpu
 from ..ndarray.ndarray import NDArray
 from .. import autograd
 from ..name import NameManager
@@ -144,6 +153,7 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_pre_hooks = OrderedDict()
         self._forward_hooks = OrderedDict()
 
     def _alias(self):
@@ -191,15 +201,109 @@ class Block:
             ret.update(cld.collect_params(select=select))
         return ret
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """{structural name: Parameter}: attribute names joined by dots
+        (``features.0.weight``), the names ``save_parameters`` writes."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
     def register_child(self, block, name=None):
         if name is None:
             name = str(len(self._children))
         self._children[name] = block
 
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each forward."""
+        self._forward_pre_hooks[len(self._forward_pre_hooks)] = hook
+        return _HookHandle(self._forward_pre_hooks,
+                           len(self._forward_pre_hooks) - 1)
+
     def register_forward_hook(self, hook):
         """``hook(block, args, output)`` after each forward."""
         self._forward_hooks[len(self._forward_hooks)] = hook
         return _HookHandle(self._forward_hooks, len(self._forward_hooks) - 1)
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, depth first, then on this block."""
+        for cld in self._children.values():
+            cld.apply(fn)
+        fn(self)
+        return self
+
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` (BatchNorm keeps float16's
+        parameters at float32)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
+    def summary(self, *inputs):
+        """Print each block's name, type and parameter count."""
+        rows = []
+
+        def walk(block, indent=""):
+            n = sum(int(np.prod(p.shape or ()))
+                    for p in block._reg_params.values())
+            rows.append((indent + block.name, block.__class__.__name__, n))
+            for c in block._children.values():
+                walk(c, indent + "  ")
+
+        walk(self)
+        print("%-50s %-20s %s" % ("Layer", "Type", "Params"))
+        for name, typ, n in rows:
+            print("%-50s %-20s %d" % (name, typ, n))
+
+    # -- (de)serialization ------------------------------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """Save the parameters under their structural names, as npz
+        (parity: block.py:334)."""
+        from ..ndarray import ndarray as _nd
+
+        params = self._collect_params_with_prefix()
+        _nd.save(filename, {k: p._reduce() for k, p in params.items()})
+
+    save_params = save_parameters
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a file of ``save_parameters`` (or of full parameter
+        names), in either format, from either package.  An uninitialized
+        parameter is initialized on ``ctx`` (default: the current
+        context) from the file's value."""
+        from ..ndarray import ndarray as _nd
+
+        loaded = _nd.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not isinstance(loaded, dict):
+            raise MXNetError("load_parameters expects a dict file")
+        if loaded and params and not any("." in k for k in loaded) \
+                and not set(loaded) & set(params):
+            # saved with full names (ParameterDict.save)
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra)
+            return
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError("Parameter '%s' is missing in file %s"
+                                     % (name, filename))
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise MXNetError("Parameter '%s' in file is not present "
+                                     "in this Block" % name)
+                continue
+            params[name]._load_value(value, ctx)
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        self.load_parameters(filename, ctx, allow_missing, ignore_extra)
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
@@ -210,6 +314,8 @@ class Block:
             cld.hybridize(active, **kwargs)
 
     def __call__(self, *args):
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
         with autograd.grad_mode():
             out = self.forward(*args)
         for hook in self._forward_hooks.values():
@@ -231,6 +337,11 @@ class HybridBlock(Block):
     def hybridize(self, active=True, **kwargs):
         self._active = active
         super().hybridize(active, **kwargs)
+
+    def infer_shape(self, *args):
+        """Complete deferred parameter shapes from inputs (parity:
+        block.py:662)."""
+        self._infer_param_shapes(*args)
 
     def _infer_param_shapes(self, *args):
         pass

@@ -1,7 +1,7 @@
 """Vision model zoo (parity: mxnet_tpu/gluon/model_zoo/vision/__init__.py):
-the 34 networks of ``get_model``.  ``pretrained=True`` raises: the
-weights would come from model_store.py, which downloads them and is not
-ported."""
+the 34 networks of ``get_model``.  ``pretrained=True`` loads the
+network's ``.params`` through ``model_store.get_model_file`` (a local
+``root`` or the ``MXNET_GLUON_REPO`` mirror)."""
 from .alexnet import *  # noqa: F401,F403
 from .densenet import *  # noqa: F401,F403
 from .inception import *  # noqa: F401,F403

@@ -2,11 +2,10 @@
 mxnet_tpu/gluon/model_zoo/vision/_builder.py:19-63)."""
 from __future__ import annotations
 
-from ....base import MXNetError
 from ... import nn
 from ...block import HybridBlock
 
-__all__ = ["conv_block", "Classifier", "stack", "check_pretrained"]
+__all__ = ["conv_block", "Classifier", "stack", "load_pretrained"]
 
 
 def conv_block(channels, kernel, stride=1, pad=None, groups=1, act="relu",
@@ -37,12 +36,15 @@ def stack(*layers):
     return seq
 
 
-def check_pretrained(pretrained):
-    """``pretrained=True`` needs model_store.py, which downloads the
-    weights; it is not ported."""
+def load_pretrained(net, pretrained, name, ctx=None, root=None):
+    """With ``pretrained``, load ``name``'s weights from the model store
+    (a local ``{root}/{name}.params`` or the ``MXNET_GLUON_REPO`` mirror)
+    into ``net`` on ``ctx`` (default: the current context)."""
     if pretrained:
-        raise MXNetError("pretrained weights are not ported yet "
-                         "(model_store.py downloads them)")
+        from ..model_store import get_model_file
+
+        net.load_parameters(get_model_file(name, root=root), ctx=ctx)
+    return net
 
 
 class Classifier(HybridBlock):

@@ -7,7 +7,7 @@ conv trunk is a spec table interpreted in one loop.
 from __future__ import annotations
 
 from ... import nn
-from ._builder import Classifier, check_pretrained
+from ._builder import Classifier, load_pretrained
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -37,6 +37,5 @@ class AlexNet(Classifier):
 
 def alexnet(pretrained=False, ctx=None, root=None, **kwargs):
     """Parity: model_zoo.vision.alexnet."""
-    net = AlexNet(**kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(AlexNet(**kwargs), pretrained, "alexnet", ctx,
+                           root)

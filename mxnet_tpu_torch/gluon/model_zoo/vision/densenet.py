@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._builder import Classifier, check_pretrained
+from ._builder import Classifier, load_pretrained
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]
@@ -77,9 +77,8 @@ class DenseNet(Classifier):
 def _factory(depth):
     def make(pretrained=False, ctx=None, root=None, **kwargs):
         stem, k, blocks = _SPECS[depth]
-        net = DenseNet(stem, k, blocks, **kwargs)
-        check_pretrained(pretrained)
-        return net
+        return load_pretrained(DenseNet(stem, k, blocks, **kwargs),
+                               pretrained, "densenet%d" % depth, ctx, root)
 
     make.__name__ = "densenet%d" % depth
     make.__doc__ = "DenseNet-%d factory." % depth

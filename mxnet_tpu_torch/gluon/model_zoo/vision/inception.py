@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._builder import Classifier, check_pretrained
+from ._builder import Classifier, load_pretrained
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -147,6 +147,5 @@ class Inception3(Classifier):
 
 def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
     """Parity: model_zoo.vision.inception_v3 (input 299x299)."""
-    net = Inception3(**kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(Inception3(**kwargs), pretrained, "inceptionv3",
+                           ctx, root)

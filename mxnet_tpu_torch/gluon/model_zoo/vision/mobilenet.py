@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._builder import Classifier, conv_block, check_pretrained
+from ._builder import Classifier, conv_block, load_pretrained
 
 __all__ = ["MobileNet", "MobileNetV2", "mobilenet1_0", "mobilenet0_75",
            "mobilenet0_5", "mobilenet0_25", "mobilenet_v2_1_0",
@@ -65,6 +65,12 @@ def _scaled(ch, multiplier):
     return max(1, int(ch * multiplier))
 
 
+def _version_suffix(multiplier):
+    """Model-store name fragment: 1.0 -> '1.0', 0.75 -> '0.75'."""
+    text = "%.2f" % multiplier
+    return text[:-1] if text.endswith("0") else text
+
+
 class MobileNet(Classifier):
     def __init__(self, multiplier=1.0, classes=1000, **kwargs):
         super().__init__(**kwargs)
@@ -108,17 +114,17 @@ class MobileNetV2(Classifier):
 def get_mobilenet(multiplier, pretrained=False, ctx=None, root=None,
                   **kwargs):
     """Parity: model_zoo.vision.get_mobilenet."""
-    net = MobileNet(multiplier, **kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(MobileNet(multiplier, **kwargs), pretrained,
+                           "mobilenet%s" % _version_suffix(multiplier), ctx,
+                           root)
 
 
 def get_mobilenet_v2(multiplier, pretrained=False, ctx=None, root=None,
                      **kwargs):
     """Parity: model_zoo.vision.get_mobilenet_v2."""
-    net = MobileNetV2(multiplier, **kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(MobileNetV2(multiplier, **kwargs), pretrained,
+                           "mobilenetv2_%s" % _version_suffix(multiplier),
+                           ctx, root)
 
 
 def _factory(maker, multiplier, name):

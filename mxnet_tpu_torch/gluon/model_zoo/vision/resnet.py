@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ... import nn
 from ...block import HybridBlock
-from ._builder import Classifier, conv_block, check_pretrained
+from ._builder import Classifier, conv_block, load_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -174,8 +174,8 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                          % version)
     bottleneck, units, channels = _SPECS[num_layers]
     net = _ResNet(version, bottleneck, units, channels, **kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(net, pretrained,
+                           "resnet%d_v%d" % (num_layers, version), ctx, root)
 
 
 def _factory(version, depth):

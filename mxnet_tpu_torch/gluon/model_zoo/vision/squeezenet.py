@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._builder import Classifier, check_pretrained
+from ._builder import Classifier, load_pretrained
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1", "get_squeezenet"]
 
@@ -69,9 +69,8 @@ class SqueezeNet(Classifier):
 
 def get_squeezenet(version, pretrained=False, ctx=None, root=None, **kwargs):
     """Parity: model_zoo.vision.get_squeezenet."""
-    net = SqueezeNet(version, **kwargs)
-    check_pretrained(pretrained)
-    return net
+    return load_pretrained(SqueezeNet(version, **kwargs), pretrained,
+                           "squeezenet%s" % version, ctx, root)
 
 
 def squeezenet1_0(**kwargs):

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from ... import nn
 from ....initializer import Xavier
-from ._builder import Classifier, check_pretrained
+from ._builder import Classifier, load_pretrained
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
            "vgg13_bn", "vgg16_bn", "vgg19_bn", "get_vgg"]
@@ -50,8 +50,9 @@ class VGG(Classifier):
 def get_vgg(num_layers, pretrained=False, ctx=None, root=None, **kwargs):
     """Parity: model_zoo.vision.get_vgg."""
     net = VGG(_STAGES[num_layers], _WIDTHS, **kwargs)
-    check_pretrained(pretrained)
-    return net
+    suffix = "_bn" if kwargs.get("batch_norm") else ""
+    return load_pretrained(net, pretrained, "vgg%d%s" % (num_layers, suffix),
+                           ctx, root)
 
 
 def _factory(depth, bn):

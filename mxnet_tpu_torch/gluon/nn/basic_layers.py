@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ...base import MXNetError
@@ -168,6 +169,7 @@ class BatchNorm(HybridBlock):
         self._kwargs = {"eps": epsilon, "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
         self._momentum = momentum
+        self._half_out = False
         self.gamma = self.params.get(
             "gamma", grad_req="write" if scale else "null",
             shape=(in_channels,), init=_init_by_name(gamma_initializer),
@@ -190,12 +192,23 @@ class BatchNorm(HybridBlock):
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p.shape = (c,)
 
+    def cast(self, dtype):
+        """float16 keeps the parameters at float32 (parity:
+        basic_layers.py:219); the output then takes the data's float16,
+        as the reference's BatchNorm gives."""
+        self._half_out = np.dtype(dtype).name == "float16"
+        if self._half_out:
+            dtype = "float32"
+        super().cast(dtype)
+
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         training = autograd.is_training() and \
             not self._kwargs["use_global_stats"]
         out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
                                      running_var, training=training,
                                      **self._kwargs)
+        if self._half_out and out.dtype != x.dtype:
+            out = out.astype(x.dtype)
         if training:
             m = self._momentum
             with torch.no_grad():

@@ -1,9 +1,12 @@
-"""Gluon Parameter / ParameterDict (parity: mxnet_tpu/gluon/parameter.py,
-python/mxnet/gluon/parameter.py :43, :632).
+"""Gluon Parameter / ParameterDict / Constant (parity:
+mxnet_tpu/gluon/parameter.py, python/mxnet/gluon/parameter.py :43, :632).
 
 A Parameter holds one NDArray per context.  Shapes with unknown (0)
 dimensions defer initialization to the first forward, which infers them
-from the input.
+from the input.  ``ParameterDict.save``/``load`` write and read full
+parameter names through ``nd.save`` (npz) and ``nd.load`` (either
+format); the arrays are read on the host and copied to each parameter's
+contexts.
 """
 from __future__ import annotations
 
@@ -13,12 +16,13 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from ..ndarray.ndarray import NDArray, array
 from .. import initializer
 from .. import autograd
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -206,6 +210,97 @@ class Parameter:
         for d in self.list_data():
             d._rebind(src.to(d._data.device, d._data.dtype, copy=True))
 
+    def _load_value(self, value, ctx=None):
+        """Take ``value`` (a host NDArray) as the data; an uninitialized
+        parameter is initialized from it on ``ctx`` (default: its deferred
+        contexts, else the current context)."""
+        self.shape = value.shape
+        if self._data is None:
+            value = NDArray(value._data.to(torch_dtype(self.dtype)))
+            if self._deferred_init:
+                init, dctx, default_init, _ = self._deferred_init
+                ctx = ctx or dctx
+            else:
+                init = default_init = None
+            if isinstance(ctx, Context):
+                ctx = [ctx]
+            self._deferred_init = (init, ctx or [current_context()],
+                                   default_init, value)
+            self._finish_deferred_init()
+            return
+        self.set_data(value)
+
+    def _reduce(self):
+        """The data averaged over the contexts (parity :312)."""
+        data = self.list_data()
+        if len(data) == 1:
+            return data[0]
+        with torch.no_grad():
+            out = torch.stack([d._data.to(data[0]._data.device)
+                               for d in data]).mean(0)
+        return NDArray(out)
+
+    def zero_grad(self):
+        """Set every gradient buffer to 0, in place."""
+        if self._grad is None:
+            return
+        with torch.no_grad():
+            for g in self._grad.values():
+                g._data.zero_()
+
+    def reset_ctx(self, ctx):
+        """Move the parameter (its data averaged over the old contexts) to
+        ``ctx``, a context or a list of them, with fresh gradients."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data is not None:
+            data = self._reduce()
+            with autograd.pause():
+                self._init_impl(NDArray(data._data.detach()), ctx)
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, data)
+        else:
+            raise MXNetError("Cannot reset context for Parameter '%s' "
+                             "because it has not been initialized."
+                             % self.name)
+
+    def cast(self, dtype):
+        """Cast the data (and new, zero gradients) to ``dtype``."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        with autograd.pause():
+            self._data = OrderedDict(
+                (ctx, NDArray(d._data.detach().to(torch_dtype(dtype))))
+                for ctx, d in self._data.items())
+            self._init_grad()
+
+    def var(self):
+        """The parameter as a symbol: the symbolic API is not ported."""
+        raise MXNetError("Parameter.var needs the symbolic API, which is "
+                         "not ported yet")
+
+
+class Constant(Parameter):
+    """A parameter of fixed ``value`` that takes no gradient (parity
+    :288)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = array(value, ctx=cpu())
+        self.value = value
+
+        class Init(initializer.Initializer):
+            def _init_weight(self, _, arr):
+                value.copyto(arr)
+
+            _init_default = _init_weight
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=np.dtype(value.dtype).name, init=Init(),
+                         differentiable=False)
+
 
 class ParameterDict:
     """Dict of Parameters with a name prefix and sharing (parity :632)."""
@@ -252,10 +347,33 @@ class ParameterDict:
         return None
 
     def get(self, name, **kwargs):
+        """The parameter ``prefix + name``, made with ``kwargs`` if new.
+        For an existing one the keywords merge as the JAX package's do
+        (:349-371): a partial shape fills its unknown (0) dimensions, an
+        attribute that is None takes the keyword."""
         name = self._prefix + name
         param = self._get_impl(name)
         if param is None:
             param = Parameter(name, **kwargs)
+            self._params[name] = param
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if existing is None:
+                setattr(param, k, v)
+            elif k == "shape" and v is not None and len(v) == len(existing):
+                param._shape = tuple(a if a not in (0, None) else b
+                                     for a, b in zip(existing, v))
+        return param
+
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``, made from ``value`` if new."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError("No constant named '%s'" % name)
+            param = Constant(name, value)
             self._params[name] = param
         return param
 
@@ -270,5 +388,61 @@ class ParameterDict:
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         default = init or initializer.Uniform()
+        if verbose and init is not None:
+            init.set_verbosity(verbose=verbose)
         for v in self.values():
             v.initialize(None, ctx, default, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (``lr_mult``,
+        ``grad_req``, ...)."""
+        for v in self.values():
+            setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter's data (averaged over its contexts) under
+        its name less ``strip_prefix``."""
+        from ..ndarray import ndarray as _nd
+
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with it"
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param._reduce()
+        _nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load the parameters saved by ``save`` (names prefixed with
+        ``restore_prefix``); an uninitialized one is initialized on
+        ``ctx`` (default: the current context) from the file's value."""
+        from ..ndarray import ndarray as _nd
+
+        arg_dict = _nd.load(filename, ctx=cpu())
+        if not isinstance(arg_dict, dict):
+            raise MXNetError("load expects a dict-saved file")
+        arg_dict = {restore_prefix + k: v for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError("Parameter '%s' is missing in file "
+                                     "'%s'" % (name, filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not "
+                        "present in ParameterDict" % (name, filename))
+                continue
+            self._params[name]._load_value(value, ctx)

@@ -1,17 +1,23 @@
-"""Gluon utilities (parity: mxnet_tpu/gluon/utils.py:18-81; the reference
-python/mxnet/gluon/utils.py): ``split_data``, ``split_and_load`` and
-``clip_global_norm``.  ``download`` and ``check_sha1`` are not ported:
-there is nothing to download in the port."""
+"""Gluon utilities (parity: mxnet_tpu/gluon/utils.py:18-165; the reference
+python/mxnet/gluon/utils.py): ``split_data``, ``split_and_load``,
+``clip_global_norm``, ``check_sha1`` and ``download``.  ``download``
+reads any URL ``urllib`` opens; ``file://`` mirrors serve machines with
+no network."""
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import time
 import warnings
 
 import torch
 
+from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -77,3 +83,58 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True,
             for a in arrays:
                 a._data.mul_(scale)
     return total_norm
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the file's SHA-1 hex digest is ``sha1_hash``."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(chunk)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Fetch ``url`` to ``path`` (a file, or a directory to put the URL's
+    file name in; default the current directory) and return the file's
+    name.  An existing file that passes ``sha1_hash`` is kept unless
+    ``overwrite``.  The payload is checked against ``sha1_hash`` before
+    it is written, then written atomically, so a failed or corrupt fetch
+    never leaves a file; each of ``retries`` attempts waits longer
+    before the next (parity: mxnet_tpu/gluon/utils.py:93)."""
+    from urllib.request import urlopen
+
+    from ..checkpoint import atomic_write
+
+    if path is None:
+        fname = url.split("/")[-1]
+        if not fname:
+            raise MXNetError("cannot derive a file name from url %r" % url)
+    elif os.path.isdir(path):
+        fname = os.path.join(path, url.split("/")[-1])
+    else:
+        fname = path
+    if os.path.exists(fname) and not overwrite and \
+            (sha1_hash is None or check_sha1(fname, sha1_hash)):
+        return fname
+    os.makedirs(os.path.dirname(os.path.abspath(fname)), exist_ok=True)
+    kwargs = {}
+    if not verify_ssl and url.lower().startswith("https"):
+        import ssl
+
+        kwargs["context"] = ssl._create_unverified_context()
+    for attempt in range(max(1, retries)):
+        try:
+            with urlopen(url, **kwargs) as resp:
+                payload = resp.read()
+            got = hashlib.sha1(payload).hexdigest()
+            if sha1_hash is not None and got != sha1_hash:
+                raise OSError("sha1 mismatch for %s: got %s, want %s"
+                              % (url, got, sha1_hash))
+            atomic_write(fname, payload)
+            return fname
+        except OSError:
+            if attempt + 1 >= retries:
+                raise
+            time.sleep(0.1 * 2 ** attempt)

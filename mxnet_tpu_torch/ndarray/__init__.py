@@ -4,10 +4,14 @@ This module is also the ``F`` that ``hybrid_forward`` receives."""
 from ..ops import tensor as _ops_tensor  # noqa: F401 (registers ops)
 from ..ops import nn as _ops_nn  # noqa: F401 (registers ops)
 from ..ops import optimizer_ops as _ops_opt  # noqa: F401 (registers ops)
+from ..ops import random_ops as _ops_random  # noqa: F401 (registers ops)
 from ..ops.registry import list_ops as _list_ops
 from ..ops.utils import scalar_or_array as _soa
 
-from .ndarray import NDArray, array, zeros, ones, arange, _invoke_nd
+from .ndarray import (  # noqa: F401
+    NDArray, array, zeros, ones, empty, full, arange, concatenate, concat,
+    stack, moveaxis, onehot_encode, waitall, save, load, _invoke_nd,
+)
 from . import register as _register
 
 _register.populate(globals())
@@ -16,5 +20,7 @@ maximum = _soa(NDArray, _invoke_nd, "broadcast_maximum", "_maximum_scalar")
 minimum = _soa(NDArray, _invoke_nd, "broadcast_minimum", "_minimum_scalar")
 hypot = _soa(NDArray, _invoke_nd, "broadcast_hypot", "_hypot_scalar")
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "maximum",
-           "minimum", "hypot"] + _list_ops()
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
+           "concatenate", "concat", "stack", "moveaxis", "onehot_encode",
+           "waitall", "save", "load", "maximum", "minimum",
+           "hypot"] + _list_ops()

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from .. import autograd
 from .. import random as _random
 from ..dtype_policy import harmonize
-from .registry import register
+from .registry import register, alias
 from .utils import pbool, pfloat, pint, ptuple, paxis, normalize_axis
 
 __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
@@ -373,3 +373,16 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip", **kw):
     idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
     out = torch.gather(data, axis, idx.unsqueeze(axis))
     return out if pbool(keepdims) else out.squeeze(axis)
+
+
+# the reference's other names of these ops; SyncBatchNorm is BatchNorm on
+# one card
+for _name, _names in {
+        "BatchNorm": ("BatchNorm_v1", "CuDNNBatchNorm", "SyncBatchNorm",
+                      "_contrib_SyncBatchNorm"),
+        "Convolution": ("Convolution_v1",),
+        "Pooling": ("Pooling_v1",),
+        "Embedding": ("_contrib_SparseEmbedding",),
+        "pick": ("choose_element_0index",)}.items():
+    for _a in _names:
+        alias(_name, _a)

@@ -1,6 +1,9 @@
 """Tensor ops on torch tensors (parity: mxnet_tpu/ops/tensor.py):
 elementwise, broadcast and scalar arithmetic, comparisons, reductions,
-dot/batch_dot, reshaping, indexing, init ops and softmax.
+dot/batch_dot and the ``linalg_*`` ops (``torch.linalg``), reshaping,
+slicing, indexing and scatter, init ops, ordering, softmax/softmin, and
+the reference's aliases of these (``_Plus``, ``broadcast_plus``,
+``_MulScalar``, ...).
 
 Each op is one or a few torch calls; the dtype rules are the JAX
 package's (comparisons return the lhs dtype, argmax returns the data's
@@ -8,13 +11,15 @@ dtype, a scalar keeps an integer array integer when it is integral).
 """
 from __future__ import annotations
 
+import ast
 import math
 
 import numpy as np
 import torch
 
-from .registry import register
-from .utils import pbool, pint, pfloat, ptuple, pdtype, paxis, normalize_axis
+from .registry import register, alias
+from .utils import (pbool, pint, pfloat, ptuple, pdtype, paxis,
+                    paxis_or_none, normalize_axis)
 
 # ---------------------------------------------------------------------------
 # elemwise binary (same shape) and broadcast binary
@@ -138,6 +143,8 @@ _UNARY = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "softsign": lambda x: x / (1 + torch.abs(x)),
+    "cbrt": lambda x: torch.sign(x) * torch.abs(x) ** (1.0 / 3.0),
+    "rcbrt": lambda x: 1.0 / (torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)),
 }
 for _name, _fn in _UNARY.items():
     register(_name)((lambda f: lambda data, **kw: f(data))(_fn))
@@ -148,6 +155,9 @@ for _name, _fn in {"isnan": torch.isnan, "isinf": torch.isinf,
     register(_name, differentiable=False)(
         (lambda f: lambda data, **kw: f(data).to(data.dtype))(_fn))
 
+register("hard_sigmoid")(
+    lambda data, alpha=0.2, beta=0.5, **kw:
+        torch.clamp(pfloat(alpha, 0.2) * data + pfloat(beta, 0.5), 0.0, 1.0))
 register("_copy")(lambda data, **kw: data.clone())
 register("identity")(lambda data, **kw: data)
 register("BlockGrad", aliases=("stop_gradient",))(
@@ -203,8 +213,9 @@ def _reduce(kind, data, axis=None, keepdims=False, exclude=False):
         # jnp's reduction over no axis is the identity; torch's empty
         # dim list would reduce over every axis
         return data
-    if kind == "prod":
-        out = data
+    if kind in ("prod", "nanprod"):
+        out = data if kind == "prod" else torch.where(
+            torch.isnan(data), torch.ones_like(data), data)
         for a in sorted(axes, reverse=True):
             out = torch.prod(out, dim=a, keepdim=keepdims)
         return out
@@ -212,12 +223,13 @@ def _reduce(kind, data, axis=None, keepdims=False, exclude=False):
         if not data.is_floating_point():
             data = data.to(torch.float32)
         return torch.mean(data, dim=axes, keepdim=keepdims)
-    fn = {"sum": torch.sum, "max": torch.amax, "min": torch.amin}[kind]
+    fn = {"sum": torch.sum, "max": torch.amax, "min": torch.amin,
+          "nansum": torch.nansum}[kind]
     out = fn(data, dim=axes, keepdim=keepdims)
     return out.to(data.dtype) if _is_int(data) else out
 
 
-for _name in ("sum", "mean", "prod", "max", "min"):
+for _name in ("sum", "mean", "prod", "max", "min", "nansum", "nanprod"):
     register(_name, aliases=((_name + "_axis",)
                              if _name in ("sum", "max", "min") else ()))(
         (lambda k: lambda data, axis=None, keepdims=False, exclude=False,
@@ -526,3 +538,435 @@ def _softmax(data, axis=-1, temperature=None, **kw):
     if t and t != 1.0:
         data = data / t
     return torch.softmax(data, dim=paxis(axis, -1))
+
+
+# ---------------------------------------------------------------------------
+# softmin, smooth_l1, khatri_rao, scatter arithmetic
+# ---------------------------------------------------------------------------
+
+
+@register("softmin")
+def _softmin(data, axis=-1, **kw):
+    return torch.softmax(-data, dim=paxis(axis, -1))
+
+
+@register("smooth_l1")
+def _smooth_l1(data, scalar=1.0, **kw):
+    s2 = pfloat(scalar, 1.0) ** 2
+    absd = torch.abs(data)
+    return torch.where(absd < 1.0 / s2, 0.5 * s2 * torch.square(data),
+                       absd - 0.5 / s2)
+
+
+@register("khatri_rao", num_inputs=-1)
+def _khatri_rao(*mats, **kw):
+    """Column-wise Kronecker product of matrices with equal columns."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = torch.einsum("ij,kj->ikj", out, m).reshape(-1, out.shape[1])
+    return out
+
+
+# the reference keeps these for sparse storage; on dense arrays they are
+# the plain ops (mxnet_tpu/ops/tensor.py:833-857)
+register("_scatter_elemwise_div", num_inputs=2)(
+    lambda lhs, rhs, **kw: lhs / rhs)
+register("_scatter_plus_scalar")(
+    lambda data, scalar=0.0, **kw: data + pfloat(scalar, 0.0))
+register("_scatter_minus_scalar")(
+    lambda data, scalar=0.0, **kw: data - pfloat(scalar, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# linalg_* (reference: src/operator/tensor/la_op.cc; torch.linalg, which
+# runs LAPACK on the host and cuSOLVER/cuBLAS on the card)
+# ---------------------------------------------------------------------------
+
+
+def _t(x):
+    return x.transpose(-1, -2)
+
+
+@register("_linalg_gemm", num_inputs=3, aliases=("linalg_gemm",))
+def _linalg_gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
+                 beta=1.0, axis=-3, **kw):
+    A = _t(A) if pbool(transpose_a) else A
+    B = _t(B) if pbool(transpose_b) else B
+    return pfloat(alpha, 1.0) * torch.matmul(A, B) + pfloat(beta, 1.0) * C
+
+
+@register("_linalg_gemm2", num_inputs=2, aliases=("linalg_gemm2",))
+def _linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0,
+                  **kw):
+    A = _t(A) if pbool(transpose_a) else A
+    B = _t(B) if pbool(transpose_b) else B
+    return pfloat(alpha, 1.0) * torch.matmul(A, B)
+
+
+register("_linalg_potrf", aliases=("linalg_potrf",))(
+    lambda A, **kw: torch.linalg.cholesky(A))
+register("_linalg_syrk", aliases=("linalg_syrk",))(
+    lambda A, transpose=False, alpha=1.0, **kw:
+        pfloat(alpha, 1.0) * (torch.matmul(_t(A), A) if pbool(transpose)
+                              else torch.matmul(A, _t(A))))
+register("_linalg_sumlogdiag", aliases=("linalg_sumlogdiag",))(
+    lambda A, **kw: torch.sum(torch.log(torch.diagonal(A, 0, -2, -1)), -1))
+register("_linalg_extractdiag", aliases=("linalg_extractdiag",))(
+    lambda A, offset=0, **kw: torch.diagonal(A, pint(offset, 0), -2, -1))
+
+
+def _solve_tri(A, B, lower):
+    """X with tri(A) X = B, tri(A) the lower (or upper) triangle of A."""
+    tri = torch.tril(A) if lower else torch.triu(A)
+    return torch.linalg.solve_triangular(tri, B, upper=not lower)
+
+
+@register("_linalg_trsm", num_inputs=2, aliases=("linalg_trsm",))
+def _linalg_trsm(A, B, transpose=False, rightside=False, lower=True,
+                 alpha=1.0, **kw):
+    """alpha op(A)^-1 B, or alpha B op(A)^-1 with ``rightside``; A lower
+    (or upper) triangular, op(A) = A^T with ``transpose``."""
+    lower = pbool(lower, True)
+    if pbool(transpose):
+        A, lower = _t(A), not lower
+    B = pfloat(alpha, 1.0) * B
+    if pbool(rightside):
+        return _t(_solve_tri(_t(A), _t(B), not lower))
+    return _solve_tri(A, B, lower)
+
+
+@register("_linalg_trmm", num_inputs=2, aliases=("linalg_trmm",))
+def _linalg_trmm(A, B, transpose=False, rightside=False, lower=True,
+                 alpha=1.0, **kw):
+    """alpha op(A) B, or alpha B op(A) with ``rightside``."""
+    tri = torch.tril(A) if pbool(lower, True) else torch.triu(A)
+    if pbool(transpose):
+        tri = _t(tri)
+    prod = torch.matmul(B, tri) if pbool(rightside) else torch.matmul(tri, B)
+    return pfloat(alpha, 1.0) * prod
+
+
+@register("_linalg_potri", aliases=("linalg_potri",))
+def _linalg_potri(A, lower=True, **kw):
+    """inv(A A^T) from the Cholesky factor A (lower), inv(A^T A) for an
+    upper one: two triangular solves against I."""
+    lo = pbool(lower, True)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    Ainv = _solve_tri(A, eye.expand(A.shape), lo)
+    return torch.matmul(_t(Ainv), Ainv) if lo else torch.matmul(Ainv, _t(Ainv))
+
+
+@register("_linalg_gelqf", num_outputs=2, aliases=("linalg_gelqf",))
+def _linalg_gelqf(A, **kw):
+    """A = L Q with row-orthonormal Q, as the transposed QR of A^T.  The
+    rows' signs are the factorization library's."""
+    q, r = torch.linalg.qr(_t(A), mode="reduced")
+    return _t(q), _t(r)
+
+
+@register("_linalg_syevd", num_outputs=2, aliases=("linalg_syevd",))
+def _linalg_syevd(A, **kw):
+    """(U, L) with U A = diag(L) U: U's rows are the eigenvectors
+    (ascending L), each up to sign."""
+    w, v = torch.linalg.eigh(A)
+    return _t(v), w
+
+
+# ---------------------------------------------------------------------------
+# shape manipulation and slicing
+# ---------------------------------------------------------------------------
+
+
+@register("moveaxis")
+def _moveaxis(data, source=0, destination=0, **kw):
+    return torch.movedim(data, paxis(source), paxis(destination))
+
+
+def _opt_tuple(v):
+    """A begin/end/step attribute as a tuple whose entries may be None."""
+    if v is None:
+        return ()
+    if isinstance(v, str):
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, np.integer)):
+        v = (v,)
+    return tuple(None if x is None else int(x) for x in v)
+
+
+def _axis_slice(data, axis, begin, end, step):
+    """``data`` sliced on ``axis`` as Python slices it, negative steps
+    included (torch's slicing takes positive steps only)."""
+    start, stop, step = slice(begin, end, step).indices(data.shape[axis])
+    if step > 0:
+        return data[(slice(None),) * axis + (slice(start, stop, step),)]
+    idx = torch.arange(start, stop, step, device=data.device)
+    return torch.index_select(data, axis, idx)
+
+
+@register("slice", aliases=("crop",))
+def _slice(data, begin=None, end=None, step=None, **kw):
+    """Per-axis [begin:end:step]; missing or None entries take the whole
+    axis."""
+    begin, end, step = _opt_tuple(begin), _opt_tuple(end), _opt_tuple(step)
+    for i in range(data.dim()):
+        b = begin[i] if i < len(begin) else None
+        e = end[i] if i < len(end) else None
+        s = step[i] if i < len(step) and step[i] != 0 else None
+        if (b, e, s) != (None, None, None):
+            data = _axis_slice(data, i, b, e, s)
+    return data
+
+
+@register("slice_like", num_inputs=2)
+def _slice_like(data, shape_like, axes=None, **kw):
+    axes = ptuple(axes)
+    if not axes:
+        axes = tuple(range(shape_like.dim()))
+    for a in axes:
+        a = normalize_axis(a, data.dim())
+        data = data.narrow(a, 0, shape_like.shape[a])
+    return data
+
+
+def _split_num_outputs(attrs):
+    return pint(attrs.get("num_outputs"), 1)
+
+
+@register("SliceChannel", num_outputs=_split_num_outputs,
+          aliases=("split",))
+def _split(data, num_outputs=1, axis=1, squeeze_axis=False, **kw):
+    num = pint(num_outputs, 1)
+    axis = normalize_axis(pint(axis, 1), data.dim())
+    if data.shape[axis] % num:
+        raise ValueError("cannot split axis %d of size %d into %d equal "
+                         "parts" % (axis, data.shape[axis], num))
+    parts = torch.split(data, data.shape[axis] // num, dim=axis)
+    if pbool(squeeze_axis):
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts) if num > 1 else parts[0]
+
+
+@register("tile")
+def _tile(data, reps=None, **kw):
+    return torch.tile(data, ptuple(reps))
+
+
+@register("repeat")
+def _repeat(data, repeats=1, axis=None, **kw):
+    """Each element ``repeats`` times along ``axis`` (the flattened array
+    when None)."""
+    return torch.repeat_interleave(data, pint(repeats, 1), dim=paxis(axis))
+
+
+@register("reverse", aliases=("flip",))
+def _reverse(data, axis=None, **kw):
+    ax = paxis(axis)
+    return torch.flip(data, ax if isinstance(ax, tuple) else (ax,))
+
+
+@register("depth_to_space")
+def _depth_to_space(data, block_size=1, **kw):
+    b = pint(block_size, 1)
+    n, c, h, w = data.shape
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def _space_to_depth(data, block_size=1, **kw):
+    b = pint(block_size, 1)
+    n, c, h, w = data.shape
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("diag")
+def _diag(data, k=0, axis1=0, axis2=1, **kw):
+    k = pint(k, 0)
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, k, pint(axis1, 0), pint(axis2, 1))
+
+
+# int32, as the JAX package's with x64 off
+register("shape_array", differentiable=False)(
+    lambda data, **kw: torch.tensor(data.shape, dtype=torch.int32,
+                                    device=data.device))
+register("size_array", differentiable=False)(
+    lambda data, **kw: torch.tensor([data.numel()], dtype=torch.int32,
+                                    device=data.device))
+
+
+# ---------------------------------------------------------------------------
+# indexing and scatter
+# ---------------------------------------------------------------------------
+
+
+@register("batch_take", num_inputs=2)
+def _batch_take(a, indices, **kw):
+    """a[i, indices[i]] for each row i."""
+    return torch.gather(a, 1, indices.to(torch.int64).reshape(-1, 1))[:, 0]
+
+
+@register("one_hot", differentiable=False)
+def _one_hot(indices, depth=0, on_value=1.0, off_value=0.0,
+             dtype="float32", **kw):
+    """One-hot rows along a new last axis; an index outside [0, depth)
+    gives a row of ``off_value``, as jax.nn.one_hot's zeros do."""
+    depth = pint(depth, 0)
+    hot = (indices.to(torch.int64).unsqueeze(-1)
+           == torch.arange(depth, device=indices.device)).to(pdtype(dtype))
+    off = pfloat(off_value, 0.0)
+    return hot * (pfloat(on_value, 1.0) - off) + off
+
+
+def _nd_index(indices):
+    idx = indices.to(torch.int64)
+    return tuple(idx[i] for i in range(idx.shape[0]))
+
+
+@register("gather_nd", num_inputs=2)
+def _gather_nd(data, indices, **kw):
+    """data[indices[0], ..., indices[M-1]] (indices of shape (M, ...))."""
+    return data[_nd_index(indices)]
+
+
+@register("scatter_nd", num_inputs=2, differentiable=False)
+def _scatter_nd(data, indices, shape=None, **kw):
+    out = torch.zeros(ptuple(shape), dtype=data.dtype, device=data.device)
+    return out.index_put(_nd_index(indices), data)
+
+
+# ---------------------------------------------------------------------------
+# init ops with no array input (the caller's context arrives as ``ctx``)
+# ---------------------------------------------------------------------------
+
+
+@register("_linspace", num_inputs=0, differentiable=False)
+def _linspace(start=0.0, stop=1.0, num=50, endpoint=True, dtype="float32",
+              ctx=None, **kw):
+    start, stop, num = pfloat(start, 0.0), pfloat(stop, 1.0), pint(num, 50)
+    if pbool(endpoint, True):
+        return torch.linspace(start, stop, num, dtype=pdtype(dtype),
+                              device=ctx)
+    return torch.linspace(start, stop, num + 1, dtype=pdtype(dtype),
+                          device=ctx)[:num]
+
+
+@register("_eye", num_inputs=0, differentiable=False)
+def _eye(N=0, M=0, k=0, dtype="float32", ctx=None, **kw):
+    n = pint(N, 0)
+    m = pint(M, 0) or n
+    rows = torch.arange(n, device=ctx)[:, None]
+    cols = torch.arange(m, device=ctx)[None, :]
+    return (cols - rows == pint(k, 0)).to(pdtype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# ordering (reference: ordering_op.cc); ties keep the JAX package's order
+# (a stable ascending sort, flipped for descending)
+# ---------------------------------------------------------------------------
+
+
+def _order_axis(data, axis):
+    ax = paxis_or_none(axis, -1)
+    if ax is None:              # flattened-input semantics
+        return data.reshape(-1), 0
+    return data, ax
+
+
+@register("sort", differentiable=False)
+def _sort(data, axis=-1, is_ascend=True, **kw):
+    data, ax = _order_axis(data, axis)
+    out = torch.sort(data, dim=ax, stable=True).values
+    return out if pbool(is_ascend, True) else torch.flip(out, (ax,))
+
+
+@register("argsort", differentiable=False)
+def _argsort(data, axis=-1, is_ascend=True, dtype="float32", **kw):
+    data, ax = _order_axis(data, axis)
+    out = torch.argsort(data, dim=ax, stable=True)
+    if not pbool(is_ascend, True):
+        out = torch.flip(out, (ax,))
+    return out.to(pdtype(dtype))
+
+
+def _topk_num_outputs(attrs):
+    return 2 if attrs.get("ret_typ", "indices") == "both" else 1
+
+
+@register("topk", num_outputs=_topk_num_outputs, differentiable=False)
+def _topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+          dtype="float32", **kw):
+    """The k largest (smallest with ``is_ascend``) along ``axis``: their
+    values, indices (in ``dtype``), a 0/1 mask of them, or both values
+    and indices."""
+    data, ax = _order_axis(data, axis)
+    ax = normalize_axis(ax, data.dim())
+    vals, idxs = torch.topk(data, pint(k, 1), dim=ax,
+                            largest=not pbool(is_ascend, False), sorted=True)
+    ret_typ = ret_typ or "indices"
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "indices":
+        return idxs.to(pdtype(dtype))
+    if ret_typ == "mask":
+        return torch.zeros_like(data).scatter(ax, idxs, 1)
+    return vals, idxs.to(pdtype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the reference's other names of these ops (mxnet_tpu/ops/tensor.py and the
+# reference's legacy operator names)
+# ---------------------------------------------------------------------------
+
+_ALIASES = {
+    "elemwise_add": ("_Plus", "_plus", "_grad_add"),
+    "elemwise_sub": ("_Minus", "_minus"),
+    "elemwise_mul": ("_Mul",),
+    "elemwise_div": ("_Div",),
+    "broadcast_add": ("broadcast_plus",),
+    "broadcast_sub": ("broadcast_minus",),
+    "broadcast_mod": ("_Mod", "_mod"),
+    "broadcast_power": ("_Power", "_power"),
+    "broadcast_maximum": ("_Maximum", "_maximum"),
+    "broadcast_minimum": ("_Minimum", "_minimum"),
+    "broadcast_hypot": ("_Hypot", "_hypot"),
+    "broadcast_equal": ("_Equal", "_equal"),
+    "broadcast_not_equal": ("_Not_Equal", "_not_equal"),
+    "broadcast_greater": ("_Greater", "_greater"),
+    "broadcast_greater_equal": ("_Greater_Equal", "_greater_equal"),
+    "broadcast_lesser": ("_Lesser", "_lesser"),
+    "broadcast_lesser_equal": ("_Lesser_Equal", "_lesser_equal"),
+    "broadcast_logical_and": ("_Logical_And", "_logical_and"),
+    "broadcast_logical_or": ("_Logical_Or", "_logical_or"),
+    "broadcast_logical_xor": ("_Logical_Xor", "_logical_xor"),
+    "_plus_scalar": ("_PlusScalar",),
+    "_minus_scalar": ("_MinusScalar",),
+    "_rminus_scalar": ("_RMinusScalar",),
+    "_mul_scalar": ("_MulScalar",),
+    "_div_scalar": ("_DivScalar",),
+    "_rdiv_scalar": ("_RDivScalar",),
+    "_mod_scalar": ("_ModScalar",),
+    "_rmod_scalar": ("_RModScalar",),
+    "_power_scalar": ("_PowerScalar",),
+    "_rpower_scalar": ("_RPowerScalar",),
+    "_maximum_scalar": ("_MaximumScalar",),
+    "_minimum_scalar": ("_MinimumScalar",),
+    "_hypot_scalar": ("_HypotScalar",),
+    "_equal_scalar": ("_EqualScalar",),
+    "_not_equal_scalar": ("_NotEqualScalar",),
+    "_greater_scalar": ("_GreaterScalar",),
+    "_greater_equal_scalar": ("_GreaterEqualScalar",),
+    "_lesser_scalar": ("_LesserScalar",),
+    "_lesser_equal_scalar": ("_LesserEqualScalar",),
+    "_logical_and_scalar": ("_LogicalAndScalar",),
+    "_logical_or_scalar": ("_LogicalOrScalar",),
+    "_logical_xor_scalar": ("_LogicalXorScalar",),
+    "Concat": ("_rnn_param_concat",),
+}
+for _name, _names in _ALIASES.items():
+    for _a in _names:
+        alias(_name, _a)

@@ -68,6 +68,15 @@ def paxis(v, default=None):
     return int(v)
 
 
+def paxis_or_none(v, default):
+    """Like paxis, but an explicit None (or 'None') stays None, the
+    ordering ops' "flatten the input" marker, while an absent attribute
+    takes ``default``."""
+    if v is None or (isinstance(v, str) and v.strip() in ("None", "")):
+        return None
+    return paxis(v, default)
+
+
 def normalize_axis(axis, ndim):
     if axis < 0:
         axis += ndim

@@ -1,11 +1,13 @@
 """The port stands alone: importing mxnet_tpu_torch (with its parallel
 engines, flash-attention op, generation engine and LM, the optimizers
-and their update ops, lr_scheduler, metric, gluon.utils and the
-train_imagenet example), building a full resnet50_v1 and every zoo
-network on the CPU, training two steps through the train_imagenet
-entry, and admitting into and decoding with a tiny LM's
-GenerationEngine loads neither jax nor mxnet_tpu, and chip_smoke.py
-imports neither.  The import check runs in a subprocess because this
+and their update ops, lr_scheduler, metric, gluon.utils, the engine,
+runtime and util modules, legacy_io, the random ops, the model store and
+the train_imagenet and dcgan examples), building a full resnet50_v1 and
+every zoo network on the CPU, training two steps through the
+train_imagenet entry, saving a network's parameters in both formats and
+loading them through get_model(pretrained=True) from a local root, and
+admitting into and decoding with a tiny LM's GenerationEngine loads
+neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -42,6 +44,31 @@ assert res["losses"].shape == (2,)
 metric = mx.metric.create(["acc", "ce"])
 metric.update([mx.nd.array(np.array([1.0]), ctx=mx.cpu())],
               [mx.nd.array(np.array([[0.2, 0.8]]), ctx=mx.cpu())])
+import tempfile
+import mxnet_tpu_torch.engine
+import mxnet_tpu_torch.runtime
+import mxnet_tpu_torch.util
+import mxnet_tpu_torch.ndarray.legacy_io
+import mxnet_tpu_torch.ops.random_ops
+from mxnet_tpu_torch.gluon.model_zoo import model_store
+from mxnet_tpu_torch.examples import dcgan
+with tempfile.TemporaryDirectory() as root:
+    for fmt in ("npz", "binary"):
+        with mx.name.NameManager():
+            src = vision.get_model("mobilenet0.25", classes=4)
+        src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        x = mx.nd.array(np.ones((1, 3, 32, 32), np.float32), ctx=mx.cpu())
+        src(x)
+        mx.nd.save(root + "/mobilenet0.25.params",
+                   {k: p._reduce()
+                    for k, p in src._collect_params_with_prefix().items()},
+                   format=fmt)
+        with mx.name.NameManager():
+            net = vision.get_model("mobilenet0.25", classes=4,
+                                   pretrained=True, root=root, ctx=mx.cpu())
+        with mx.autograd.predict_mode():
+            assert (net(x).asnumpy() == src(x).asnumpy()).all()
+assert mx.runtime.Features().is_enabled("CPU")
 import mxnet_tpu_torch.generate
 from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
 lm = TransformerLM(vocab_size=32, d_model=16, n_heads=2, n_layers=1,

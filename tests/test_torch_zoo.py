@@ -64,11 +64,14 @@ def test_param_names_and_shapes_match_jax(name):
         == grad_reqs
 
 
-def test_get_model_refuses_pretrained_and_unknown_names():
-    with pytest.raises(MXNetError, match="not ported yet"):
-        tvision.get_model("resnet18_v1", pretrained=True)
-    with pytest.raises(MXNetError, match="not ported yet"):
-        tvision.densenet121(pretrained=True)
+def test_get_model_refuses_pretrained_and_unknown_names(tmp_path,
+                                                        monkeypatch):
+    # pretrained=True with no weights under root and no mirror
+    monkeypatch.delenv("MXNET_GLUON_REPO", raising=False)
+    with pytest.raises(MXNetError, match="no download mirror"):
+        tvision.get_model("resnet18_v1", pretrained=True, root=str(tmp_path))
+    with pytest.raises(MXNetError, match="no download mirror"):
+        tvision.densenet121(pretrained=True, root=str(tmp_path))
     with pytest.raises(ValueError, match="not supported"):
         tvision.get_model("resnet19_v1")
 
