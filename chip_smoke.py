@@ -155,13 +155,37 @@ non-zero, printing no result, without them.  Phases, one line each:
    within 6 standard errors of its mean and variance, a reseed bit-equal;
    examples/dcgan.py's port 24 steps with D's loss falling; faults 4-6
    on the card; no hand-written kernel launched;
-12. flash times: each kernel, the plain version and
+12. data: the data pipeline on 512 JPEG images at ImageNet's shape
+   (short side 256, long 256-341, quality 90, labels from a seed) that
+   the port's recordio writes with PIL (the codec, file size and write
+   time printed).  ImageRecordIter at examples/train_imagenet.py's
+   settings (3x224x224, batch 128, shuffle, rand_crop, rand_mirror,
+   prefetch_buffer 4) over 2 epochs on the card: images/s by epoch,
+   preprocess_threads, os.cpu_count() and the batches each decoder
+   produced; every batch (pixels, labels, pad) bit for bit the same
+   iterator's on the CPU; an epoch normalized with ImageNet's mean/std
+   and a scale within 1e-6 x max|ref| of the CPU's; then the native
+   decoder's centre-crop configuration (images/s) or, where the native
+   runtime did not build, native.load_error().  The example's
+   --data-train loop at full width (resnet50_v1, classes 1000, Xavier,
+   sgd lr 0.1 momentum 0.9 wd 1e-4, kvstore device, batch 128, 2 epochs,
+   f32 with TF32 off): images/s by epoch, step and next() medians,
+   accuracy in [0, 1], every loss finite, state on the card, peak
+   memory; the loop's steps 1-3 under torch.profiler (the card's idle
+   share, the host's wait in next() a step); --benchmark 1 at the same network and
+   batch beside it.  A DataLoader(ImageRecordDataset(rec).transform_first(
+   CenterCrop, ToTensor, Normalize), batch 64, 4 workers, pin_memory,
+   device_prefetch 2) into the one-card ShardedTrainer (resnet50_v1,
+   bf16_mixed) for 4 steps: batches on the card bit-equal to the same
+   loader's on the CPU, losses finite, images/s.  No hand-written kernel
+   launched;
+13. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-13. the whole script's wall time, then a {"kernels": [...]} line;
-14. last line: {"ok": true, "device": {...}}.
+14. the whole script's wall time, then a {"kernels": [...]} line;
+15. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -312,6 +336,27 @@ IMP_DCGAN_STEPS, IMP_DCGAN_BATCH = 24, 32
 IMP_UPDATE_REL, IMP_SO_REL, IMP_F16_TOL, IMP_OP_REL = 1e-6, 1e-4, 5e-2, 1e-5
 IMP_LINALG_REL = {"linalg_potrf": 1e-4, "linalg_potri": 1e-4,
                   "linalg_trsm": 1e-4}
+# the data phase: 512 JPEG images at ImageNet's shape (3 channels, short
+# side 256, long side 256-341, quality 90, labels in [0, 1000) from a
+# seed; smooth colour fields plus noise, ~40 KB each), read by
+# ImageRecordIter at examples/train_imagenet.py's settings (3x224x224,
+# batch 128, shuffle, rand_crop, rand_mirror) over 2 epochs with
+# prefetch_buffer 4; its normalized run uses ImageNet's mean and std and
+# a scale.  The example's --data-train loop at full width (resnet50_v1,
+# classes 1000, sgd lr 0.1 momentum 0.9 wd 1e-4, kvstore device, f32 with
+# TF32 off) for 2 epochs, 3 more steps under the profiler, and
+# --benchmark 1 at the same network and batch for 8 steps; a DataLoader
+# (4 workers, pinned, device_prefetch 2) at batch 64 into the one-card
+# ShardedTrainer under bf16_mixed for 4 steps.  Bounds: card batches
+# bit-equal to the CPU's (pixels, labels, the loader's batches); the
+# normalized data within 1e-6 x max|ref| of the CPU's
+DATA_IMAGES, DATA_SHORT, DATA_LONG, DATA_QUALITY = 512, 256, (256, 342), 90
+DATA_SHAPE, DATA_BATCH, DATA_EPOCHS, DATA_PREFETCH = (3, 224, 224), 128, 2, 4
+DATA_MEAN, DATA_STD, DATA_SCALE = (123.68, 116.28, 103.53), \
+    (58.395, 57.12, 57.375), 1.0 / 0.95
+DATA_PROFILE_STEPS, DATA_BENCH_STEPS = 3, 8
+DATA_LOADER_BATCH, DATA_LOADER_WORKERS, DATA_LOADER_STEPS = 64, 4, 4
+DATA_NORM_REL = 1e-6
 
 
 def check(cond, msg):
@@ -2817,6 +2862,312 @@ def phase_imperative(card):
           % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data pipeline
+# ---------------------------------------------------------------------------
+
+
+def data_image(rng):
+    """One ImageNet-shaped image: a smooth random colour field (bicubic
+    from a 32x coarser grid) plus uniform noise of +-34 levels."""
+    from PIL import Image
+
+    long_side = int(rng.randint(*DATA_LONG))
+    h, w = (DATA_SHORT, long_side) if rng.rand() < 0.5 else \
+        (long_side, DATA_SHORT)
+    base = (rng.rand(h // 32 + 1, w // 32 + 1, 3) * 255).astype(np.uint8)
+    img = np.asarray(Image.fromarray(base).resize((w, h), Image.BICUBIC),
+                     np.float32)
+    img += rng.randint(-34, 35, img.shape, dtype=np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def data_records(card, root):
+    """The phase's .rec/.idx through the port's recordio (PIL's JPEG
+    encoder); returns the .rec path."""
+    import PIL
+    from PIL import features
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    rec, idx = os.path.join(root, "train.rec"), os.path.join(root,
+                                                              "train.idx")
+    labels = np.random.RandomState(0).randint(1000, size=DATA_IMAGES)
+
+    def record(i):  # image i from its own seed; PIL releases the GIL
+        return mx.recordio.pack_img(
+            (0, float(labels[i]), i, 0),
+            data_image(np.random.RandomState(1 + i)), quality=DATA_QUALITY)
+
+    t0 = time.perf_counter()
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        for i, buf in enumerate(pool.map(record, range(DATA_IMAGES))):
+            w.write_idx(i, buf)
+    w.close()
+    write_s = time.perf_counter() - t0
+    try:
+        import cv2
+        cv = "cv2 %s" % cv2.__version__
+    except ImportError:
+        cv = "no cv2"
+    print("data records: %d JPEG images, short side %d, long %d-%d, quality "
+          "%d, labels in [0, 1000) from a seed | written by PIL %s (libjpeg "
+          "%s; mx.image.imdecode would use %s) | .rec %.1f MB in %.2f s | "
+          "%s" % (DATA_IMAGES, DATA_SHORT, DATA_LONG[0], DATA_LONG[1] - 1,
+                  DATA_QUALITY, PIL.__version__, features.version("jpg"),
+                  cv, os.path.getsize(rec) / 2 ** 20, write_s, card),
+          flush=True)
+    return rec
+
+
+def data_epochs(it, epochs, keep):
+    """``epochs`` epochs of ``it``, each after reset(): (images/s per
+    epoch, the batches as host (data, label, pad) when ``keep``)."""
+    rates, out = [], []
+    for _ in range(epochs):
+        it.reset()
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for b in it:
+            n += b.data[0].shape[0]
+            if keep:
+                out.append((b.data[0]._data.cpu(), b.label[0]._data.cpu(),
+                            b.pad))
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    return rates, out
+
+
+def data_iter_check(card, rec):
+    """ImageRecordIter alone on the card against the same iterator on the
+    CPU: the example's settings bit for bit over 2 epochs, a normalized
+    epoch within DATA_NORM_REL, then the native decoder's configuration."""
+    common = dict(path_imgrec=rec, data_shape=DATA_SHAPE,
+                  batch_size=DATA_BATCH, shuffle=True, rand_crop=True,
+                  rand_mirror=True, prefetch_buffer=DATA_PREFETCH)
+    card_it = mx.io.ImageRecordIter(ctx=mx.gpu(0), **common)
+    rates, got = data_epochs(card_it, DATA_EPOCHS, True)
+    cpu_it = mx.io.ImageRecordIter(ctx=mx.cpu(), **common)
+    _, want = data_epochs(cpu_it, DATA_EPOCHS, True)
+    check(len(got) == len(want) == DATA_EPOCHS * -(-DATA_IMAGES
+                                                   // DATA_BATCH),
+          "iterator: %d card and %d CPU batches" % (len(got), len(want)))
+    for k, ((gd, gl, gp), (wd, wl, wp)) in enumerate(zip(got, want)):
+        check(torch.equal(gd, wd) and torch.equal(gl, wl) and gp == wp,
+              "iterator: batch %d on the card differs from the CPU's" % k)
+    check(bool(((got[0][0] >= 0) & (got[0][0] <= 255)
+                & (got[0][0] == got[0][0].round())).all()),
+          "iterator: the example's batch is not its uint8 pixels")
+    norm = dict(common, mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1],
+                mean_b=DATA_MEAN[2], std_r=DATA_STD[0], std_g=DATA_STD[1],
+                std_b=DATA_STD[2], scale=DATA_SCALE)
+    _, gn = data_epochs(mx.io.ImageRecordIter(ctx=mx.gpu(0), **norm), 1,
+                        True)
+    _, wn = data_epochs(mx.io.ImageRecordIter(ctx=mx.cpu(), **norm), 1,
+                        True)
+    norm_err = max(float((g[0] - w[0]).abs().max() / w[0].abs().max())
+                   for g, w in zip(gn, wn))
+    check(norm_err <= DATA_NORM_REL, "iterator: normalized data %.3g of "
+          "max|ref| from the CPU's" % norm_err)
+    print("data iter: ImageRecordIter 3x%dx%d batch %d shuffle rand_crop "
+          "rand_mirror, prefetch_buffer %d, preprocess_threads %d, "
+          "os.cpu_count() %d | %s img/s by epoch | decoders: %s | %d "
+          "batches bit-equal to the CPU iterator's (pixels, labels, pad) | "
+          "normalized (ImageNet mean/std, scale %.4f) within %.2g of "
+          "max|ref| of the CPU's | %s"
+          % (DATA_SHAPE[1], DATA_SHAPE[2], DATA_BATCH, DATA_PREFETCH,
+             card_it._nthreads, os.cpu_count(),
+             " / ".join("%.1f" % r for r in rates), card_it._decoded,
+             len(got), DATA_SCALE, norm_err, card), flush=True)
+    card_it.close()
+    cpu_it.close()
+    if mx.native.available():
+        nat = mx.io.ImageRecordIter(path_imgrec=rec, data_shape=DATA_SHAPE,
+                                    batch_size=DATA_BATCH, ctx=mx.gpu(0))
+        nat_rates, _ = data_epochs(nat, 1, False)
+        check(nat._decoded["native"] > 0, "the native configuration "
+              "decoded no batch natively: %s" % nat._decoded)
+        print("data native: centre-crop 3x%dx%d batch %d on the native "
+              "decoder (libjpeg on %d C++ threads) | %.1f img/s | decoders: "
+              "%s | pool %s | %s"
+              % (DATA_SHAPE[1], DATA_SHAPE[2], DATA_BATCH, nat._nthreads,
+                 nat_rates[0], nat._decoded, mx.storage.pool_stats(), card),
+              flush=True)
+        nat.close()
+    else:
+        print("data native: the native runtime did not build, so every "
+              "configuration takes the Python (PIL) decoder: %s | %s"
+              % (mx.native.load_error(), card), flush=True)
+    return rates
+
+
+def data_loop(card, rec):
+    """examples/train_imagenet.py --data-train at full width, beside
+    --benchmark 1; the loop's own steps 1-DATA_PROFILE_STEPS (the first
+    epoch after its first batch) under torch.profiler, started and
+    stopped by train()'s step_hook."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    window = range(1, 1 + DATA_PROFILE_STEPS)
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+
+    def step_hook(i):  # after step i's synchronize
+        if i == window[0] - 1:
+            prof.start()
+        elif i == window[-1]:
+            prof.stop()
+
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_imagenet.train(
+        ["--data-train", rec, "--network", "resnet50_v1", "--batch-size",
+         str(DATA_BATCH), "--num-epochs", str(DATA_EPOCHS)],
+        step_hook=step_hook)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, epochs = res["losses"], res["epochs"]
+    check(np.isfinite(losses).all(), "data loop: non-finite loss %s"
+          % losses)
+    check(all(0.0 <= e["accuracy"] <= 1.0 for e in epochs),
+          "data loop: accuracy outside [0, 1]: %s" % epochs)
+    steps = DATA_EPOCHS * -(-DATA_IMAGES // DATA_BATCH)
+    check(losses.shape == (steps,), "data loop: %d steps, not %d"
+          % (losses.size, steps))
+    net, trainer = res["net"], res["trainer"]
+    check(on_card(trainer, net), "data loop: state off the card")
+    wall_ms = 1e3 * sum(res["step_s"][i] for i in window)
+    wait_ms = 1e3 * sum(res["data_wait_s"][i] for i in window)
+    rows = [(ev.count, _self_device_us(ev)) for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    card_ms = sum(us for _, us in rows) / 1e3
+    if card_ms:
+        prof_text = ("steps %d-%d under torch.profiler: %d kernels, %.1f ms "
+                     "on the card of %.1f ms: idle %.1f%%; next() waited "
+                     "%.2f ms a step"
+                     % (window[0], window[-1], sum(c for c, us in rows if us),
+                        card_ms, wall_ms,
+                        100 * max(0.0, 1 - card_ms / wall_ms),
+                        wait_ms / len(window)))
+    else:
+        prof_text = "profile not measured (torch.profiler recorded no " \
+                    "device time)"
+    plain_s = [t for i, t in enumerate(res["step_s"]) if i not in window]
+    del net, trainer, res["iterator"]
+    torch.cuda.empty_cache()
+    bench = train_imagenet.train(
+        ["--benchmark", "1", "--network", "resnet50_v1", "--batch-size",
+         str(DATA_BATCH), "--steps", str(DATA_BENCH_STEPS)])
+    check(np.isfinite(bench["losses"]).all(), "data loop: --benchmark 1 "
+          "gave a non-finite loss")
+    print("data loop: train_imagenet --data-train resnet50_v1 3x%dx%d batch "
+          "%d, %d epochs of %d images (f32, TF32 off, sgd lr 0.1 momentum "
+          "0.9 wd 1e-4, kvstore device) | %s img/s by epoch (the first "
+          "carries the first step and the profiler's start and stop) | "
+          "first step "
+          "%.2f s, step median %.2f ms (unprofiled steps), next() median "
+          "%.2f ms, at each epoch's first batch %s ms | accuracy %s | peak "
+          "%.2f GB | %s "
+          "| --benchmark 1 at the same network and batch: %.1f img/s, step "
+          "median %.2f ms | losses %s | %s"
+          % (DATA_SHAPE[1], DATA_SHAPE[2], DATA_BATCH, DATA_EPOCHS,
+             DATA_IMAGES, " / ".join("%.1f" % e["images_per_sec"]
+                                     for e in epochs),
+             res["step_s"][0], 1e3 * statistics.median(plain_s),
+             1e3 * statistics.median(res["data_wait_s"]),
+             " / ".join("%.1f" % (1e3 * res["data_wait_s"][i])
+                        for i in range(0, steps, steps // DATA_EPOCHS)),
+             ["%.4f" % e["accuracy"] for e in epochs], peak, prof_text,
+             bench["images_per_sec"], 1e3 * statistics.median(
+                 bench["step_s"]), ["%.3f" % v for v in losses], card),
+          flush=True)
+    del bench
+    torch.cuda.empty_cache()
+
+
+def data_loader(card, rec):
+    """DataLoader(ImageRecordDataset(rec).transform_first(...), pinned, 4
+    workers, device_prefetch 2) into the one-card ShardedTrainer under
+    bf16_mixed; its card batches against the same loader's on the CPU."""
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import (ImageRecordDataset,
+                                                   transforms)
+
+    tf = transforms.Compose([
+        transforms.CenterCrop(DATA_SHAPE[1]), transforms.ToTensor(),
+        transforms.Normalize([m / 255 for m in DATA_MEAN],
+                             [s / 255 for s in DATA_STD])])
+    ds = ImageRecordDataset(rec).transform_first(tf)
+    n = DATA_LOADER_STEPS * DATA_LOADER_BATCH
+    sub = ds.take(n)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = parallel.ShardedTrainer(
+        net, lambda o, l: loss_fn(o, l), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+        dtype_policy="bf16_mixed")
+    loader = DataLoader(sub, batch_size=DATA_LOADER_BATCH,
+                        num_workers=DATA_LOADER_WORKERS, pin_memory=True,
+                        device_prefetch=2)
+    got, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in loader:
+        check(x.is_cuda and y.is_cuda, "loader: a batch off the card")
+        losses.append(trainer.step([x], y))
+        got.append((x.cpu(), y.cpu()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    check(len(got) == DATA_LOADER_STEPS, "loader: %d batches" % len(got))
+    check(np.isfinite(losses).all(), "loader: non-finite loss %s" % losses)
+    t0 = time.perf_counter()
+    want = list(DataLoader(sub, batch_size=DATA_LOADER_BATCH,
+                           num_workers=DATA_LOADER_WORKERS))
+    loader_rate = n / (time.perf_counter() - t0)
+    for k, ((gx, gy), (wx, wy)) in enumerate(zip(got, want)):
+        check(torch.equal(gx, wx._data) and torch.equal(gy, wy._data),
+              "loader: batch %d on the card differs from the CPU's" % k)
+    print("data loader: DataLoader(ImageRecordDataset.transform_first("
+          "CenterCrop %d, ToTensor, Normalize), batch %d, %d workers, "
+          "pin_memory, device_prefetch 2) -> ShardedTrainer resnet50_v1 "
+          "bf16_mixed, %d steps | %.1f img/s (the first step builds the "
+          "trainer); the same loader alone on the host %.1f img/s | batches "
+          "bit-equal to the loader's on the CPU | losses %s | %s"
+          % (DATA_SHAPE[1], DATA_LOADER_BATCH, DATA_LOADER_WORKERS,
+             DATA_LOADER_STEPS, n / wall, loader_rate,
+             ["%.4f" % v for v in losses], card), flush=True)
+    del net, trainer
+    torch.cuda.empty_cache()
+
+
+def phase_data(card):
+    """The data pipeline: records, ImageRecordIter, the example's
+    --data-train loop and a DataLoader into ShardedTrainer (see the
+    module doc, phase 12)."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    root = tempfile.mkdtemp(prefix="data_")
+    try:
+        rec = data_records(card, root)
+        data_iter_check(card, rec)
+        data_loop(card, rec)
+        data_loader(card, rec)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the data path launched %s"
+          % launched)
+    print("data: hand-written kernels launched on the data path: %s (none "
+          "is on it) | phase %.1f s | %s"
+          % (launched, time.perf_counter() - t_phase, card), flush=True)
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -2882,6 +3233,8 @@ def main():
     phase_zoo(card)
     torch.cuda.empty_cache()
     phase_imperative(card)
+    torch.cuda.empty_cache()
+    phase_data(card)
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):

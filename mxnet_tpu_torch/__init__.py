@@ -27,7 +27,15 @@ both formats, ``autograd.grad`` and ``Function``, the ``engine`` facade,
 random ops of the registry and ``mx.random``'s samplers) and the weight
 store (``Parameter``/``Block`` save, load, cast and ``reset_ctx``, the
 initializers, ``gluon.utils.download`` and ``model_zoo.model_store``
-behind ``get_model(pretrained=True)``), with ``examples.dcgan``.
+behind ``get_model(pretrained=True)``), with ``examples.dcgan``; and the
+data pipeline: ``recordio``, ``image`` (decode, augmenters, ``ImageIter``,
+the detection augmenters and ``ImageDetIter``), ``io`` (``NDArrayIter``,
+the file iterators, ``ImageRecordIter`` with its uint8 upload and
+normalization on the card, ``DevicePrefetcher``), ``native`` and
+``storage`` (the C++ record reader and JPEG batch decoder, built on
+first use into ``_build/``) and ``gluon.data`` (datasets, samplers,
+``DataLoader``, vision datasets and transforms), behind
+``examples.train_imagenet --data-train``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -54,3 +62,8 @@ from . import convert  # noqa: F401
 from . import parallel  # noqa: F401
 from . import serving_async  # noqa: F401
 from . import generate  # noqa: F401
+from . import recordio  # noqa: F401
+from . import native  # noqa: F401
+from . import storage  # noqa: F401
+from . import image  # noqa: F401
+from . import io  # noqa: F401

@@ -25,6 +25,15 @@ def _pfloat(v):
 
 # name -> (default, parser, note)
 FLAGS = {
+    "MXNET_CPU_WORKER_NTHREADS": (
+        "4", _pint,
+        "default preprocess_threads of io.ImageRecordIter: the decode "
+        "and augment thread pool, and the native decoder's C++ threads"),
+    "MXNET_DEVICE_PREFETCH": (
+        "2", _pint,
+        "default depth of io.DevicePrefetcher: batches whose host-to-card "
+        "copy is staged ahead of the consuming train step; 0 makes the "
+        "wrapper a passthrough that copies inline"),
     "MXNET_ENGINE_TYPE": (
         "ThreadedEnginePerDevice", str,
         "NaiveEngine synchronizes the card after every op (the reference's "

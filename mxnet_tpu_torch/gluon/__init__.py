@@ -6,3 +6,4 @@ from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import utils  # noqa: F401
+from . import data  # noqa: F401

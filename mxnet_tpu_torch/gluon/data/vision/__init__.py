@@ -1,0 +1,2 @@
+from .datasets import *  # noqa: F401,F403
+from . import transforms  # noqa: F401

@@ -449,6 +449,15 @@ class ShardedTrainer:
         for p, t in zip(self._params, self.param_arrays):
             p.set_data(NDArray(t))
 
+    def shard_batch(self, *arrays):
+        """Each batch array (NDArray, tensor or numpy) as a tensor on the
+        trainer's device (parity: mxnet_tpu/parallel/train.py:637; one
+        card, so nothing is split), by ``io.prefetch.to_device``: a host
+        tensor is pinned and copied with ``non_blocking=True``."""
+        from ..io.prefetch import to_device
+
+        return [to_device(a, self._device) for a in arrays]
+
     # -- the step ----------------------------------------------------------
     def _stage(self, inputs, label):
         if not isinstance(inputs, (list, tuple)):

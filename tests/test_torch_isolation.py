@@ -6,8 +6,11 @@ the train_imagenet and dcgan examples), building a full resnet50_v1 and
 every zoo network on the CPU, training two steps through the
 train_imagenet entry, saving a network's parameters in both formats and
 loading them through get_model(pretrained=True) from a local root, and
-admitting into and decoding with a tiny LM's GenerationEngine loads
-neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
+admitting into and decoding with a tiny LM's GenerationEngine, and the
+data pipeline (mx.io, mx.image, mx.recordio, mx.native, mx.storage and
+mx.gluon.data: writing a small .rec, reading it through ImageRecordIter
+and a DataLoader, and one step of train_imagenet's --data-train loop)
+loads neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -78,6 +81,36 @@ eng = mxnet_tpu_torch.generate.GenerationEngine(
     lm, slots=2, cache_len=16, buckets=[8], device=mx.cpu())
 slot, tok = eng.admit([1, 2, 3])
 assert slot in eng.decode_step() and 0 <= tok < 32
+import mxnet_tpu_torch.io
+import mxnet_tpu_torch.image
+import mxnet_tpu_torch.recordio
+import mxnet_tpu_torch.native
+import mxnet_tpu_torch.storage
+import mxnet_tpu_torch.gluon.data
+from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset, transforms
+with tempfile.TemporaryDirectory() as root:
+    rec = root + "/t.rec"
+    w = mx.recordio.MXIndexedRecordIO(root + "/t.idx", rec, "w")
+    rng = np.random.RandomState(0)
+    for i in range(8):
+        img = rng.randint(0, 256, (40, 44, 3)).astype(np.uint8)
+        w.write_idx(i, mx.recordio.pack_img((0, float(i % 4), i, 0), img))
+    w.close()
+    it = mx.io.ImageRecordIter(path_imgrec=rec, data_shape=(3, 32, 32),
+                               batch_size=4, rand_crop=True, ctx=mx.cpu())
+    assert [b.data[0].shape for b in it] == [(4, 3, 32, 32)] * 2
+    it.close()
+    ds = ImageRecordDataset(rec).transform_first(transforms.ToTensor())
+    xb, yb = next(iter(mx.gluon.data.DataLoader(ds, batch_size=4,
+                                                num_workers=2)))
+    assert xb.shape == (4, 3, 40, 44)
+    res = train_imagenet.train(["--data-train", rec, "--network",
+                                "mobilenet0.25", "--num-classes", "4",
+                                "--image-shape", "3,32,32", "--batch-size",
+                                "8", "--num-epochs", "1"], ctx=mx.cpu())
+    assert res["losses"].shape == (1,)
+    mx.native.available()
+    mx.storage.pool_stats()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

@@ -96,7 +96,10 @@ def test_sharded_flag_trains_through_the_sharded_trainer():
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--data-train", "train.rec"], "not ported yet"),
+    # --data-train is ported (test_torch_train_imagenet_rec.py); its
+    # path keeps the guard of the distributed kvstores
+    (["--data-train", "train.rec", "--kv-store", "dist_sync"],
+     "not ported yet"),
     (["--kv-store", "dist_sync"], "not ported yet"),
     (["--kv-store", "dist_device_sync"], "not ported yet"),
 ])
