@@ -110,7 +110,8 @@ non-zero, printing no result, without them.  Phases, one line each:
    vgg16, resnet50_v2, densenet121, squeezenet1.1, mobilenet1.0 and
    mobilenetv2_1.0 at 3x224x224, inceptionv3 at 3x299x299; classes 1000,
    Xavier from a seed, batch 32, f32 with TF32 off) through the port's
-   examples/train_imagenet.py entry, --benchmark 1, sgd lr 0.01 momentum
+   examples/train_imagenet.py entry, --benchmark 1, eager
+   (train(hybridize=False); phase 13 measures hybridize()), sgd lr 0.01 momentum
    0.9, 1 warm-up + 5 steps: every loss finite, the last below the first
    for the families without Dropout, every step on the fused SGD update,
    parameters, gradients and optimizer states on the card; a 'zoo' line
@@ -167,7 +168,8 @@ non-zero, printing no result, without them.  Phases, one line each:
    and a scale within 1e-6 x max|ref| of the CPU's; then the native
    decoder's centre-crop configuration (images/s) or, where the native
    runtime did not build, native.load_error().  The example's
-   --data-train loop at full width (resnet50_v1, classes 1000, Xavier,
+   --data-train loop, eager (hybridize=False), at full width
+   (resnet50_v1, classes 1000, Xavier,
    sgd lr 0.1 momentum 0.9 wd 1e-4, kvstore device, batch 128, 2 epochs,
    f32 with TF32 off): images/s by epoch, step and next() medians,
    accuracy in [0, 1], every loss finite, state on the card, peak
@@ -179,19 +181,47 @@ non-zero, printing no result, without them.  Phases, one line each:
    bf16_mixed) for 4 steps: batches on the card bit-equal to the same
    loader's on the CPU, losses finite, images/s.  No hand-written kernel
    launched;
-13. flash times: each kernel, the plain version and
+13. symbolic: the symbolic API and hybridize(), f32 with TF32 off, on
+   idx-ubyte files of 2048 seeded digits whose labels can be learnt.
+   examples/train_mnist.py --api module: Module.fit of the MLP
+   (784-128-64-10, SoftmaxOutput, batch 64, sgd lr 0.05 momentum 0.9,
+   Xavier magnitude 2, a Speedometer) for 2 epochs, validation accuracy
+   above chance, the last epoch's img/s, and its first 3 updates'
+   parameters against the same updates of the port on the CPU (rtol
+   1e-5).  --api gluon: the hybridized LeNet's step 1 against the eager
+   block (logits within 1e-4 + 1e-4 |ref|, each gradient within 1e-3 of
+   its norm, floored at 1e-3 of the largest norm for the gradients whose
+   exact value is 0), then 1 warm-up + 10 steps with finite, falling
+   losses.
+   resnet50_v1 and squeezenet1.1 at full width (classes 1000, batch 32,
+   3x224x224 from a seed, sgd lr 0.01 momentum 0.9), eager against
+   hybridize(): compile seconds, graph breaks (0), the step median over
+   5 steps and img/s, kernels a step and the idle share over one
+   profiled step each way, step 1's logits and gradients (squeezenet1.1
+   in predict mode, its Dropout masks coming from two generators), and
+   BatchNorm's moving stats after 3 steps (the eager net taking the
+   hybridized net's weights before each) within 1e-4 + 1e-4 |ref|; each
+   of these within its bound or within 4x the same measure between the
+   eager net and an eager run with cuDNN off.
+   resnet50_v1 exported, loaded with SymbolBlock.imports (logits within
+   1e-5 + 1e-5 |ref| of the source's) and bound in a Module under a
+   SoftmaxOutput head (one forward_backward's gradients against the
+   gluon path's, as above), each also against an eager run with cuDNN
+   off; no hand-written kernel launched;
+14. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-14. the whole script's wall time, then a {"kernels": [...]} line;
-15. last line: {"ok": true, "device": {...}}.
+15. the whole script's wall time, then a {"kernels": [...]} line;
+16. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
 import functools
 import hashlib
 import json
+import logging
 import math
 import os
 import re
@@ -357,6 +387,32 @@ DATA_MEAN, DATA_STD, DATA_SCALE = (123.68, 116.28, 103.53), \
 DATA_PROFILE_STEPS, DATA_BENCH_STEPS = 3, 8
 DATA_LOADER_BATCH, DATA_LOADER_WORKERS, DATA_LOADER_STEPS = 64, 4, 4
 DATA_NORM_REL = 1e-6
+# the symbolic phase: examples/train_mnist.py's two paths (the MLP
+# 784-128-64-10 with SoftmaxOutput through Module.fit, Xavier magnitude
+# 2, and the hybridized LeNet), batch 64, sgd lr 0.05 momentum 0.9, over
+# idx-ubyte files of 2048 seeded digits (a class's prototype plus noise)
+# the phase writes: Module.fit 2 epochs, its first 3 updates again on
+# the CPU; LeNet 1 warm-up + 10 steps.  Then resnet50_v1 and
+# squeezenet1.1 at full width (classes 1000, batch 32, 3x224x224 from a
+# seed, sgd lr 0.01 momentum 0.9), eager against hybridize(): 3 steps
+# compared, 5 timed, 1 profiled each way; resnet50_v1 exported and
+# loaded back.  f32 with TF32 off.  Bounds: parameters card vs CPU
+# within 1e-5 x |ref| + 1e-6 x max|ref|; logits within 1e-4 + 1e-4 |ref|;
+# each gradient within 1e-3 of its norm, the norm floored at 1e-3 of the
+# largest (grad_rel); moving stats within 1e-4 + 1e-4 |ref|; the export's
+# logits within 1e-5 + 1e-5 |ref|.  For the zoo networks each measure
+# holds within its bound or within SYM_YARD x the same measure between
+# two eager runs of the network, cuDNN's and torch's own convolutions
+# (resnet50_v1 from Xavier is that sensitive to f32 rounding: PERF.md,
+# PR 13)
+SYM_IMAGES, SYM_BATCH, SYM_LR, SYM_EPOCHS = 2048, 64, 0.05, 2
+SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 10
+SYM_NETS = ("resnet50_v1", "squeezenet1.1")
+SYM_NET_BATCH, SYM_NET_LR, SYM_COMPARE_STEPS, SYM_TIMED_STEPS = \
+    32, 0.01, 3, 5
+SYM_PARAM_RTOL, SYM_LOGIT_TOL, SYM_GRAD_REL, SYM_STAT_TOL, SYM_EXPORT_TOL = \
+    1e-5, 1e-4, 1e-3, 1e-4, 1e-5
+SYM_YARD = 4.0
 
 
 def check(cond, msg):
@@ -2128,7 +2184,7 @@ def phase_zoo(card):
             ["--benchmark", "1", "--network", name, "--batch-size",
              str(ZOO_BATCH), "--num-classes", "1000", "--image-shape",
              "3,%d,%d" % (side, side), "--steps", str(ZOO_STEPS), "--lr",
-             str(ZOO_LR)])
+             str(ZOO_LR)], hybridize=False)
         net, trainer, losses = res["net"], res["trainer"], res["losses"]
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(np.isfinite(losses).all(), "%s: non-finite loss %s"
@@ -2634,12 +2690,18 @@ IMP_EARLIER_ALIASES = (
     "min_axis", "pad", "reshape", "stop_gradient", "sum_axis")
 
 
+# aliases that later slices registered: SoftmaxOutput's Softmax (its own
+# checks are in tests/test_torch_output_ops.py)
+IMP_LATER_ALIASES = ("Softmax",)
+
+
 def imp_new_aliases():
     """The 68 names this slice gave to ops the port had."""
     out = []
     for name in registry.list_ops():
         info = registry.get_op(name)
-        if info.name == name or name in IMP_EARLIER_ALIASES:
+        if info.name == name or name in IMP_EARLIER_ALIASES \
+                or name in IMP_LATER_ALIASES:
             continue
         new_op = info.name.lstrip("_").startswith("linalg") \
             or info.name in ("slice", "SliceChannel", "reverse") \
@@ -3028,7 +3090,7 @@ def data_loop(card, rec):
     res = train_imagenet.train(
         ["--data-train", rec, "--network", "resnet50_v1", "--batch-size",
          str(DATA_BATCH), "--num-epochs", str(DATA_EPOCHS)],
-        step_hook=step_hook)
+        step_hook=step_hook, hybridize=False)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses, epochs = res["losses"], res["epochs"]
     check(np.isfinite(losses).all(), "data loop: non-finite loss %s"
@@ -3061,7 +3123,8 @@ def data_loop(card, rec):
     torch.cuda.empty_cache()
     bench = train_imagenet.train(
         ["--benchmark", "1", "--network", "resnet50_v1", "--batch-size",
-         str(DATA_BATCH), "--steps", str(DATA_BENCH_STEPS)])
+         str(DATA_BATCH), "--steps", str(DATA_BENCH_STEPS)],
+        hybridize=False)
     check(np.isfinite(bench["losses"]).all(), "data loop: --benchmark 1 "
           "gave a non-finite loss")
     print("data loop: train_imagenet --data-train resnet50_v1 3x%dx%d batch "
@@ -3168,6 +3231,448 @@ def phase_data(card):
           % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the symbolic API and hybridize()
+# ---------------------------------------------------------------------------
+
+
+def write_mnist(root, n, seed=0):
+    """idx-ubyte image and label files of ``n`` digits whose labels can
+    be learnt: a class's prototype plus noise."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, n).astype(np.uint8)
+    protos = rng.rand(10, 28, 28)
+    imgs = np.clip(protos[labels] + rng.rand(n, 28, 28) * 0.5, 0, 1)
+    with open(os.path.join(root, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(np.array([2051, n, 28, 28], ">u4").tobytes()
+                + (imgs * 255).astype(np.uint8).tobytes())
+    with open(os.path.join(root, "train-labels-idx1-ubyte"), "wb") as f:
+        f.write(np.array([2049, n], ">u4").tobytes() + labels.tobytes())
+
+
+class RecordingXavier(mx.init.Xavier):
+    """Xavier that keeps a host copy of every value it draws."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.values = {}
+
+    def __call__(self, desc, arr):
+        super().__call__(desc, arr)
+        self.values[str(desc)] = arr.asnumpy().copy()
+
+
+def graph_breaks():
+    from torch._dynamo.utils import counters
+    return sum(counters["graph_break"].values())
+
+
+def close(got, ref, atol, rtol):
+    """max |got - ref| / (atol + rtol |ref|) over the elements: <= 1 holds."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(got - ref) / (atol + rtol * np.abs(ref))).max())
+
+
+def grad_rel(got, ref):
+    """The worst ||got - ref||_2 / max(||ref||_2, 1e-3 x the largest
+    ||ref||_2) over the gradients, and its parameter.  The floor holds a
+    gradient whose exact value is 0 (a convolution's bias before a
+    BatchNorm in training: f32 noise in both runs) against the largest
+    instead of against its own noise."""
+    norms = {k: float(np.linalg.norm(v)) for k, v in ref.items()}
+    floor = max(1e-3 * max(norms.values()), 1e-30)
+    rel = {k: float(np.linalg.norm(got[k] - ref[k])) / max(norms[k], floor)
+           for k in ref}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def sym_module(card, root, ex):
+    """The Module path: fit 2 epochs, accuracy, img/s of epoch 2, and the
+    first 3 updates' parameters against the same updates on the CPU."""
+    args = ex.parse_args(["--data-dir", root, "--epochs", str(SYM_EPOCHS),
+                          "--batch-size", str(SYM_BATCH), "--lr",
+                          str(SYM_LR)])
+    init = RecordingXavier(magnitude=2.0)
+    seen, stamps, speeds = [], [], []
+
+    class Speeds(logging.Handler):
+        def emit(self, record):
+            if "Speed:" in record.getMessage():
+                speeds.append(record.getMessage().split("\t")[1])
+
+    def on_batch(param):
+        stamps.append((param.epoch, time.perf_counter()))
+        if param.epoch == 0 and param.nbatch < SYM_CPU_UPDATES:
+            batch = param.locals["batch"]
+            arg, _ = param.locals["self"].get_params()
+            seen.append((batch.data[0].asnumpy(), batch.label[0].asnumpy(),
+                         {k: v.asnumpy() for k, v in arg.items()}))
+
+    handler, root_log = Speeds(), logging.getLogger()
+    prev_level = root_log.level
+    root_log.addHandler(handler)
+    root_log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        # the example's Speedometer logs every 50 batches, past this
+        # run's 32 an epoch; this one every 10
+        mod, score = ex.train_module(
+            args, ctx=mx.gpu(0), initializer=init, batch_end_callback=[
+                mx.callback.Speedometer(SYM_BATCH, 10), on_batch])
+    finally:
+        root_log.removeHandler(handler)
+        root_log.setLevel(prev_level)
+    fit_s = time.perf_counter() - t0
+    acc = dict(score)["accuracy"]
+    check(acc > 0.5, "Module.fit accuracy %.3f (chance 0.1)" % acc)
+    last = [t for e, t in stamps if e == SYM_EPOCHS - 1]
+    img_s = SYM_BATCH * (len(last) - 1) / (last[-1] - last[0])
+    ex_compile = sum(e.compile_seconds for e in mod._exec_group.execs)
+    # the same first updates on the CPU, from the same initial values
+    prev_backend = mx.jit._BACKEND
+    mx.jit._BACKEND = "aot_eager"   # inductor's CPU code generation: slow
+    try:
+        cpu = mx.mod.Module(ex.mlp_symbol(), context=mx.cpu())
+        cpu.bind(data_shapes=[("data", (SYM_BATCH, 1, 28, 28))],
+                 label_shapes=[("softmax_label", (SYM_BATCH,))])
+        cpu.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in init.values.items()})
+        cpu.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": SYM_LR, "momentum": 0.9})
+        worst = 0.0
+        for x, y, card_params in seen:
+            cpu.forward_backward(mx.io.DataBatch(
+                [mx.nd.array(x, ctx=mx.cpu())], [mx.nd.array(y, ctx=mx.cpu())]))
+            cpu.update()
+            for k, v in cpu.get_params()[0].items():
+                ref = v.asnumpy()
+                worst = max(worst, close(card_params[k], ref, 1e-6 * np.abs(
+                    ref).max(), SYM_PARAM_RTOL))
+    finally:
+        mx.jit._BACKEND = prev_backend
+    check(len(seen) == SYM_CPU_UPDATES and worst <= 1.0,
+          "Module updates card vs CPU: %g of the bound" % worst)
+    print("symbolic module: train_mnist --api module, MLP 784-128-64-10 "
+          "SoftmaxOutput, %d images batch %d, sgd lr %g momentum 0.9, "
+          "Xavier magnitude 2, %d epochs | fit %.1f s (executor compile "
+          "%.1f s) | epoch %d %.1f img/s | Speedometer %s | validation "
+          "accuracy %.4f (chance 0.1) | first %d updates card vs CPU %.3g "
+          "of the bound | %s"
+          % (SYM_IMAGES, SYM_BATCH, SYM_LR, SYM_EPOCHS, fit_s, ex_compile,
+             SYM_EPOCHS, img_s, speeds[-1:] or "none", acc, SYM_CPU_UPDATES,
+             worst, card), flush=True)
+    return img_s
+
+
+def grads_of(net, full_names=False):
+    """{name: gradient}: structural names (the same in two instances of
+    one network), or the parameters' own."""
+    params = net.collect_params() if full_names \
+        else net._collect_params_with_prefix()
+    return {k: p.grad().asnumpy() for k, p in params.items()
+            if p.grad_req != "null"}
+
+
+def copy_weights(src, dst):
+    for p, q in zip(src.collect_params().values(),
+                    dst.collect_params().values()):
+        q.set_data(p.data())
+
+
+def fwd_bwd(net, x, y, loss_fn, train_mode=True):
+    with mx.autograd.record(train_mode=train_mode):
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    return out.asnumpy()
+
+
+def sym_gluon(card, root, ex):
+    """The gluon path: step 1 hybridized against eager, then the
+    example's loop for 1 warm-up + 10 steps."""
+    args = ex.parse_args(["--data-dir", root, "--batch-size",
+                          str(SYM_BATCH), "--lr", str(SYM_LR)])
+    train, _ = ex.get_iters(SYM_BATCH, root, mx.gpu(0))
+    batch = next(iter(train))
+    x, y = batch.data[0], batch.label[0]
+    nets = []
+    for _ in range(2):
+        net = ex.lenet_gluon()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        with mx.autograd.pause():
+            net(x)
+        nets.append(net)
+    eager, hyb = nets
+    copy_weights(hyb, eager)
+    hyb.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    breaks = graph_breaks()
+    t0 = time.perf_counter()
+    logits_h = fwd_bwd(hyb, x, y, loss_fn)
+    first_s = time.perf_counter() - t0
+    logits_e = fwd_bwd(eager, x, y, loss_fn)
+    lerr = close(logits_h, logits_e, SYM_LOGIT_TOL, SYM_LOGIT_TOL)
+    gerr, gworst = grad_rel(grads_of(hyb), grads_of(eager))
+    check(lerr <= 1.0 and gerr <= SYM_GRAD_REL,
+          "LeNet hybridized vs eager: logits %g of the bound, gradients %g "
+          "(%s)" % (lerr, gerr, gworst))
+    res = ex.train_gluon(args, ctx=mx.gpu(0), net=hyb,
+                         max_steps=1 + SYM_GLUON_STEPS)
+    losses = res["losses"]
+    breaks = graph_breaks() - breaks
+    check(np.isfinite(losses).all() and losses[-3:].mean()
+          < losses[1:4].mean(), "LeNet losses %s" % losses)
+    check(breaks == 0, "LeNet: %d graph breaks" % breaks)
+    med = statistics.median(res["step_s"][1:])
+    print("symbolic gluon: train_mnist --api gluon, hybridized LeNet, batch "
+          "%d, sgd lr %g momentum 0.9, 1 warm-up + %d steps | first call "
+          "(compile) %.1f s | graph breaks %d | step median %.2f ms, %.1f "
+          "img/s | step 1 vs eager: logits %.3g of the bound, gradients "
+          "%.3g of their norm (%s) | losses %s | %s"
+          % (SYM_BATCH, SYM_LR, SYM_GLUON_STEPS, first_s, breaks, 1e3 * med,
+             SYM_BATCH / med, lerr, gerr, gworst,
+             ["%.4f" % v for v in losses], card), flush=True)
+
+
+def sym_step(net, trainer, x, y, loss_fn):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(SYM_NET_BATCH)
+
+
+def moving_stats(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def sync_weights(src, dst):
+    """dst's trainable parameters take src's values, in place."""
+    with torch.no_grad():
+        for p, q in zip(src.collect_params().values(),
+                        dst.collect_params().values()):
+            if p.grad_req != "null":
+                q.data()._data.copy_(p.data()._data)
+
+
+def cudnn_off(fn):
+    """fn() with cuDNN off: the same network through torch's own
+    convolution kernels, a second valid f32 run (the yardstick)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return fn()
+
+
+def within(value, bound, yard):
+    """value holds if within its bound, or within SYM_YARD x the same
+    measure between two eager runs (``yard``)."""
+    return value <= max(bound, SYM_YARD * yard)
+
+
+def sym_network(name, card, problems):
+    """``name`` eager against hybridize() at full width: step 1's logits
+    and gradients, moving stats after 3 steps from shared weights,
+    compile time, step medians, kernels a step and the idle share.  A
+    comparison that fails is added to ``problems`` (the phase raises
+    after its last line).  Returns the row and (hybridized net, x, y)
+    for the export check."""
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SYM_NET_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SYM_NET_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    mx.random.seed(0)
+    nets = []
+    for _ in range(3):
+        net = vision.get_model(name, classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        with mx.autograd.pause():
+            net(x[0:2])
+        nets.append(net)
+    eager, hyb, alt = nets
+    copy_weights(eager, hyb)
+    copy_weights(eager, alt)
+    hyb.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    breaks = graph_breaks()
+    first = []      # the wall of each compiled key's first call
+    # step 1 compared without an update: squeezenet1.1's Dropout draws
+    # its masks from two different generators (eager: the framework's;
+    # compiled: inductor's), so it is compared in predict mode
+    train_mode = name != "squeezenet1.1"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_h = fwd_bwd(hyb, x, y, loss_fn, train_mode)
+    first.append(time.perf_counter() - t0)
+    logits_e = fwd_bwd(eager, x, y, loss_fn, train_mode)
+    logits_a = cudnn_off(lambda: fwd_bwd(alt, x, y, loss_fn, train_mode))
+    grads_e = grads_of(eager)
+    lerr = close(logits_h, logits_e, SYM_LOGIT_TOL, SYM_LOGIT_TOL)
+    lyard = close(logits_a, logits_e, SYM_LOGIT_TOL, SYM_LOGIT_TOL)
+    gerr, gworst = grad_rel(grads_of(hyb), grads_e)
+    gyard, _ = grad_rel(grads_of(alt), grads_e)
+    if not (within(lerr, 1.0, lyard) and within(gerr, SYM_GRAD_REL, gyard)):
+        problems.append("%s step 1 hybridized vs eager: logits %g of the "
+                        "bound (eager with cuDNN off %g), gradients %g (%s; "
+                        "eager with cuDNN off %g)"
+                        % (name, lerr, lyard, gerr, gworst, gyard))
+    copy_weights(eager, hyb)   # undo step 1's moving-stat updates
+    copy_weights(eager, alt)
+    trainers = [mx.gluon.Trainer(n.collect_params(), "sgd", {
+        "learning_rate": SYM_NET_LR, "momentum": 0.9}) for n in nets]
+    # 3 steps, the eager nets taking the hybridized net's weights before
+    # each: resnet50_v1 from Xavier amplifies f32 rounding step by step
+    # (on their own weights, hybridized and eager moving stats parted by
+    # 479 x their bound after 3 steps, PERF.md PR 13), which would hide
+    # a fault of the compiled path's moving-stat update
+    for i in range(SYM_COMPARE_STEPS):
+        sync_weights(hyb, eager)
+        sync_weights(hyb, alt)
+        dt, _ = timed_s(lambda: sym_step(hyb, trainers[1], x, y, loss_fn))
+        if i == 0 and not train_mode:
+            first.append(dt)
+        sym_step(eager, trainers[0], x, y, loss_fn)
+        cudnn_off(lambda: sym_step(alt, trainers[2], x, y, loss_fn))
+    stats_e = moving_stats(eager)
+    serr = max([close(moving_stats(hyb)[k], stats_e[k], SYM_STAT_TOL,
+                      SYM_STAT_TOL) for k in stats_e] or [0.0])
+    syard = max([close(moving_stats(alt)[k], stats_e[k], SYM_STAT_TOL,
+                       SYM_STAT_TOL) for k in stats_e] or [0.0])
+    if not within(serr, 1.0, syard):
+        problems.append("%s moving stats after %d steps: %g of the bound "
+                        "(eager with cuDNN off %g)"
+                        % (name, SYM_COMPARE_STEPS, serr, syard))
+    del alt, trainers[2]
+    row = {"network": name, "batch": SYM_NET_BATCH}
+    for tag, net, tr in (("eager", eager, trainers[0]),
+                         ("hybridized", hyb, trainers[1])):
+        steps = [timed_s(lambda: sym_step(net, tr, x, y, loss_fn))[0]
+                 for _ in range(SYM_TIMED_STEPS)]
+        med = statistics.median(steps)
+        prof = device_kernels(lambda: sym_step(net, tr, x, y, loss_fn))
+        row[tag] = {"step_ms": 1e3 * med, "img_s": SYM_NET_BATCH / med,
+                    "kernels": prof[0] if isinstance(prof, tuple) else None,
+                    "idle": (max(0.0, 1 - prof[1] / (1e3 * med))
+                             if isinstance(prof, tuple) else None),
+                    "profile": kernels_text(prof)}
+    breaks = graph_breaks() - breaks
+    check(breaks == 0, "%s: %d graph breaks" % (name, breaks))
+    med_s = row["hybridized"]["step_ms"] / 1e3
+    row["compile_s"] = sum(f - med_s for f in first)
+    row["forward_compile_s"] = hyb._cached_op.compile_seconds
+    row["graph_breaks"] = breaks
+    e, h = row["eager"], row["hybridized"]
+
+    def pct(v):
+        return "not measured" if v is None else "%.1f%%" % (100 * v)
+    print("symbolic %s: batch %d 3x%dx%d f32 (TF32 off), sgd lr %g momentum "
+          "0.9 | compile %.1f s (first calls less a step; forward %.1f s) | "
+          "graph breaks %d | eager %.2f ms %.1f img/s, %s kernels a step, "
+          "idle %s | hybridized %.2f ms %.1f img/s, %s kernels a step, idle "
+          "%s | step 1 (%s mode) logits %.3g of the bound, gradients %.3g "
+          "of their norm (%s) | moving stats after %d steps %.3g of the "
+          "bound | eager with cuDNN off against eager: logits %.3g, "
+          "gradients %.3g, moving stats %.3g | %s"
+          % (name, SYM_NET_BATCH, IMAGE, IMAGE, SYM_NET_LR,
+             row["compile_s"], row["forward_compile_s"], breaks,
+             e["step_ms"], e["img_s"], e["kernels"], pct(e["idle"]),
+             h["step_ms"], h["img_s"], h["kernels"], pct(h["idle"]),
+             "train" if train_mode else "predict", lerr, gerr, gworst,
+             SYM_COMPARE_STEPS, serr, lyard, gyard, syard, card), flush=True)
+    return row, (hyb, x, y)
+
+
+def sym_export(card, root, hyb, x, y, problems):
+    """resnet50_v1 exported and loaded back as a SymbolBlock, and bound
+    in a Module under a SoftmaxOutput head."""
+    prefix = os.path.join(root, "resnet50_v1")
+    t0 = time.perf_counter()
+    pfile = hyb.export(prefix)
+    export_s = time.perf_counter() - t0
+    blk = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                       pfile, ctx=mx.gpu(0))
+    hyb.hybridize(False)    # the source's logits from the same weights
+    with mx.autograd.predict_mode():
+        ref = hyb(x).asnumpy()
+        ref_alt = cudnn_off(lambda: hyb(x).asnumpy())
+        t0 = time.perf_counter()
+        got = blk(x).asnumpy()
+        blk_s = time.perf_counter() - t0
+    err = close(got, ref, SYM_EXPORT_TOL, SYM_EXPORT_TOL)
+    yard = close(ref_alt, ref, SYM_EXPORT_TOL, SYM_EXPORT_TOL)
+    if not within(err, 1.0, yard):
+        problems.append("SymbolBlock logits: %g of the bound (eager with "
+                        "cuDNN off %g)" % (err, yard))
+    sym = mx.sym.load(prefix + "-symbol.json")
+    head = mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                name="softmax")
+    mod = mx.mod.Module(head, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", tuple(x.shape))],
+             label_shapes=[("softmax_label", tuple(y.shape))])
+    saved = mx.nd.load(pfile, ctx=mx.cpu())
+    mod.set_params({k[4:]: v for k, v in saved.items() if k[:4] == "arg:"},
+                   {k[4:]: v for k, v in saved.items() if k[:4] == "aux:"})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    cudnn_off(lambda: fwd_bwd(hyb, x, y, loss_fn))
+    want_alt = grads_of(hyb, full_names=True)
+    fwd_bwd(hyb, x, y, loss_fn)    # the gluon path's gradients
+    want = grads_of(hyb, full_names=True)
+    t0 = time.perf_counter()
+    mod.forward_backward(mx.io.DataBatch([x], [y]))
+    got_g = {k: mod._exec_group.execs[0].grad_dict[k].asnumpy()
+             for k in want}
+    mod_s = time.perf_counter() - t0
+    gerr, gworst = grad_rel(got_g, want)
+    gyard, _ = grad_rel(want_alt, want)
+    if not within(gerr, SYM_GRAD_REL, gyard):
+        problems.append("Module on the export: gradients %g (%s; eager with "
+                        "cuDNN off %g)" % (gerr, gworst, gyard))
+    print("symbolic export: resnet50_v1 export %.2f s (%d arguments, %d aux "
+          "states) | SymbolBlock.imports logits vs the source %.3g of the "
+          "bound (first call %.1f s) | Module(SoftmaxOutput head) "
+          "forward_backward gradients vs the gluon path %.3g of their norm "
+          "(%s; first call %.1f s) | eager with cuDNN off against eager: "
+          "logits %.3g, gradients %.3g | %s"
+          % (export_s, len(sym.list_arguments()),
+             len(sym.list_auxiliary_states()), err, blk_s, gerr, gworst,
+             mod_s, yard, gyard, card), flush=True)
+
+
+def phase_symbolic(card):
+    """The symbolic API and hybridize(): both paths of train_mnist,
+    resnet50_v1 and squeezenet1.1 eager against hybridized, and the
+    export (see the module doc, phase 13)."""
+    from mxnet_tpu_torch.examples import train_mnist as ex
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    root = tempfile.mkdtemp(prefix="symbolic_")
+    try:
+        write_mnist(root, SYM_IMAGES)
+        module_img_s = sym_module(card, root, ex)
+        sym_gluon(card, root, ex)
+        rows, problems = [], []
+        for name in SYM_NETS:
+            torch.cuda.empty_cache()
+            row, held = sym_network(name, card, problems)
+            rows.append(row)
+            if name == "resnet50_v1":
+                sym_export(card, root, *held, problems)
+            del held
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not problems, "; ".join(problems))
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the symbolic path launched %s"
+          % launched)
+    print("symbolic: hand-written kernels launched on the symbolic path: %s "
+          "(none is on it) | Module img/s %.1f | phase %.1f s | %s"
+          % (launched, module_img_s, time.perf_counter() - t_phase, card),
+          flush=True)
+    return rows
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -3235,6 +3740,8 @@ def main():
     phase_imperative(card)
     torch.cuda.empty_cache()
     phase_data(card)
+    torch.cuda.empty_cache()
+    phase_symbolic(card)
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):

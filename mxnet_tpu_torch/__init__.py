@@ -35,7 +35,12 @@ normalization on the card, ``DevicePrefetcher``), ``native`` and
 ``storage`` (the C++ record reader and JPEG batch decoder, built on
 first use into ``_build/``) and ``gluon.data`` (datasets, samplers,
 ``DataLoader``, vision datasets and transforms), behind
-``examples.train_imagenet --data-train``.
+``examples.train_imagenet --data-train``; and the symbolic API with
+``hybridize()``: ``mx.sym`` (``symbol``), ``executor``, ``mx.mod``
+(``module``), ``model``, ``callback``, ``monitor.Monitor``,
+``visualization``, the output ops, and ``CachedOp``, ``export`` and
+``SymbolBlock`` over ``torch.compile`` (``jit``), behind both paths of
+``examples.train_mnist``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -67,3 +72,14 @@ from . import native  # noqa: F401
 from . import storage  # noqa: F401
 from . import image  # noqa: F401
 from . import io  # noqa: F401
+from . import attribute  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from . import model  # noqa: F401
+from . import callback  # noqa: F401
+from . import monitor  # noqa: F401
+from . import visualization  # noqa: F401
+from .attribute import AttrScope  # noqa: F401

@@ -24,9 +24,18 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function", "grad_mode"]
+           "backward", "grad", "Function", "grad_mode", "get_symbol"]
 
-_state = threading.local()
+
+class _State(threading.local):
+    # set in each thread's first use: a compiled graph's guards on these
+    # attributes never see one appear
+    def __init__(self):
+        self.recording = False
+        self.training = False
+
+
+_state = _State()
 # every NDArray with an attached gradient, by id; weak, so dropped arrays
 # leave.  Not a WeakSet: a set compares members with ``==``, which an
 # NDArray answers elementwise.
@@ -55,9 +64,6 @@ def retire(var):
 
 
 def _st():
-    if not hasattr(_state, "recording"):
-        _state.recording = False
-        _state.training = False
     return _state
 
 
@@ -221,6 +227,32 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         set_training(prev)
     return [NDArray(torch.zeros_like(v._data.detach()) if g is None else g)
             for v, g in zip(variables, got)]
+
+
+def get_symbol(x):
+    """The Symbol of the registry ops that made ``x`` inside ``record()``
+    (parity: mxnet_tpu/autograd.py:424).  Each recorded op leaves a record
+    on its outputs (``NDArray._producer``); an input no recorded op made
+    becomes a new variable ``data<k>`` at each visit, numbered in
+    visiting order, as in the JAX package."""
+    from .symbol import symbol as _sym
+
+    counter = [0]
+    cache = {}
+
+    def build(prod):
+        if prod is None:
+            counter[0] += 1
+            return _sym.var("data%d" % counter[0])
+        rec, out_index, n_out = prod
+        if id(rec) not in cache:
+            op_name, attrs, srcs = rec
+            cache[id(rec)] = _sym._invoke_sym(
+                op_name, [build(p) for p in srcs], dict(attrs))
+        out = cache[id(rec)]
+        return out[out_index] if n_out > 1 else out
+
+    return build(x._producer)
 
 
 class Function:

@@ -29,7 +29,6 @@ letter for letter, so both packages resolve every parameter name alike.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import re
 import threading
 
@@ -272,7 +271,15 @@ def policy_tag(policy):
 # scope: parameterized ops harmonize compute to the weight
 # ---------------------------------------------------------------------------
 
-_ctx = contextvars.ContextVar("mxnet_tpu_torch_dtype_policy", default=None)
+# a thread-local, not a ContextVar: torch.compile traces a thread-local's
+# read (the policy then becomes a guard of the compiled graph), while a
+# ContextVar.get breaks the graph
+class _ScopeState(threading.local):
+    def __init__(self):
+        self.policy = None
+
+
+_scope_state = _ScopeState()
 
 
 @contextlib.contextmanager
@@ -282,22 +289,23 @@ def scope(policy):
     if policy is None:
         yield None
         return
-    token = _ctx.set(policy)
+    prev = _scope_state.policy
+    _scope_state.policy = policy
     try:
         yield policy
     finally:
-        _ctx.reset(token)
+        _scope_state.policy = prev
 
 
 def current_policy():
-    return _ctx.get()
+    return _scope_state.policy
 
 
 def harmonize(data, weight):
     """Cast ``data`` to ``weight``'s floating dtype under an active policy
     scope (compute follows the weight).  Identity when no policy scope is
     installed."""
-    if _ctx.get() is None:
+    if current_policy() is None:
         return data
     if not weight.is_floating_point() or not data.is_floating_point() \
             or weight.dtype == data.dtype:

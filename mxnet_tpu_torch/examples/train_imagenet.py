@@ -71,7 +71,8 @@ def _load_weights(net, arg_params, shape, batch_size, ctx):
     mx.convert.load_from_numpy(net, arg_params)
 
 
-def train(argv=None, ctx=None, arg_params=None, step_hook=None):
+def train(argv=None, ctx=None, arg_params=None, step_hook=None,
+          hybridize=True):
     """Run the loop of ``argv`` (the command's flags) on ``ctx`` (default
     ``gpu(0)``), from Xavier weights or, given ``arg_params`` ({parameter
     name: numpy array}), from those.  Returns a dict: ``losses``, the mean
@@ -82,7 +83,9 @@ def train(argv=None, ctx=None, arg_params=None, step_hook=None):
     ``next()`` of the iterator), ``epochs`` (a dict an epoch: images/s,
     accuracy, batches, seconds) and the closed ``iterator``; there
     ``step_hook(i)``, when given, is called after step ``i`` ends (a
-    profiler's start and stop around chosen steps)."""
+    profiler's start and stop around chosen steps).  The network is
+    hybridized (compiled) as in the example unless ``hybridize`` is
+    False, which keeps the eager gluon loop."""
     args = parse_args(argv)
     if args.kv_store.startswith("dist"):
         raise MXNetError("--kv-store %s is not ported yet: it needs "
@@ -97,7 +100,7 @@ def train(argv=None, ctx=None, arg_params=None, step_hook=None):
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     if not args.benchmark:
         return _train_records(args, ctx, net, loss_fn, shape, arg_params,
-                              step_hook)
+                              step_hook, hybridize)
     rng = np.random.RandomState(0)
     x = mx.nd.array(rng.rand(args.batch_size, *shape).astype(np.float32),
                     ctx=ctx)
@@ -114,7 +117,7 @@ def train(argv=None, ctx=None, arg_params=None, step_hook=None):
         def step():
             return trainer.step([x], y)
     else:
-        net.hybridize()
+        net.hybridize(hybridize)
         trainer = gluon.Trainer(net.collect_params(), "sgd", opt_params,
                                 kvstore=args.kv_store)
 
@@ -141,7 +144,8 @@ def train(argv=None, ctx=None, arg_params=None, step_hook=None):
             "net": net, "trainer": trainer}
 
 
-def _train_records(args, ctx, net, loss_fn, shape, arg_params, step_hook):
+def _train_records(args, ctx, net, loss_fn, shape, arg_params, step_hook,
+                   hybridize):
     """examples/train_imagenet.py:89-118 on the port, with its losses,
     times and per-epoch accuracy kept."""
     if arg_params is not None:
@@ -154,7 +158,7 @@ def _train_records(args, ctx, net, loss_fn, shape, arg_params, step_hook):
                             {"learning_rate": args.lr, "momentum": 0.9,
                              "wd": 1e-4}, kvstore=args.kv_store)
     metric = mx.metric.Accuracy()
-    net.hybridize()
+    net.hybridize(hybridize)
     device = ctx.torch_device
     losses, step_s, wait_s, epochs = [], [], [], []
     try:

@@ -5,8 +5,21 @@ Names follow the reference exactly: a top-level block takes
 ``<alias><n>_`` from the NameManager and each child ``<alias><k>_`` from
 its parent's scope counter, so parameter names (e.g.
 ``resnetv10_conv2d0_weight``) match the JAX package's and weights carry
-across by name.  ``hybridize()`` is accepted and the block still runs
-eagerly: there is no compiled path in this port yet.
+across by name.
+
+``hybridize()`` compiles (parity: mxnet_tpu/gluon/block.py:402-640, where
+``CachedOp`` is ``jax.jit``): ``CachedOp`` builds one pure function
+``(inputs, params) -> (outputs, moving-stat values)`` from the block's
+forward, with the parameters swapped for the function's tensors
+(``swapped_params``) and BatchNorm's updates collected by the aux sink,
+and runs it through ``jit.Compiled``, the ``torch.compile`` wrapper the
+symbolic ``Executor`` uses too: one compiled object for each (train or
+eval, recording, input and parameter shapes and dtypes).  The moving
+stats are rebound after each call; gradients flow through torch autograd
+into each parameter's grad buffer.  Given a ``Symbol``, a HybridBlock
+calls ``hybrid_forward(mx.sym, ...)`` with each parameter's ``var()``:
+``export`` writes that graph and the parameters, and ``SymbolBlock`` runs
+such a graph through the same compiled path.
 
 ``save_parameters`` writes the block's parameters under their structural
 names (``features.0.weight``, the attribute path), as the JAX package's
@@ -33,30 +46,56 @@ from collections import OrderedDict
 
 import numpy as np
 
+import torch
+
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray.ndarray import NDArray
 from .. import autograd
-from ..name import NameManager
+from .. import dtype_policy as _dtp
+from .. import jit as _jit
+from ..name import NameManager, Prefix
+from ..symbol import symbol as _symbol
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "swapped_params"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp",
+           "swapped_params"]
 
-_aux_sink = threading.local()
+
+class _Local(threading.local):
+    """A thread-local whose attributes hold ``defaults`` from each
+    thread's first use: a compiled graph guards on what it reads there,
+    and an attribute that appeared after the first trace would recompile
+    it."""
+
+    def __init__(self, **defaults):
+        self.__dict__.update(defaults)
+
+
+_aux_sink = _Local(sink=None)
 
 
 def _current_aux_sink():
     return getattr(_aux_sink, "sink", None)
 
 
-_trace_state = threading.local()
+_trace_state = _Local(active=False)
 
 
 def _is_tracing():
     return getattr(_trace_state, "active", False)
 
 
-_swap_state = threading.local()
+# set while a hybridized block probes its forward eagerly (CachedOp):
+# blocks inside then run eagerly instead of compiling
+_probe_state = _Local(active=False)
+
+
+def _is_probing():
+    return getattr(_probe_state, "active", False)
+
+
+_swap_state = _Local(map=None)
 
 
 @contextlib.contextmanager
@@ -133,11 +172,15 @@ class _BlockScope:
             return self
         self._old_scope = getattr(_BlockScope._current, "value", None)
         _BlockScope._current.value = self
+        self._name_scope = Prefix(self._block.prefix)
+        self._name_scope.__enter__()
         return self
 
     def __exit__(self, *a):
         if self._block._empty_prefix:
             return
+        self._name_scope.__exit__(*a)
+        self._name_scope = None
         _BlockScope._current.value = self._old_scope
 
 
@@ -326,17 +369,154 @@ class Block:
         raise NotImplementedError
 
 
+def _flatten_nested(out):
+    """Flatten nested list/tuple output into (flat list, template); the
+    template mirrors the nesting with flat-list indices at the leaves
+    (parity: mxnet_tpu/gluon/block.py:120)."""
+    flat = []
+
+    def rec(o):
+        if isinstance(o, (list, tuple)):
+            t = [rec(x) for x in o]
+            return t if isinstance(o, list) else tuple(t)
+        flat.append(o)
+        return len(flat) - 1
+
+    return flat, rec(out)
+
+
+def _regroup_nested(tmpl, flat):
+    if isinstance(tmpl, (list, tuple)):
+        vals = [_regroup_nested(t, flat) for t in tmpl]
+        return vals if isinstance(tmpl, list) else tuple(vals)
+    return flat[tmpl]
+
+
+_NOT_PORTED_FLAGS = ("remat_policy", "fusion", "aot")
+
+
+class CachedOp:
+    """A hybridized block's compiled forward (parity:
+    mxnet_tpu/gluon/block.py:402; src/imperative/cached_op.cc).
+
+    For each new key (train or eval, recording, input and parameter
+    shapes and dtypes) the block first runs once eagerly without grad
+    (a probe, which also finishes deferred initialization), to learn the
+    nesting of its outputs and which parameters take moving-stat
+    updates; then the pure function is compiled for that key.
+    ``static_alloc`` and ``static_shape`` change nothing, as in the JAX
+    package; ``dtype_policy`` casts each parameter to its compute dtype
+    by name, installs the policy's scope, and casts outputs to the
+    policy's output dtype and moving stats back to their storage dtype.
+    """
+
+    def __init__(self, block, static_alloc=False, static_shape=False,
+                 remat_policy=None, fusion=None, aot=None,
+                 dtype_policy=None):
+        self._block = block
+        self._policy = _dtp.resolve_policy(dtype_policy)
+        self._params = list(block.collect_params().values())
+        self._meta = {}     # key -> (output template, aux parameters)
+        self._compiled = _jit.Compiled(self._pure, "cachedop")
+
+    @property
+    def compile_seconds(self):
+        return self._compiled.compile_seconds
+
+    def _pure(self, inputs, params):
+        """(input tensors, parameter tensors) -> (output tensors, new
+        moving-stat tensors); compiled per key."""
+        policy = self._policy
+        if policy is not None:
+            params = [policy.cast_compute(p.name, a)
+                      for p, a in zip(self._params, params)]
+        prev_sink = getattr(_aux_sink, "sink", None)
+        sink = []
+        _aux_sink.sink = sink
+        try:
+            with swapped_params(self._params, params,
+                                training=autograd.is_training()):
+                out = self._block.forward(*[NDArray(x) for x in inputs])
+        finally:
+            _aux_sink.sink = prev_sink
+        flat, _ = _flatten_nested(out)
+        outs = [o._data for o in flat]
+        aux = [v._data if isinstance(v, NDArray) else v for _, v in sink]
+        if policy is not None:
+            outs = [policy.cast_output(o) for o in outs]
+            aux = [v.to(p.data()._data.dtype)
+                   for (p, _), v in zip(sink, aux)]
+        return tuple(outs), tuple(aux)
+
+    def _probe(self, inputs):
+        """Run the block eagerly once, without grad, with its moving-stat
+        updates discarded: (output template, aux parameters)."""
+        prev_sink = getattr(_aux_sink, "sink", None)
+        sink = []
+        _aux_sink.sink = sink
+        _probe_state.active = True
+        try:
+            with torch.no_grad():
+                out = self._block.forward(*inputs)
+        finally:
+            _probe_state.active = False
+            _aux_sink.sink = prev_sink
+        _, tmpl = _flatten_nested(out)
+        return tmpl, [p for p, _ in sink]
+
+    def __call__(self, *inputs):
+        try:
+            par_t = [p.data()._data for p in self._params]
+        except DeferredInitializationError:
+            self._probe(inputs)     # finishes the deferred inits
+            par_t = [p.data()._data for p in self._params]
+        in_t = [x._data for x in inputs]
+        recording = autograd.is_recording()
+        key = (autograd.is_training(), recording, _jit.signature(in_t),
+               _jit.signature(par_t))
+        if key not in self._meta:
+            self._meta[key] = self._probe(inputs)
+        tmpl, aux_params = self._meta[key]
+        with torch.set_grad_enabled(recording), _dtp.scope(self._policy):
+            outs, aux = self._compiled(key, in_t, par_t)
+        for p, v in zip(aux_params, aux):
+            p.data()._rebind(v)
+        return _regroup_nested(tmpl, [NDArray(o) for o in outs])
+
+
 class HybridBlock(Block):
-    """Block written against ``F`` (parity: block.py:671).  Runs eagerly;
-    ``hybridize()`` only records the request."""
+    """Block written against ``F``, eager until ``hybridize()`` (parity:
+    mxnet_tpu/gluon/block.py:643)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._cached_op = None
+        self._flags = {}
 
-    def hybridize(self, active=True, **kwargs):
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  remat_policy=None, fusion=None, aot=None,
+                  dtype_policy=None):
+        """Compile this block's forward with ``torch.compile`` (``active``)
+        or go back to eager.  ``remat_policy``, ``fusion`` and ``aot`` are
+        not ported yet and raise unless None."""
+        flags = {"static_alloc": static_alloc, "static_shape": static_shape,
+                 "remat_policy": remat_policy, "fusion": fusion, "aot": aot,
+                 "dtype_policy": dtype_policy}
+        for name in _NOT_PORTED_FLAGS:
+            if flags[name] is not None:
+                raise MXNetError("hybridize(%s=%r): not ported yet"
+                                 % (name, flags[name]))
+        _dtp.resolve_policy(dtype_policy)
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._flags = flags
+        self._cached_op = None
+        for cld in self._children.values():
+            cld.hybridize(active, **flags)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
 
     def infer_shape(self, *args):
         """Complete deferred parameter shapes from inputs (parity:
@@ -356,8 +536,19 @@ class HybridBlock(Block):
                 p._finish_deferred_init()
 
     def forward(self, x, *args):
+        if isinstance(x, _symbol.Symbol):
+            from .. import symbol as F
+
+            params = {k: p.var() for k, p in self._reg_params.items()}
+            with self.name_scope():
+                return self.hybrid_forward(F, x, *args, **params)
         if not isinstance(x, NDArray):
-            raise MXNetError("forward expects NDArray, got %r" % type(x))
+            raise MXNetError("forward expects NDArray or Symbol, got %r"
+                             % type(x))
+        if self._active and not _is_tracing() and not _is_probing():
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self, **self._flags)
+            return self._cached_op(x, *args)
         from .. import ndarray as F
 
         if not _is_tracing():
@@ -369,6 +560,115 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    # -- export ----------------------------------------------------------
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json`` (this block's graph on a ``data``
+        variable) and ``path-%04d.params`` (its arguments and aux states
+        as ``arg:``/``aux:`` keys); returns the params file's name
+        (parity: mxnet_tpu/gluon/block.py:730)."""
+        from ..ndarray import ndarray as _nd
+
+        sym = self._to_symbol()
+        sym.save("%s-symbol.json" % path)
+        aux_names = set(sym.list_auxiliary_states())
+        existing = set(sym.list_arguments()) | aux_names
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            if name in existing:
+                kind = "aux:" if name in aux_names else "arg:"
+                arg_dict[kind + name] = param._reduce()
+        fname = "%s-%04d.params" % (path, epoch)
+        _nd.save(fname, arg_dict)
+        return fname
+
+    def _to_symbol(self):
+        out = self(_symbol.var("data"))
+        if isinstance(out, (list, tuple)):
+            out = _symbol.Group(out)
+        return out
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol with its parameters as a Block (parity:
+    mxnet_tpu/gluon/block.py:755).  Its forward runs the symbol's graph
+    function through the compiled path (``jit.Compiled``), one compiled
+    object for each (train or eval, recording, input shapes and dtypes);
+    in training BatchNorm's moving stats are rebound after each call."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        sym = _symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [_symbol.var(n) for n in input_names])
+        if param_file is not None:
+            from ..ndarray import ndarray as _nd
+
+            loaded = _nd.load(param_file, ctx=cpu())
+            loaded = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+            for name, param in ret.collect_params().items():
+                if name in loaded:
+                    param._load_value(loaded[name], ctx)
+        return ret
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _symbol.Group(outputs)
+        if isinstance(inputs, _symbol.Symbol):
+            inputs = [inputs]
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        aux_names = outputs.list_auxiliary_states()
+        for name in outputs.list_arguments() + aux_names:
+            if name not in self._input_names:
+                self.params.get(name, allow_deferred_init=True,
+                                grad_req="null" if name in aux_names
+                                else "write")
+        self._aux_names = aux_names
+        graph_fn, _, _ = outputs._build_fn()
+
+        def run(values, is_train, device):
+            return graph_fn(values, is_train=is_train, device=device)
+
+        self._compiled = _jit.Compiled(run, "symbolblock")
+
+    def _finish_init(self, args):
+        """Initialize the parameters no file gave, their shapes inferred
+        from the inputs'."""
+        missing = [p for p in self.params.values() if p._data is None]
+        if not missing:
+            return
+        shapes = {n: x.shape for n, x in zip(self._input_names, args)}
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**shapes)
+        names = self._symbol.list_arguments() + self._aux_names
+        known = dict(zip(names, arg_shapes + aux_shapes))
+        ctx = args[0].context
+        for p in missing:
+            p.shape = known[p.name]
+            if p._deferred_init:
+                p._finish_deferred_init()
+            else:
+                p.initialize(ctx=ctx)
+
+    def forward(self, *args):
+        if isinstance(args[0], _symbol.Symbol):
+            raise MXNetError("SymbolBlock takes NDArrays")
+        self._finish_init(args)
+        values = {n: x._data for n, x in zip(self._input_names, args)}
+        values.update((name, p.data()._data)
+                      for name, p in self.params.items())
+        is_train = autograd.is_training()
+        recording = autograd.is_recording()
+        key = (is_train, recording, _jit.signature(values.values()))
+        device = args[0]._data.device
+        with torch.set_grad_enabled(recording):
+            outs, aux = self._compiled(key, values, is_train, device)
+        for name, v in aux.items():
+            self.params[name].data()._rebind(v)
+        nds = [NDArray(o) for o in outs]
+        return nds[0] if len(nds) == 1 else nds
 
 
 class _HookHandle:

@@ -7,7 +7,6 @@ from __future__ import annotations
 import math
 
 import numpy as np
-import torch
 
 from ...base import MXNetError
 from ..block import Block, HybridBlock, _current_aux_sink
@@ -114,8 +113,13 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        act = F.FullyConnected(x, weight, bias, no_bias=bias is None,
-                               num_hidden=self._units, flatten=self._flatten)
+        if bias is None:
+            act = F.FullyConnected(x, weight, no_bias=True,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        else:
+            act = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten)
         if self.act is not None:
             act = self.act(act)
         return act
@@ -166,7 +170,11 @@ class BatchNorm(HybridBlock):
         super().__init__(**kwargs)
         if axis != 1:
             raise MXNetError("only channel axis 1 is ported")
-        self._kwargs = {"eps": epsilon, "fix_gamma": not scale,
+        # the JAX layer's attributes; use_global_stats stays as given, so
+        # an exported BatchNorm follows the executor's is_train (the JAX
+        # layer writes True there when it exports in predict mode)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
         self._momentum = momentum
         self._half_out = False
@@ -202,25 +210,26 @@ class BatchNorm(HybridBlock):
         super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        training = autograd.is_training() and \
-            not self._kwargs["use_global_stats"]
-        out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
-                                     running_var, training=training,
-                                     **self._kwargs)
+        out = F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                          **self._kwargs)
+        if not isinstance(out, (list, tuple)):
+            # a symbolic BatchNorm has one visible output; the executor
+            # updates its moving stats (parity: basic_layers.py:224-253)
+            return out
+        out, mean, var = out
         if self._half_out and out.dtype != x.dtype:
             out = out.astype(x.dtype)
-        if training:
+        if autograd.is_training() and not self._kwargs["use_global_stats"]:
             m = self._momentum
-            with torch.no_grad():
-                new_mean = m * running_mean._data + (1 - m) * mean._data
-                new_var = m * running_var._data + (1 - m) * var._data
+            new_mean = m * running_mean + (1 - m) * mean
+            new_var = m * running_var + (1 - m) * var
             sink = _current_aux_sink()
             if sink is not None:
-                sink.append((self.running_mean, new_mean))
-                sink.append((self.running_var, new_var))
+                sink.append((self.running_mean, new_mean._data))
+                sink.append((self.running_var, new_var._data))
             else:
-                running_mean._rebind(new_mean)
-                running_var._rebind(new_var)
+                running_mean._rebind(new_mean._data)
+                running_var._rebind(new_var._data)
         return out
 
 

@@ -277,9 +277,16 @@ class Parameter:
             self._init_grad()
 
     def var(self):
-        """The parameter as a symbol: the symbolic API is not ported."""
-        raise MXNetError("Parameter.var needs the symbolic API, which is "
-                         "not ported yet")
+        """The parameter as a symbol variable of its name, with its shape,
+        dtype, multipliers and initializer as attributes (parity:
+        mxnet_tpu/gluon/parameter.py:274)."""
+        if getattr(self, "_var", None) is None:
+            from ..symbol import symbol as _sym
+
+            self._var = _sym.var(self.name, shape=self.shape,
+                                 dtype=self.dtype, lr_mult=self.lr_mult,
+                                 wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
 
 class Constant(Parameter):

@@ -1,0 +1,68 @@
+"""The compiled path shared by ``CachedOp`` (``hybridize()``) and the
+symbolic ``Executor``: the port's counterpart of ``jax.jit``.
+
+``Compiled(fn, name)`` holds one ``torch.compile`` object for each key
+the caller gives (train or eval, recording, the input shapes and
+dtypes), as ``jax.jit`` retraces for a new signature.  Each key's object
+compiles its own copy of ``fn``'s code, so dynamo's per-code cache (and
+its recompile limit) sees one signature per copy.  Compilation is
+``fullgraph=True``: a construct dynamo cannot trace is an error, as an
+untraceable construct is for ``jax.jit``, and never a silent fall back
+to eager Python.  ``dynamic=False``: a new shape is a new key.
+
+The backend is inductor unless ``_BACKEND`` names another (the CPU tests
+set ``"aot_eager"``, which skips inductor's code generation).
+"""
+from __future__ import annotations
+
+import time
+import types
+
+import torch
+
+__all__ = ["Compiled", "signature"]
+
+# the torch.compile backend; None is torch's default (inductor)
+_BACKEND = None
+
+
+def signature(tensors):
+    """The shapes and dtypes of ``tensors``: part of a compile key."""
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _fresh_copy(fn, tag):
+    """``fn`` (a function or bound method) with a code object of its own
+    (dynamo caches per code object)."""
+    if isinstance(fn, types.MethodType):
+        return types.MethodType(_fresh_copy(fn.__func__, tag), fn.__self__)
+    code = fn.__code__.replace(co_name="%s_%s" % (fn.__code__.co_name, tag))
+    return types.FunctionType(code, fn.__globals__, code.co_name,
+                              fn.__defaults__, fn.__closure__)
+
+
+class Compiled:
+    """``fn`` compiled once for each key.  ``compile_seconds`` sums the
+    wall time of each key's first call (trace, compile and one run)."""
+
+    def __init__(self, fn, name):
+        self._fn = fn
+        self._name = name
+        self._compiled = {}
+        self.compile_seconds = 0.0
+
+    def __len__(self):
+        return len(self._compiled)
+
+    def __call__(self, key, *args):
+        c = self._compiled.get(key)
+        if c is not None:
+            return c(*args)
+        tag = "%s_%d" % (self._name, len(self._compiled))
+        c = torch.compile(_fresh_copy(self._fn, tag), backend=_BACKEND
+                          or "inductor", fullgraph=True, dynamic=False)
+        t0 = time.perf_counter()
+        out = c(*args)
+        self.compile_seconds += time.perf_counter() - t0
+        self._compiled[key] = c
+        return out

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 _local = threading.local()
 
@@ -36,6 +36,18 @@ class NameManager:
         if not hasattr(_local, "stack"):
             _local.stack = [NameManager()]
         return _local.stack[-1]
+
+
+class Prefix(NameManager):
+    """Names with a fixed prefix: a block's scope names the symbol nodes
+    its ``hybrid_forward`` makes ``<block prefix><op><n>``."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 def current():

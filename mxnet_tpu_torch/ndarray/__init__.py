@@ -3,6 +3,7 @@ generated from the op registry (parity: mxnet_tpu/ndarray/__init__.py).
 This module is also the ``F`` that ``hybrid_forward`` receives."""
 from ..ops import tensor as _ops_tensor  # noqa: F401 (registers ops)
 from ..ops import nn as _ops_nn  # noqa: F401 (registers ops)
+from ..ops import extended as _ops_extended  # noqa: F401 (registers ops)
 from ..ops import optimizer_ops as _ops_opt  # noqa: F401 (registers ops)
 from ..ops import random_ops as _ops_random  # noqa: F401 (registers ops)
 from ..ops.registry import list_ops as _list_ops

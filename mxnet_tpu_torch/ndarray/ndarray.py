@@ -124,9 +124,20 @@ def _invoke_nd(op_name, inputs, attrs, out=None, view=False):
             out._rebind(main._data)
             return out
         return main
-    if not view:
+    # a compiled graph's outputs are fresh tensors: no storage to check
+    compiling = torch.compiler.is_compiling()
+    if not view and not compiling:
         rets = [_own(r, raw) for r in rets]
     outputs = [NDArray(r) for r in rets]
+    if autograd.is_recording() and not compiling:
+        # the op that made each output, for autograd.get_symbol: its
+        # inputs' records (None for an array no recorded op made), never
+        # the tensors, so the records keep no memory alive
+        rec = (op_name, {k: v for k, v in attrs.items()
+                         if not isinstance(v, torch.Tensor) and k != "ctx"},
+               [x._producer for x in nd_inputs])
+        for i, o in enumerate(outputs):
+            o._producer = (rec, i, len(outputs))
     if out is not None:
         if isinstance(out, (list, tuple)):
             for o, r in zip(out, outputs):
@@ -185,7 +196,7 @@ def _first_axis_basic(key):
 
 
 class NDArray:
-    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "_producer", "__weakref__")
 
     # numpy operators defer to us
     __array_priority__ = 1000.0
@@ -197,6 +208,7 @@ class NDArray:
         self._data = data
         self._grad = None
         self._grad_req = "null"
+        self._producer = None
 
     # -- properties --------------------------------------------------------
     @property

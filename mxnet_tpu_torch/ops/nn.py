@@ -216,16 +216,21 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
               attrs.get("output_mean_var")) else 1)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
-               axis=1, training=False, **kw):
+               axis=1, training=None, **kw):
     """Returns ``(out, mean, var)``: the statistics used, detached.  In
     training they are the batch mean and the BIASED batch variance (as
     ``jnp.var``), in the data's dtype; torch's own running-stat update
     would use the unbiased one, so the caller updates the moving stats
-    from these instead."""
+    from these instead.  ``training`` defaults to autograd's training
+    flag, as the JAX op reads it (a symbol's BatchNorm then follows the
+    executor's ``is_train``)."""
     if pint(axis, 1) != 1:
         raise ValueError("only channel axis 1 is ported")
-    g = torch.ones_like(gamma) if fix_gamma else gamma
-    global_stats = use_global_stats or not training
+    if training is None:
+        training = autograd.is_training()
+    eps = pfloat(eps, 1e-3)
+    g = torch.ones_like(gamma) if pbool(fix_gamma, True) else gamma
+    global_stats = pbool(use_global_stats) or not pbool(training)
     stat_dtype = moving_mean.dtype if global_stats else data.dtype
     out_dtype = torch.promote_types(
         torch.promote_types(data.dtype, stat_dtype),
@@ -276,7 +281,10 @@ def dropout(data, p=0.5, mode="training", axes=None, **kw):
     """Zero each element (or each slice along ``axes``, which share one
     draw) with probability ``p`` and scale the kept ones by 1 / (1 - p);
     the identity outside training unless ``mode='always'``.  The mask is
-    drawn on the data's device from the framework generator there."""
+    drawn on the data's device from the framework generator there; in a
+    compiled (hybridized) graph, from torch's default generator of the
+    device, which ``mx.random.seed`` seeds too (``torch.compile`` cannot
+    take an explicit generator)."""
     p = pfloat(p, 0.5)
     if p == 0.0 or (mode != "always" and not autograd.is_training()):
         return data
@@ -285,8 +293,9 @@ def dropout(data, p=0.5, mode="training", axes=None, **kw):
     if axes:
         shape = tuple(1 if i in axes else s for i, s in enumerate(shape))
     keep = 1.0 - p
-    u = torch.rand(shape, generator=_random.next_key(data.device),
-                   device=data.device)
+    gen = None if torch.compiler.is_compiling() \
+        else _random.next_key(data.device)
+    u = torch.rand(shape, generator=gen, device=data.device)
     mask = (u < keep).to(data.dtype) / keep
     return data * mask
 
@@ -386,3 +395,133 @@ for _name, _names in {
         "pick": ("choose_element_0index",)}.items():
     for _a in _names:
         alias(_name, _a)
+
+
+# ---------------------------------------------------------------------------
+# Output (loss-head) ops (parity: mxnet_tpu/ops/nn.py:224, :370-470).  Each
+# JAX ``custom_vjp`` is a ``torch.autograd.Function`` here: the forward is
+# the prediction and the backward ignores the incoming gradient and seeds
+# the loss gradient from the label, as the reference's output ops do.
+# ---------------------------------------------------------------------------
+
+
+def _one_hot(label, k, axis, dtype):
+    """One-hot of ``label`` (truncated to integers) with ``k`` classes on
+    ``axis``; an index outside [0, k) gives a row of zeros, as
+    ``jax.nn.one_hot`` does."""
+    idx = label.to(torch.int64).unsqueeze(axis)
+    shape = [1] * idx.dim()
+    shape[axis] = k
+    classes = torch.arange(k, device=label.device).reshape(shape)
+    return (idx == classes).to(dtype)
+
+
+@register("softmax_cross_entropy", num_inputs=2)
+def softmax_cross_entropy(data, label, **kw):
+    logp = torch.log_softmax(data, dim=-1)
+    onehot = _one_hot(label, data.shape[-1], -1, data.dtype)
+    return -(onehot * logp).sum()
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                multi_output, normalization, smooth_alpha):
+        out = torch.softmax(data, dim=1 if multi_output else -1)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, multi_output,
+                     normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, multi_output, normalization,
+         smooth_alpha) = ctx.attrs
+        axis = 1 if multi_output else -1
+        k = out.shape[axis]
+        onehot = _one_hot(label, k, axis, out.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1.0 - smooth_alpha) + smooth_alpha / (k - 1)
+        grad = out - onehot
+        if use_ignore:
+            mask = (label != ignore_label).to(out.dtype)
+            grad = grad * mask.unsqueeze(axis)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid":
+            if use_ignore:
+                valid = (label != ignore_label).sum().clamp_min(1) \
+                    .to(out.dtype)
+            else:
+                valid = float(label.numel())
+            scale = scale / valid
+        grad = grad * scale
+        glabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, glabel, None, None, None, None, None, None
+
+
+@register("SoftmaxOutput", num_inputs=2, aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0,
+                   **kw):
+    """Softmax over the last axis (axis 1 under ``multi_output``); its
+    gradient is ``(softmax - onehot(label)) * scale`` whatever gradient
+    arrives.  ``preserve_shape`` changes nothing, as in the JAX op (the
+    softmax already keeps the shape)."""
+    return _SoftmaxOutputFn.apply(
+        data, label.to(data.dtype), pfloat(grad_scale, 1.0),
+        pfloat(ignore_label, -1.0), pbool(use_ignore), pbool(multi_output),
+        normalization or "null", pfloat(smooth_alpha, 0.0))
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance", **kw):
+    if (mode or "instance") == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+class _RegressionFn(torch.autograd.Function):
+    """Forward ``fwd(data)``; backward ``grad_fn(out, label) * grad_scale
+    / (outputs per sample)``."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.attrs
+        num_out = out.numel() // out.shape[0] if out.dim() else 1
+        diff = out - label.reshape(out.shape)
+        if kind == "mae":
+            diff = torch.sign(diff)
+        grad = diff * grad_scale / num_out
+        glabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, glabel, None, None
+
+
+@register("LinearRegressionOutput", num_inputs=2)
+def linear_regression_output(data, label, grad_scale=1.0, **kw):
+    return _RegressionFn.apply(data, label.to(data.dtype),
+                               pfloat(grad_scale, 1.0), "linear")
+
+
+@register("MAERegressionOutput", num_inputs=2)
+def mae_regression_output(data, label, grad_scale=1.0, **kw):
+    return _RegressionFn.apply(data, label.to(data.dtype),
+                               pfloat(grad_scale, 1.0), "mae")
+
+
+@register("LogisticRegressionOutput", num_inputs=2)
+def logistic_regression_output(data, label, grad_scale=1.0, **kw):
+    return _RegressionFn.apply(data, label.to(data.dtype),
+                               pfloat(grad_scale, 1.0), "logistic")

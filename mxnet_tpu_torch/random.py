@@ -40,6 +40,8 @@ def seed(seed_state, ctx="all"):
     if ctx == "all":
         st.seed = int(seed_state)
         st.gens = {}
+        # a compiled graph draws from torch's default generators
+        torch.manual_seed(int(seed_state))
         return
     device, key = _key(ctx.torch_device)
     gen = torch.Generator(device=device)

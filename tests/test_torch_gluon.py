@@ -134,7 +134,10 @@ def test_conv_and_dense_forward_match_jax(layer):
     np.testing.assert_allclose(tl(_t(x)).asnumpy(), j, rtol=1e-5, atol=1e-6)
 
 
-def test_hybridize_runs_eagerly_with_same_result():
+def test_hybridize_runs_eagerly_with_same_result(monkeypatch):
+    # hybridize() compiles (torch.compile, aot_eager here): the compiled
+    # block gives the eager block's result bit for bit
+    monkeypatch.setattr(tmx.jit, "_BACKEND", "aot_eager")
     x = np.random.RandomState(6).randn(2, 3).astype(np.float32)
     seq = tmx.gluon.nn.HybridSequential()
     seq.add(tmx.gluon.nn.Dense(4),

@@ -9,8 +9,12 @@ loading them through get_model(pretrained=True) from a local root, and
 admitting into and decoding with a tiny LM's GenerationEngine, and the
 data pipeline (mx.io, mx.image, mx.recordio, mx.native, mx.storage and
 mx.gluon.data: writing a small .rec, reading it through ImageRecordIter
-and a DataLoader, and one step of train_imagenet's --data-train loop)
-loads neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
+and a DataLoader, and one step of train_imagenet's --data-train loop),
+and the symbolic layer (mx.sym, mx.mod, mx.model, mx.callback,
+mx.monitor, mx.visualization: one Module update, one hybridized block
+and an export / SymbolBlock.imports round trip, compiled with the
+aot_eager backend) loads neither jax nor mxnet_tpu, and chip_smoke.py
+imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -24,6 +28,7 @@ _PROBE = r"""
 import sys
 import numpy as np
 import mxnet_tpu_torch as mx
+mx.jit._BACKEND = "aot_eager"   # train_imagenet hybridizes
 import mxnet_tpu_torch.parallel
 import mxnet_tpu_torch.ops.attention
 from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -111,6 +116,32 @@ with tempfile.TemporaryDirectory() as root:
     assert res["losses"].shape == (1,)
     mx.native.available()
     mx.storage.pool_stats()
+import mxnet_tpu_torch.executor
+from mxnet_tpu_torch.examples import train_mnist
+assert (mx.sym, mx.symbol, mx.mod, mx.model, mx.callback,
+        mx.monitor.Monitor, mx.visualization.print_summary)
+mod = mx.mod.Module(train_mnist.mlp_symbol(), context=mx.cpu())
+mod.bind(data_shapes=[("data", (4, 1, 28, 28))],
+         label_shapes=[("softmax_label", (4,))])
+mod.init_params(mx.init.Xavier())
+mod.init_optimizer(optimizer_params={"learning_rate": 0.1})
+batch = mx.io.DataBatch([mx.nd.ones((4, 1, 28, 28), ctx=mx.cpu())],
+                        [mx.nd.array([1, 2, 3, 4], ctx=mx.cpu())])
+mod.forward_backward(batch)
+mod.update()
+assert mod.get_outputs()[0].shape == (4, 10)
+lenet = train_mnist.lenet_gluon()
+lenet.initialize(mx.init.Xavier(), ctx=mx.cpu())
+lenet.hybridize()
+xb = mx.nd.ones((2, 1, 28, 28), ctx=mx.cpu())
+with mx.autograd.record():
+    out = lenet(xb)
+out.backward()
+with tempfile.TemporaryDirectory() as root:
+    pfile = lenet.export(root + "/lenet")
+    blk = mx.gluon.SymbolBlock.imports(root + "/lenet-symbol.json", "data",
+                                       pfile, ctx=mx.cpu())
+    assert np.abs(blk(xb).asnumpy() - lenet(xb).asnumpy()).max() < 1e-5
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

@@ -36,7 +36,10 @@ ARGS = ["--benchmark", "1", "--network", "resnet18_v2", "--num-classes",
 
 
 @pytest.fixture(autouse=True)
-def _precision():
+def _precision(monkeypatch):
+    # the entry hybridizes, as the JAX example does: compiled here with
+    # torch.compile's aot_eager backend, which keeps the suite's time
+    monkeypatch.setattr(tmx.jit, "_BACKEND", "aot_eager")
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     with jax.default_matmul_precision("float32"):

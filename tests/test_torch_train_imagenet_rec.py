@@ -75,7 +75,10 @@ def pinned_precision():
 
 
 @pytest.fixture(autouse=True)
-def _precision():
+def _precision(monkeypatch):
+    # the loop hybridizes, as the JAX example does: compiled here with
+    # torch.compile's aot_eager backend, which keeps the suite's time
+    monkeypatch.setattr(tmx.jit, "_BACKEND", "aot_eager")
     with pinned_precision():
         yield
 
