@@ -193,8 +193,10 @@ non-zero, printing no result, without them.  Phases, one line each:
    its norm, floored at 1e-3 of the largest norm for the gradients whose
    exact value is 0), then 1 warm-up + 10 steps with finite, falling
    losses.
-   resnet50_v1 and squeezenet1.1 at full width (classes 1000, batch 32,
-   3x224x224 from a seed, sgd lr 0.01 momentum 0.9), eager against
+   resnet18_v1 (resnet50_v1 before phases 14-15 came: cut in depth
+   for the script's time, at the same widths) and squeezenet1.1 at full
+   width (classes 1000, batch 32, 3x224x224 from a seed, sgd lr 0.01
+   momentum 0.9), eager against
    hybridize(): compile seconds, graph breaks (0), the step median over
    5 steps and img/s, kernels a step and the idle share over one
    profiled step each way, step 1's logits and gradients (squeezenet1.1
@@ -203,18 +205,53 @@ non-zero, printing no result, without them.  Phases, one line each:
    hybridized net's weights before each) within 1e-4 + 1e-4 |ref|; each
    of these within its bound or within 4x the same measure between the
    eager net and an eager run with cuDNN off.
-   resnet50_v1 exported, loaded with SymbolBlock.imports (logits within
+   resnet18_v1 exported, loaded with SymbolBlock.imports (logits within
    1e-5 + 1e-5 |ref| of the source's) and bound in a Module under a
    SoftmaxOutput head (one forward_backward's gradients against the
    gluon path's, as above), each also against an eager run with cuDNN
    off; no hand-written kernel launched;
-14. flash times: each kernel, the plain version and
+14. recurrent: f32 with TF32 off.  The RNN op (cuDNN's RNN a layer,
+   through the rnn_layer custom op when compiled) against its plain
+   composition (ops/nn.py rnn_plain) on the card at the word LM's width
+   (T 35, N 32, C = H = 650, 2 layers): lstm, gru, rnn_tanh, rnn_relu and
+   a bidirectional lstm, outputs and final states within 1e-5 + 1e-5
+   |ref|, the gradients of data, parameters and states within 1e-4 of
+   each one's norm, one forward+backward timed each way (CUDA events),
+   with its kernels and the top ones by card time; a small case (T 5,
+   N 3, C 4, H 6) on the card against the port on the CPU.  The port's
+   examples/word_language_model.py at upstream's medium configuration
+   (LSTM 2 x 650, emsize 650, bptt 35, batch 32, lr 20, clip 0.25,
+   dropout 0.2) at WikiText-2's vocabulary (33278) on the example's
+   seeded Markov corpus, hybridized: step 1's logits (1e-4 + 1e-4|ref|)
+   and gradients (1e-3 of each norm) hybridized against eager with
+   dropout 0; then 1 warm-up + 30 steps eager and hybridized: compile
+   seconds, graph breaks (0), step median and tokens/s, kernels a step
+   and the idle share over one more profiled step, peak memory, losses
+   finite and the perplexity falling.  rnn_bucketing --cells at upstream
+   lstm_bucketing.py's width (2 x mx.rnn.LSTMCell(200), embed 200,
+   vocabulary 10000, batch 32) over BucketSentenceIter with buckets 10
+   and 20, one epoch of a seeded corpus: compile seconds per bucket,
+   batches/s, perplexity finite and falling; no hand-written kernel
+   launched;
+15. fusion: each of the five patterns' microbench on the card, fused
+   against unfused (conv_bn_relu at (32, 64, 56, 56), norm_act, add_act
+   and act_scale_add at (32, 256, 56, 56), layer_norm_fast at
+   (16384, 512)), written into a CostTable by save_table and read back
+   by load_table, and which patterns the default plan then fires; a
+   resnet50_v1 bottleneck (256->64->64->256, 56x56, batch 32, a
+   1000-way head) as a symbol bound with fusion off, default and all:
+   the fired rewrites, one training forward/backward each with outputs
+   (1e-4 + 1e-4|ref|), gradients (1e-3 of each norm) and moving stats
+   (1e-4 + 1e-4|ref|) against off, step time, compile and kernels a
+   step; fold_batchnorm's logits in predict mode within 1e-4 + 1e-4
+   |ref| of the unfolded graph; no hand-written kernel launched;
+16. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-15. the whole script's wall time, then a {"kernels": [...]} line;
-16. last line: {"ok": true, "device": {...}}.
+17. the whole script's wall time, then a {"kernels": [...]} line;
+18. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -407,7 +444,10 @@ DATA_NORM_REL = 1e-6
 # PR 13)
 SYM_IMAGES, SYM_BATCH, SYM_LR, SYM_EPOCHS = 2048, 64, 0.05, 2
 SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 10
-SYM_NETS = ("resnet50_v1", "squeezenet1.1")
+# resnet18_v1 at full width where this phase ran resnet50_v1 before
+# phases 14-15: they add about 500 s, mostly inductor's compiles, so
+# this phase's ResNet is cut in depth (PERF.md section 4)
+SYM_NETS = ("resnet18_v1", "squeezenet1.1")
 SYM_NET_BATCH, SYM_NET_LR, SYM_COMPARE_STEPS, SYM_TIMED_STEPS = \
     32, 0.01, 3, 5
 SYM_PARAM_RTOL, SYM_LOGIT_TOL, SYM_GRAD_REL, SYM_STAT_TOL, SYM_EXPORT_TOL = \
@@ -3584,9 +3624,9 @@ def sym_network(name, card, problems):
 
 
 def sym_export(card, root, hyb, x, y, problems):
-    """resnet50_v1 exported and loaded back as a SymbolBlock, and bound
+    """SYM_NETS[0] exported and loaded back as a SymbolBlock, and bound
     in a Module under a SoftmaxOutput head."""
-    prefix = os.path.join(root, "resnet50_v1")
+    prefix = os.path.join(root, SYM_NETS[0])
     t0 = time.perf_counter()
     pfile = hyb.export(prefix)
     export_s = time.perf_counter() - t0
@@ -3628,21 +3668,21 @@ def sym_export(card, root, hyb, x, y, problems):
     if not within(gerr, SYM_GRAD_REL, gyard):
         problems.append("Module on the export: gradients %g (%s; eager with "
                         "cuDNN off %g)" % (gerr, gworst, gyard))
-    print("symbolic export: resnet50_v1 export %.2f s (%d arguments, %d aux "
+    print("symbolic export: %s export %.2f s (%d arguments, %d aux "
           "states) | SymbolBlock.imports logits vs the source %.3g of the "
           "bound (first call %.1f s) | Module(SoftmaxOutput head) "
           "forward_backward gradients vs the gluon path %.3g of their norm "
           "(%s; first call %.1f s) | eager with cuDNN off against eager: "
           "logits %.3g, gradients %.3g | %s"
-          % (export_s, len(sym.list_arguments()),
+          % (SYM_NETS[0], export_s, len(sym.list_arguments()),
              len(sym.list_auxiliary_states()), err, blk_s, gerr, gworst,
              mod_s, yard, gyard, card), flush=True)
 
 
 def phase_symbolic(card):
     """The symbolic API and hybridize(): both paths of train_mnist,
-    resnet50_v1 and squeezenet1.1 eager against hybridized, and the
-    export (see the module doc, phase 13)."""
+    SYM_NETS eager against hybridized, and the first one's export (see
+    the module doc, phase 13)."""
     from mxnet_tpu_torch.examples import train_mnist as ex
 
     t_phase = time.perf_counter()
@@ -3657,7 +3697,7 @@ def phase_symbolic(card):
             torch.cuda.empty_cache()
             row, held = sym_network(name, card, problems)
             rows.append(row)
-            if name == "resnet50_v1":
+            if name == SYM_NETS[0]:
                 sym_export(card, root, *held, problems)
             del held
     finally:
@@ -3671,6 +3711,516 @@ def phase_symbolic(card):
           % (launched, module_img_s, time.perf_counter() - t_phase, card),
           flush=True)
     return rows
+
+
+# phase 14 (recurrent): the RNN op at the word LM's width, each mode on
+# the card against its plain composition on the card (f32, TF32 off)
+REC_T, REC_N, REC_C, REC_LAYERS = 35, 32, 650, 2
+REC_CASES = (("lstm", False), ("gru", False), ("rnn_tanh", False),
+             ("rnn_relu", False), ("lstm", True))
+REC_OUT_TOL, REC_GRAD_REL = 1e-5, 1e-4
+REC_SMALL = (5, 3, 4, 6)        # T, N, C, H of the card-vs-CPU case
+REC_DEVICE = "cuda"
+# upstream example/gluon/word_language_model's medium configuration, at
+# WikiText-2's vocabulary, on the example's seeded Markov corpus
+LM_ARGS = ["--model", "lstm", "--vocab", "33278", "--emsize", "650",
+           "--nhid", "650", "--nlayers", "2", "--bptt", "35",
+           "--batch-size", "32", "--lr", "20", "--clip", "0.25",
+           "--dropout", "0.2", "--epochs", "1", "--corpus-len", "40000"]
+LM_STEPS = 31                    # 1 warm-up + 30 timed
+LM_LOGIT_TOL, LM_GRAD_REL = 1e-4, 1e-3
+# upstream example/rnn/bucketing/lstm_bucketing.py's width (2 x
+# LSTMCell(200), embed 200, vocabulary 10000, batch 32); buckets 10 and
+# 20 of its 10-60 (compile time, PERF.md section 4); upstream's lr
+# 0.01, with the example's momentum 0.9 (the example's own lr 0.2
+# diverges at this vocabulary)
+BUCKET_ARGS = ["--cells", "--vocab", "10000", "--num-embed", "200",
+               "--num-hidden", "200", "--batch-size", "32", "--buckets",
+               "10,20", "--epochs", "1", "--lr", "0.01"]
+
+
+def rec_inputs(mode, bidir, T, N, C, H, device, seed=0):
+    """Data, flat parameters (torch's default RNN init, U(-1/sqrt(H),
+    1/sqrt(H))) and states, from a seed."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    D = 2 if bidir else 1
+    g = tnn._GATES[mode]
+    n = sum(D * g * H * ((C if layer == 0 else H * D) + H)
+            for layer in range(REC_LAYERS)) + REC_LAYERS * D * 2 * g * H
+    rng = np.random.RandomState(seed)
+    k = 1.0 / math.sqrt(H)
+    ins = [rng.randn(T, N, C), rng.uniform(-k, k, n),
+           rng.randn(REC_LAYERS * D, N, H) * 0.5]
+    if mode == "lstm":
+        ins.append(rng.randn(REC_LAYERS * D, N, H) * 0.5)
+    attrs = dict(state_size=H, num_layers=REC_LAYERS, bidirectional=bidir,
+                 mode=mode, state_outputs=True)
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in ins], attrs
+
+
+def rec_fwd_bwd(fn, ins, attrs, cots):
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    outs = fn(*leaves, **attrs)
+    grads = torch.autograd.grad(list(outs), leaves, cots)
+    return [o.detach() for o in outs], list(grads)
+
+
+def top_kernels(fn, k=3):
+    """The k kernels with the most card time in one fn() (names cut)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((_self_device_us(ev), ev.key[:48])
+                       for ev in prof.key_averages()
+                       if getattr(ev, "device_type", None) == DeviceType.CUDA
+                       and _self_device_us(ev)), reverse=True)[:k]
+    except Exception as e:  # noqa: BLE001 - a report only
+        return "not measured (%r)" % (e,)
+    return ", ".join("%s %.3f ms" % (n, us / 1e3) for us, n in rows)
+
+
+def rec_op(card):
+    """The RNN op (cuDNN a layer) against rnn_plain on the card, each
+    mode at the word LM's width, forward and gradients, with the time
+    of one forward+backward each way; the small case card vs CPU."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    op = registry.get_op("RNN").fn
+    rows = []
+    for mode, bidir in REC_CASES:
+        ins, attrs = rec_inputs(mode, bidir, REC_T, REC_N, REC_C, REC_C,
+                                REC_DEVICE)
+        dev = ins[0].device
+        gen = torch.Generator(device=dev).manual_seed(1)
+        cots = [torch.randn(o.shape, generator=gen, device=dev)
+                for o in op(*ins, **attrs)]
+        got, got_g = rec_fwd_bwd(op, ins, attrs, cots)
+        want, want_g = rec_fwd_bwd(tnn.rnn_plain, ins, attrs, cots)
+        out_err = max(close(g.cpu().numpy(), w.cpu().numpy(), REC_OUT_TOL,
+                            REC_OUT_TOL) for g, w in zip(got, want))
+        grad_err = max(float((g - w).norm() / w.norm().clamp_min(1e-30))
+                       for g, w in zip(got_g, want_g))
+        check(out_err <= 1.0, "RNN %s bidir=%s: outputs %g of the bound"
+              % (mode, bidir, out_err))
+        check(grad_err <= REC_GRAD_REL, "RNN %s bidir=%s: gradients %g of "
+              "their norm" % (mode, bidir, grad_err))
+        ms = time_ms(lambda: rec_fwd_bwd(op, ins, attrs, cots))
+        plain_ms = time_ms(lambda: rec_fwd_bwd(tnn.rnn_plain, ins, attrs,
+                                               cots))
+        prof = device_kernels(lambda: rec_fwd_bwd(op, ins, attrs, cots))
+        row = {"mode": mode, "bidirectional": bidir, "ms": ms,
+               "plain_ms": plain_ms, "out_err": out_err,
+               "grad_rel": grad_err}
+        rows.append(row)
+        print("recurrent op: %s%s T %d N %d C=H %d, %d layers | forward+"
+              "backward: cuDNN route %.3f ms, plain composition %.3f ms "
+              "(%.1fx) | outputs %.3g of 1e-5 + 1e-5|ref|, gradients %.3g "
+              "of their norm (bound 1e-4) | %s a forward+backward; top: %s "
+              "| %s" % (mode, " bidirectional" if bidir else "", REC_T,
+                        REC_N, REC_C, REC_LAYERS, ms, plain_ms,
+                        plain_ms / ms, out_err, grad_err,
+                        kernels_text(prof),
+                        top_kernels(lambda: rec_fwd_bwd(op, ins, attrs,
+                                                        cots)), card),
+              flush=True)
+    T, N, C, H = REC_SMALL
+    out_worst = grad_worst = 0.0
+    for mode, bidir in REC_CASES:
+        ins, attrs = rec_inputs(mode, bidir, T, N, C, H, "cpu", seed=2)
+        cots = [torch.ones(o.shape) for o in op(*ins, **attrs)]
+        want, want_g = rec_fwd_bwd(op, ins, attrs, cots)
+        got, got_g = rec_fwd_bwd(op, [t.to(REC_DEVICE) for t in ins],
+                                 attrs, [c.to(REC_DEVICE) for c in cots])
+        for g, w in zip(got, want):
+            out_worst = max(out_worst, close(g.cpu().numpy(), w.numpy(),
+                                             REC_OUT_TOL, REC_OUT_TOL))
+        for g, w in zip(got_g, want_g):
+            grad_worst = max(grad_worst, float(
+                (g.cpu() - w).norm() / w.norm().clamp_min(1e-30)))
+    check(out_worst <= 1.0 and grad_worst <= REC_GRAD_REL,
+          "RNN small case card vs CPU: outputs %g of the bound, gradients "
+          "%g of their norm" % (out_worst, grad_worst))
+    print("recurrent op small: T %d N %d C %d H %d, each case card against "
+          "the port on the CPU: outputs %.3g of 1e-5 + 1e-5|ref|, "
+          "gradients %.3g of their norm (bound 1e-4) | %s"
+          % (T, N, C, H, out_worst, grad_worst, card), flush=True)
+    return rows
+
+
+def lm_batch(args, data, i, ctx):
+    return (mx.nd.array(data[i:i + args.bptt], ctx=ctx),
+            mx.nd.array(data[i + 1:i + 1 + args.bptt], ctx=ctx))
+
+
+def lm_models(wlm, args, n, ctx):
+    """n models with the same Xavier weights (from mx.random.seed(0))."""
+    models = []
+    for _ in range(n):
+        with mx.name.NameManager():
+            m = wlm.build(args, ctx)
+        with mx.autograd.pause():   # the decoder's input width
+            m(mx.nd.zeros((args.bptt, args.batch_size), ctx=ctx),
+              *m.begin_state(args.batch_size, ctx=ctx))
+        models.append(m)
+    for m in models[1:]:
+        copy_weights(models[0], m)
+    return models
+
+
+def lm_parity(wlm, card):
+    """Dropout 0: step 1's logits and gradients, hybridized against
+    eager on the card."""
+    args = wlm.parse_args(LM_ARGS + ["--dropout", "0"])
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    eager, hyb = lm_models(wlm, args, 2, ctx)
+    hyb.hybridize()
+    data = wlm.corpus(args)
+    x, y = lm_batch(args, data, 0, ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    res = []
+    for m in (eager, hyb):
+        states = m.begin_state(args.batch_size, ctx=ctx)
+        with mx.autograd.record():
+            out, _ = m(x, *states)
+            loss = loss_fn(out.reshape((-1, args.vocab)), y.reshape((-1,)))
+        loss.backward()
+        res.append((out.asnumpy(), grads_of(m)))
+    lerr = close(res[1][0], res[0][0], LM_LOGIT_TOL, LM_LOGIT_TOL)
+    gerr, gworst = grad_rel(res[1][1], res[0][1])
+    check(lerr <= 1.0, "word LM step 1 logits hybridized vs eager: %g of "
+          "the bound" % lerr)
+    check(gerr <= LM_GRAD_REL, "word LM step 1 gradients hybridized vs "
+          "eager: %g of their norm (%s)" % (gerr, gworst))
+    del eager, hyb
+    return lerr, gerr, gworst
+
+
+def lm_run(wlm, args, model, hybridize):
+    """The example's train() for LM_STEPS steps, one more step profiled;
+    step median, tokens/s, compile seconds, kernels and idle share."""
+    torch.cuda.reset_peak_memory_stats()
+    breaks = graph_breaks()
+    res = wlm.train(args, ctx=mx.gpu(0), model=model, hybridize=hybridize,
+                    max_steps=LM_STEPS)
+    breaks = graph_breaks() - breaks
+    med = statistics.median(res["step_s"][1:])
+    i = LM_STEPS * args.bptt
+    x, y = lm_batch(args, res["data"], i, mx.gpu(0))
+    prof = device_kernels(lambda: res["step"](x, y, res["states"]))
+    losses = res["losses"]
+    return {"step_ms": 1e3 * med,
+            "tokens_s": args.batch_size * args.bptt / med,
+            "compile_s": res["step_s"][0] - med, "graph_breaks": breaks,
+            "kernels": prof[0] if isinstance(prof, tuple) else None,
+            "idle": (max(0.0, 1 - prof[1] / (1e3 * med))
+                     if isinstance(prof, tuple) else None),
+            "profile": kernels_text(prof),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "finite": bool(np.isfinite(losses).all()),
+            "ppl_first": math.exp(losses[1:6].mean()),
+            "ppl_last": math.exp(losses[-5:].mean())}
+
+
+def rec_lm(card):
+    """The port's word_language_model at the medium configuration, eager
+    against hybridized (see the module doc, phase 14)."""
+    from mxnet_tpu_torch.examples import word_language_model as wlm
+
+    lerr, gerr, gworst = lm_parity(wlm, card)
+    torch.cuda.empty_cache()
+    args = wlm.parse_args(LM_ARGS)
+    mx.random.seed(0)
+    eager, hyb = lm_models(wlm, args, 2, mx.gpu(0))
+    rows = {"eager": lm_run(wlm, args, eager, False)}
+    del eager
+    torch.cuda.empty_cache()
+    rows["hybridized"] = lm_run(wlm, args, hyb, True)
+    h = rows["hybridized"]
+    h["forward_compile_s"] = hyb._cached_op.compile_seconds
+    check(h["graph_breaks"] == 0, "word LM: %d graph breaks"
+          % h["graph_breaks"])
+    for tag, r in rows.items():
+        check(r["finite"], "word LM %s: a loss is not finite" % tag)
+        check(r["ppl_last"] < r["ppl_first"], "word LM %s: perplexity did "
+              "not fall (%.1f -> %.1f)" % (tag, r["ppl_first"],
+                                           r["ppl_last"]))
+
+    def pct(v):
+        return "not measured" if v is None else "%.1f%%" % (100 * v)
+    for tag, r in rows.items():
+        print("recurrent lm %s: LSTM 2x650, emsize 650, vocabulary 33278, "
+              "bptt 35, batch 32, dropout 0.2, sgd lr 20 clip 0.25, f32 "
+              "(TF32 off) | step %.2f ms (median of %d), %.0f tokens/s | "
+              "compile %.1f s (first step less the median) | graph breaks "
+              "%d | %s a step, idle %s | peak %.2f GB | losses finite %s, "
+              "perplexity %.1f (steps 2-6) -> %.1f (last 5) | %s"
+              % (tag, r["step_ms"], LM_STEPS - 1, r["tokens_s"],
+                 r["compile_s"], r["graph_breaks"], r["profile"],
+                 pct(r["idle"]), r["peak_gb"], r["finite"], r["ppl_first"],
+                 r["ppl_last"], card), flush=True)
+    print("recurrent lm parity (dropout 0): step 1 hybridized against "
+          "eager, logits %.3g of 1e-4 + 1e-4|ref|, gradients %.3g of their "
+          "norm (%s; bound 1e-3) | hybridized forward compile %.1f s | %s"
+          % (lerr, gerr, gworst, h["forward_compile_s"], card), flush=True)
+    return rows
+
+
+def rec_bucketing(card):
+    """rnn_bucketing --cells: two mx.rnn.LSTMCell(200) in a
+    BucketingModule over BucketSentenceIter, buckets 10 and 20."""
+    from mxnet_tpu_torch.examples import rnn_bucketing as rb
+
+    args = rb.parse_args(BUCKET_ARGS)
+    breaks = graph_breaks()
+    res = rb.train(args, ctx=mx.gpu(0))
+    breaks = graph_breaks() - breaks
+    per = {}
+    for key, s in zip(res["buckets"], res["batch_s"]):
+        per.setdefault(key, []).append(s)
+    compile_s = {k: v[0] - statistics.median(v[1:] or v)
+                 for k, v in sorted(per.items())}
+    steady = [t for v in per.values() for t in v[1:]]
+    ppl = np.array(res["batch_ppl"])
+    fifth = max(1, len(ppl) // 5)
+    first, last = ppl[:fifth].mean(), ppl[-fifth:].mean()
+    print("recurrent bucketing: rnn_bucketing --cells, 2 x mx.rnn.LSTMCell"
+          "(200), embed 200, vocabulary 10000, batch 32, sgd lr %g "
+          "momentum 0.9, buckets 10 and 20 | %d batches (%s) | compile %s "
+          "| %.2f batches/s after the compiles | graph breaks %d | "
+          "perplexity %.1f (first fifth of the batches) -> %.1f (last "
+          "fifth), epoch %.1f | %s"
+          % (args.lr, len(res["batch_s"]),
+             ", ".join("bucket %d: %d" % (k, len(v))
+                       for k, v in sorted(per.items())),
+             ", ".join("bucket %d %.1f s" % kv
+                       for kv in compile_s.items()),
+             len(steady) / sum(steady), breaks, first, last, res["ppl"][0],
+             card), flush=True)
+    check(breaks == 0, "bucketing: %d graph breaks" % breaks)
+    check(np.isfinite(ppl).all(), "bucketing: perplexity not finite")
+    check(last < first, "bucketing: perplexity did not fall (%.1f -> "
+          "%.1f)" % (first, last))
+    return {"compile_s": compile_s, "batches_s": len(steady) / sum(steady)}
+
+
+def phase_recurrent(card):
+    """Phase 14 (see the module doc)."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    rec_op(card)
+    torch.cuda.empty_cache()
+    rec_lm(card)
+    torch.cuda.empty_cache()
+    rec_bucketing(card)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the recurrent path launched %s"
+          % launched)
+    print("recurrent: hand-written kernels launched: %s (none is on it) | "
+          "phase %.1f s | %s" % (launched, time.perf_counter() - t_phase,
+                                 card), flush=True)
+
+
+# phase 15 (fusion): each pattern's microbench at a resnet50_v1 or LM
+# shape, and a resnet50_v1 bottleneck bound with fusion off/default/all
+FUSION_SHAPES = (("conv_bn_relu", (32, 64, 56, 56)),
+                 ("norm_act", (32, 256, 56, 56)),
+                 ("add_act", (32, 256, 56, 56)),
+                 ("act_scale_add", (32, 256, 56, 56)),
+                 ("layer_norm_fast", (32 * 512, 512)))
+BOTTLENECK = (32, 256, 64, 56, 1000)    # batch, in/out, mid, side, classes
+
+
+def fusion_micro(card, root):
+    from mxnet_tpu_torch import fusion_cost as fc
+    from mxnet_tpu_torch.symbol import fusion as fus
+
+    table = fc.CostTable(meta={"device": card,
+                               "measured_by": "chip_smoke.py"})
+    rows = []
+    for name, shape in FUSION_SHAPES:
+        r = fus.microbench(name, shape, iters=10, warmup=2, repeats=3,
+                           ctx=mx.gpu(0))
+        check(r["fired"] and r["key"], "microbench %s: no site" % name)
+        table.add(r["key"], r["fused_train_ms"], r["unfused_train_ms"],
+                  fused_fwd_ms=r["fused_fwd_ms"],
+                  unfused_fwd_ms=r["unfused_fwd_ms"])
+        rows.append(r)
+        print("fusion microbench %s %s f32: train (forward+backward) fused "
+              "%.3f ms, unfused %.3f ms, speedup %.3f | forward fused %.3f "
+              "ms, unfused %.3f ms, speedup %.3f | key %s | %s"
+              % (name, list(shape), r["fused_train_ms"],
+                 r["unfused_train_ms"], r["speedup"], r["fused_fwd_ms"],
+                 r["unfused_fwd_ms"], r["speedup_infer"], r["key"], card),
+              flush=True)
+    path = os.path.join(root, "fusion_cost.json")
+    fc.save_table(path, table)
+    back = fc.load_table(path)
+    check(back.entries == table.entries, "cost table: read back differs")
+    plan = fc.FusionPlan(table=back)
+    fires = {r["pattern"]: plan.decide(r["pattern"],
+                                       fus.get_pattern(r["pattern"])
+                                       .default_on, r["key"])
+             for r in rows}
+    print("fusion table: %d entries saved and loaded back equal | the "
+          "default plan with this table fires: %s | %s"
+          % (len(back.entries), fires, card), flush=True)
+    return rows
+
+
+def bottleneck_symbol():
+    """A resnet50_v1 bottleneck (1x1, 3x3, 1x1, BatchNorm after each,
+    the identity shortcut and relu), average pool, a 1000-way head:
+    (logits symbol, SoftmaxOutput symbol)."""
+    n, c, mid, side, classes = BOTTLENECK
+    S = mx.sym
+    x = S.var("data")
+
+    def cbn(h, nf, k, name, act=True):
+        h = S.Convolution(h, kernel=(k, k), pad=(k // 2, k // 2),
+                          num_filter=nf, no_bias=True, name=name + "_conv")
+        h = S.BatchNorm(h, fix_gamma=False, name=name + "_bn")
+        return S.Activation(h, act_type="relu", name=name + "_relu") \
+            if act else h
+
+    body = cbn(cbn(cbn(x, mid, 1, "a"), mid, 3, "b"), c, 1, "c", act=False)
+    y = S.Activation(body + x, act_type="relu", name="join")
+    y = S.Flatten(S.Pooling(y, kernel=(side, side), pool_type="avg",
+                            global_pool=True, name="pool"))
+    logits = S.FullyConnected(y, num_hidden=classes, name="fc")
+    return logits, S.SoftmaxOutput(logits, S.var("softmax_label"),
+                                   name="softmax")
+
+
+def bottleneck_values(sym, feeds):
+    arg_shapes, _, aux_shapes = sym.infer_shape(**feeds)
+    rng = np.random.RandomState(0)
+    vals = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name == "softmax_label":
+            v = rng.randint(0, BOTTLENECK[4], shape)
+        elif name.endswith("weight"):
+            v = rng.randn(*shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+        elif name.endswith("gamma"):
+            v = 1 + 0.1 * rng.randn(*shape)
+        else:
+            v = rng.randn(*shape) * (1.0 if name == "data" else 0.1)
+        vals[name] = v.astype(np.float32)
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        vals[name] = (np.ones(shape) if name.endswith("var")
+                      else np.zeros(shape)).astype(np.float32)
+    return vals
+
+
+def bind_with(sym, feeds, vals, fusion, grad=True):
+    req = {n: "write" if grad and n not in feeds else "null"
+           for n in sym.list_arguments()}
+    ex = sym.simple_bind(ctx=mx.gpu(0), grad_req=req, fusion=fusion,
+                         **feeds)
+    for d in (ex.arg_dict, ex.aux_dict):
+        for name, arr in d.items():
+            arr[:] = mx.nd.array(vals[name], ctx=mx.gpu(0))
+    return ex
+
+
+def fusion_bottleneck(card):
+    from mxnet_tpu_torch.symbol import fusion as fus
+
+    n, c, _, side, _ = BOTTLENECK
+    logits_sym, sym = bottleneck_symbol()
+    feeds = {"data": (n, c, side, side), "softmax_label": (n,)}
+    vals = bottleneck_values(sym, feeds)
+    res = {}
+    for fusion in ("off", "default", "all"):
+        ex = bind_with(sym, feeds, vals, fusion)
+        dt, _ = timed_s(lambda: (ex.forward(is_train=True), ex.backward()))
+        out = ex.outputs[0].asnumpy()
+        grads = {k: g.asnumpy() for k, g in ex.grad_dict.items()
+                 if k not in feeds}
+        aux = {k: a.asnumpy() for k, a in ex.aux_dict.items()}
+        steps = [timed_s(lambda: (ex.forward(is_train=True),
+                                  ex.backward()))[0] for _ in range(5)]
+        med = statistics.median(steps)
+        prof = device_kernels(lambda: (ex.forward(is_train=True),
+                                       ex.backward()))
+        res[fusion] = {"out": out, "grads": grads, "aux": aux,
+                       "fired": sorted({f[0] for f in ex.fusion_fired}),
+                       "sites": len(ex.fusion_fired),
+                       "step_ms": 1e3 * med, "compile_s": dt - med,
+                       "profile": kernels_text(prof)}
+        del ex
+    ref = res["off"]
+    for fusion in ("default", "all"):
+        r = res[fusion]
+        oerr = close(r["out"], ref["out"], 1e-4, 1e-4)
+        gerr, gworst = grad_rel(r["grads"], ref["grads"])
+        serr = max(close(r["aux"][k], ref["aux"][k], 1e-4, 1e-4)
+                   for k in ref["aux"])
+        check(oerr <= 1.0 and gerr <= 1e-3 and serr <= 1.0,
+              "bottleneck fusion=%s against off: outputs %g, gradients %g "
+              "(%s), moving stats %g" % (fusion, oerr, gerr, gworst, serr))
+        r["errs"] = (oerr, gerr, gworst, serr)
+    check(res["default"]["fired"] == ["add_act"], "fusion=default fired %s"
+          % res["default"]["fired"])
+    for fusion, r in res.items():
+        errs = ("outputs %.3g of 1e-4 + 1e-4|ref|, gradients %.3g of their "
+                "norm (%s), moving stats %.3g of the bound against off | "
+                % r["errs"]) if "errs" in r else ""
+        print("fusion bottleneck %s: resnet50_v1 bottleneck %d->%d->%d->%d "
+              "at %dx%d, batch %d, classes 1000, f32 (TF32 off) | fired %s "
+              "(%d sites) | %sforward+backward %.2f ms (median of 5), "
+              "compile %.1f s, %s a step | %s"
+              % (fusion, c, BOTTLENECK[2], BOTTLENECK[2], c, side, side, n,
+                 r["fired"], r["sites"], errs, r["step_ms"], r["compile_s"],
+                 r["profile"], card), flush=True)
+    # prediction: BatchNorm folded into the convolutions
+    lfeeds = {"data": feeds["data"]}
+    args = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in vals.items()
+            if k in logits_sym.list_arguments() and k not in lfeeds}
+    aux = {k: mx.nd.array(vals[k], ctx=mx.gpu(0))
+           for k in logits_sym.list_auxiliary_states()}
+    folded, fargs, faux = fus.fold_batchnorm(logits_sym, args, aux)
+    check(fus.count_ops(folded, "BatchNorm") == 0, "fold left a BatchNorm")
+    outs = []
+    for s, a, x in ((logits_sym, args, aux), (folded, fargs, faux)):
+        ex = s.simple_bind(ctx=mx.gpu(0), grad_req="null", fusion="off",
+                           **lfeeds)
+        ex.copy_params_from(a, x)
+        ex.arg_dict["data"][:] = mx.nd.array(vals["data"], ctx=mx.gpu(0))
+        outs.append(ex.forward(is_train=False)[0].asnumpy())
+    ferr = close(outs[1], outs[0], 1e-4, 1e-4)
+    check(ferr <= 1.0, "fold_batchnorm: logits %g of the bound" % ferr)
+    print("fusion fold: fold_batchnorm of the bottleneck in predict mode, "
+          "logits %.3g of 1e-4 + 1e-4|ref| of the unfolded graph | %s"
+          % (ferr, card), flush=True)
+    return res
+
+
+def phase_fusion(card):
+    """Phase 15 (see the module doc)."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    root = tempfile.mkdtemp(prefix="fusion_")
+    try:
+        fusion_micro(card, root)
+        torch.cuda.empty_cache()
+        fusion_bottleneck(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the fusion path launched %s"
+          % launched)
+    print("fusion: hand-written kernels launched: %s (none is on it) | "
+          "phase %.1f s | %s" % (launched, time.perf_counter() - t_phase,
+                                 card), flush=True)
+
 
 
 def time_flash(shape, dtype, causal, card):
@@ -3742,6 +4292,10 @@ def main():
     phase_data(card)
     torch.cuda.empty_cache()
     phase_symbolic(card)
+    torch.cuda.empty_cache()
+    phase_recurrent(card)
+    torch.cuda.empty_cache()
+    phase_fusion(card)
     torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):

@@ -40,7 +40,13 @@ first use into ``_build/``) and ``gluon.data`` (datasets, samplers,
 (``module``), ``model``, ``callback``, ``monitor.Monitor``,
 ``visualization``, the output ops, and ``CachedOp``, ``export`` and
 ``SymbolBlock`` over ``torch.compile`` (``jit``), behind both paths of
-``examples.train_mnist``.
+``examples.train_mnist``; and the recurrent family and graph fusion: the
+``RNN`` op (cuDNN's RNN a layer on the card), the Sequence ops, control
+flow (``mx.nd.contrib``/``mx.sym.contrib`` foreach, while_loop, cond),
+``gluon.rnn``, ``gluon.contrib``, ``mx.rnn``, the fused ops, the
+fusion passes (``mx.sym.fusion``) and their cost table
+(``fusion_cost``), behind ``examples.word_language_model`` and
+``examples.rnn_bucketing``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -82,4 +88,6 @@ from . import model  # noqa: F401
 from . import callback  # noqa: F401
 from . import monitor  # noqa: F401
 from . import visualization  # noqa: F401
+from . import fusion_cost  # noqa: F401
+from . import rnn  # noqa: F401
 from .attribute import AttrScope  # noqa: F401

@@ -46,6 +46,9 @@ _NP_TO_TORCH = {
     np.dtype("bool"): torch.bool,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+# by name first: a compiled graph's dynamo (torch 2.11) cannot hash a
+# numpy dtype as a dict key, and an op's dtype attribute is a name
+_NAME_TO_TORCH = {k.name: v for k, v in _NP_TO_TORCH.items()}
 
 
 def torch_dtype(dtype):
@@ -55,6 +58,8 @@ def torch_dtype(dtype):
         return torch.float32
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str) and dtype in _NAME_TO_TORCH:
+        return _NAME_TO_TORCH[dtype]
     try:
         return _NP_TO_TORCH[np.dtype(dtype)]
     except (KeyError, TypeError) as e:

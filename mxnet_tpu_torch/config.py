@@ -8,7 +8,7 @@ from __future__ import annotations
 import os
 import warnings
 
-__all__ = ["get", "FLAGS"]
+__all__ = ["get", "FLAGS", "fusion_cost_table"]
 
 
 def _pint(v):
@@ -43,6 +43,17 @@ FLAGS = {
         "", str,
         "base URL of the gluon model zoo's weight mirror (file:// works "
         "offline); '' disables fetching (model_store.get_model_file)"),
+    "MXNET_FUSION": (
+        "", str,
+        "default graph-fusion policy of Executor, CachedOp, Module and "
+        "ShardedTrainer: '' = the identical-math patterns plus cost-table "
+        "upgrades, 'off', 'all', or a list of pattern names "
+        "(symbol.fusion.list_patterns())"),
+    "MXNET_FUSION_TUNE": (
+        "", str,
+        "path of a measured shape-keyed fusion cost table ('' = no table: "
+        "only the default-on patterns fire); config.fusion_cost_table "
+        "installs one from code"),
     "MXNET_DTYPE_POLICY": (
         "", str,
         "default mixed-precision dtype policy of ShardedTrainer: '' or "
@@ -140,3 +151,12 @@ def get(name):
             warnings.warn("invalid value %r for %s; using default %r"
                           % (raw, name, default))
         return parser(default)
+
+
+def fusion_cost_table(table):
+    """Install the process-wide fusion cost table (the switch
+    ``MXNET_FUSION_TUNE`` sets, callable after import): a JSON path, a
+    ``fusion_cost.CostTable`` or dict, or None for no table."""
+    from . import fusion_cost
+
+    fusion_cost.set_cost_table(table)

@@ -11,9 +11,13 @@ arguments whose ``grad_req`` is not ``null`` as fresh leaves;
 ``backward`` runs ``torch.autograd.grad`` for those leaves and writes
 (``write``) or adds (``add``) each gradient into its grad array.
 
-BatchNorm's moving stats are threaded as in the JAX Executor: the graph
-function returns their new values, which are rebound into ``aux_dict``
-after the forward.  Under a dtype policy, arguments are cast to their
+At bind, ``fusion`` (else ``MXNET_FUSION``) runs the graph-fusion passes
+(``symbol.fusion.apply_fusion``) over the graph the compiled function
+runs; with neither set, the default-on patterns fire (``add_act``,
+``act_scale_add``), as in the JAX Executor.  ``fusion_fired`` lists the
+rewrites.  BatchNorm's moving stats are threaded as in the JAX Executor:
+the graph function returns their new values, which are rebound into
+``aux_dict`` after the forward.  Under a dtype policy, arguments are cast to their
 compute dtype by name, except data and labels (``_DATA_INPUT_RE``), and
 floating outputs come back in the policy's output dtype.
 """
@@ -27,6 +31,7 @@ from .base import MXNetError
 from .context import current_context
 from . import autograd as _ag
 from . import dtype_policy as _dtp
+from . import fusion_cost as _fc
 from . import jit as _jit
 from .ndarray.ndarray import NDArray
 
@@ -49,7 +54,10 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad, grad_req, aux_states,
                  shared_exec=None, remat_policy=None, fusion=None,
                  aot=None, dtype_policy=None):
-        _not_ported(remat_policy=remat_policy, fusion=fusion, aot=aot)
+        _not_ported(remat_policy=remat_policy, aot=aot)
+        # None defers to MXNET_FUSION; a bad spec fails here, at bind
+        fusion_plan = _fc.resolve_fusion(fusion)
+        self._fusion = fusion
         self._dtype_policy = dtype_policy
         policy = _dtp.resolve_policy(dtype_policy)
         self._symbol = symbol
@@ -68,7 +76,20 @@ class Executor:
         self._grad_names = tuple(sorted(
             n for n in self.grad_dict if self._req(n, "null") != "null"))
 
-        graph_fn, _, _ = symbol._build_fn()
+        # the compiled function runs the graph after the fusion passes;
+        # they keep every argument, auxiliary and output name, so
+        # self._symbol and the name lists stay the caller's graph
+        exec_symbol = symbol
+        self.fusion_fired = []
+        if fusion_plan is not None:
+            from .symbol import fusion as _fusion
+
+            known = {n: (tuple(a.shape), a.dtype)
+                     for d in (self.arg_dict, self.aux_dict)
+                     for n, a in d.items()}
+            exec_symbol, self.fusion_fired = _fusion.apply_fusion(
+                symbol, fusion_plan, known=known)
+        graph_fn, _, _ = exec_symbol._build_fn()
         device = self._ctx.torch_device
 
         def fwd(values, is_train):
@@ -225,7 +246,7 @@ class Executor:
             new_aux[name] = old if tuple(old.shape) == tuple(shp) else \
                 nd_zeros(shp, ctx=self._ctx, dtype=old.dtype)
         return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self._grad_req, new_aux,
+                        self._grad_req, new_aux, fusion=self._fusion,
                         dtype_policy=self._dtype_policy)
 
     def set_monitor_callback(self, callback, monitor_all=False):

@@ -7,3 +7,5 @@ from . import loss  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import utils  # noqa: F401
 from . import data  # noqa: F401
+from . import rnn  # noqa: F401
+from . import contrib  # noqa: F401

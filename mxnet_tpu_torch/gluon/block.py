@@ -53,6 +53,7 @@ from ..context import cpu
 from ..ndarray.ndarray import NDArray
 from .. import autograd
 from .. import dtype_policy as _dtp
+from .. import fusion_cost as _fc
 from .. import jit as _jit
 from ..name import NameManager, Prefix
 from ..symbol import symbol as _symbol
@@ -96,6 +97,18 @@ def _is_probing():
 
 
 _swap_state = _Local(map=None)
+
+
+def _param_data(param):
+    """``param``'s value as a block's forward should read it: the
+    swapped-in tensor inside ``swapped_params`` (a compiled forward,
+    ShardedTrainer), else ``param.data()``; for blocks that read their
+    parameters in ``forward`` instead of taking them in
+    ``hybrid_forward``."""
+    swap = getattr(_swap_state, "map", None)
+    if swap is not None and param in swap:
+        return swap[param]
+    return param.data()
 
 
 @contextlib.contextmanager
@@ -392,7 +405,7 @@ def _regroup_nested(tmpl, flat):
     return flat[tmpl]
 
 
-_NOT_PORTED_FLAGS = ("remat_policy", "fusion", "aot")
+_NOT_PORTED_FLAGS = ("remat_policy", "aot")
 
 
 class CachedOp:
@@ -408,6 +421,11 @@ class CachedOp:
     package; ``dtype_policy`` casts each parameter to its compute dtype
     by name, installs the policy's scope, and casts outputs to the
     policy's output dtype and moving stats back to their storage dtype.
+    ``fusion`` (else ``MXNET_FUSION``) is resolved into a fusion plan
+    when a key first runs and installed (``fusion_cost.scope``) around
+    that key's probe and compiled calls, where an op's shape-specialized
+    fast path (LayerNorm's) consults it; a block has no graph to
+    rewrite.
     """
 
     def __init__(self, block, static_alloc=False, static_shape=False,
@@ -415,8 +433,11 @@ class CachedOp:
                  dtype_policy=None):
         self._block = block
         self._policy = _dtp.resolve_policy(dtype_policy)
+        _fc.resolve_fusion(fusion)   # a bad spec fails at hybridize()
+        self._fusion = fusion
         self._params = list(block.collect_params().values())
-        self._meta = {}     # key -> (output template, aux parameters)
+        # key -> (output template, aux parameters, fusion plan)
+        self._meta = {}
         self._compiled = _jit.Compiled(self._pure, "cachedop")
 
     @property
@@ -475,9 +496,13 @@ class CachedOp:
         key = (autograd.is_training(), recording, _jit.signature(in_t),
                _jit.signature(par_t))
         if key not in self._meta:
-            self._meta[key] = self._probe(inputs)
-        tmpl, aux_params = self._meta[key]
-        with torch.set_grad_enabled(recording), _dtp.scope(self._policy):
+            # resolved once a key, so the compiled graph sees one plan
+            plan = _fc.resolve_fusion(self._fusion)
+            with _fc.scope(plan):
+                self._meta[key] = self._probe(inputs) + (plan,)
+        tmpl, aux_params, plan = self._meta[key]
+        with torch.set_grad_enabled(recording), _dtp.scope(self._policy), \
+                _fc.scope(plan):
             outs, aux = self._compiled(key, in_t, par_t)
         for p, v in zip(aux_params, aux):
             p.data()._rebind(v)
@@ -498,7 +523,8 @@ class HybridBlock(Block):
                   remat_policy=None, fusion=None, aot=None,
                   dtype_policy=None):
         """Compile this block's forward with ``torch.compile`` (``active``)
-        or go back to eager.  ``remat_policy``, ``fusion`` and ``aot`` are
+        or go back to eager.  ``fusion`` installs a fusion plan around the
+        compiled forward (``CachedOp``).  ``remat_policy`` and ``aot`` are
         not ported yet and raise unless None."""
         flags = {"static_alloc": static_alloc, "static_shape": static_shape,
                  "remat_policy": remat_policy, "fusion": fusion, "aot": aot,
@@ -508,6 +534,7 @@ class HybridBlock(Block):
                 raise MXNetError("hybridize(%s=%r): not ported yet"
                                  % (name, flags[name]))
         _dtp.resolve_policy(dtype_policy)
+        _fc.resolve_fusion(fusion)
         self._active = active
         self._flags = flags
         self._cached_op = None

@@ -42,8 +42,10 @@ class Module(BaseModule):
                  dtype_policy=None):
         super().__init__(logger=logger)
         from ..executor import _not_ported
+        from ..fusion_cost import resolve_fusion
 
-        _not_ported(remat_policy=remat_policy, fusion=fusion, aot=aot)
+        _not_ported(remat_policy=remat_policy, aot=aot)
+        resolve_fusion(fusion)   # a bad spec fails here, not at bind
         self._remat_policy = remat_policy
         self._fusion = fusion
         self._aot = aot

@@ -6,6 +6,8 @@ from ..ops import nn as _ops_nn  # noqa: F401 (registers ops)
 from ..ops import extended as _ops_extended  # noqa: F401 (registers ops)
 from ..ops import optimizer_ops as _ops_opt  # noqa: F401 (registers ops)
 from ..ops import random_ops as _ops_random  # noqa: F401 (registers ops)
+from ..ops import fused as _ops_fused  # noqa: F401 (registers ops)
+from ..ops import control_flow as _ops_cf  # noqa: F401 (registers ops)
 from ..ops.registry import list_ops as _list_ops
 from ..ops.utils import scalar_or_array as _soa
 
@@ -20,6 +22,17 @@ _register.populate(globals())
 maximum = _soa(NDArray, _invoke_nd, "broadcast_maximum", "_maximum_scalar")
 minimum = _soa(NDArray, _invoke_nd, "broadcast_minimum", "_minimum_scalar")
 hypot = _soa(NDArray, _invoke_nd, "broadcast_hypot", "_hypot_scalar")
+
+
+
+def __getattr__(name):
+    # mx.nd.contrib is mx.contrib.ndarray, imported on first use (it
+    # imports this module)
+    if name == "contrib":
+        from ..contrib import ndarray as _contrib_nd
+        return _contrib_nd
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))
+
 
 __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "concatenate", "concat", "stack", "moveaxis", "onehot_encode",

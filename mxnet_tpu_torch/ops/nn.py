@@ -12,18 +12,24 @@ their weight's dtype (``dtype_policy.harmonize``), and BatchNorm gives
 the JAX op's dtypes when data and parameters differ: its output takes
 the promoted dtype of the data, the statistics and gamma/beta (bf16 data
 with f32 gamma gives f32), and the batch statistics take the data's.
-LayerNorm is the plain formula of the JAX op (its fused one-pass kernel
-runs only under a fusion plan, which nothing on the ported paths sets),
-so it has the same dtype flow: bf16 data with f32 gamma gives f32.
+LayerNorm is the plain formula of the JAX op, so it has the same dtype
+flow (bf16 data with f32 gamma gives f32); under a fusion plan whose
+cost table (or an explicit ``fusion="layer_norm_fast"``) fires
+``layer_norm_fast`` for the traced shape, it runs the one-pass kernel of
+``ops/fused.py`` instead.  Also here: L2Normalization, LRN, UpSampling,
+BilinearResize2D, the Sequence ops and the fused ``RNN`` op (cuDNN's
+RNN a layer on the card; ``rnn_plain`` is its plain composition).
 """
 from __future__ import annotations
 
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import autograd
+from .. import fusion_cost as _fc
 from .. import random as _random
 from ..dtype_policy import harmonize
 from .registry import register, alias
@@ -256,6 +262,14 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 @register("LayerNorm", num_inputs=3)
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
                **kw):
+    # under a fusion plan (hybridize, ShardedTrainer), the cost table
+    # may pick the one-pass kernel for this traced shape: the decision
+    # the Symbol path's rewrite makes at bind
+    if _fc.runtime_decision("layer_norm_fast", data.shape, data.dtype,
+                            axis=pint(axis, -1), site="LayerNorm"):
+        from .fused import layer_norm_fast
+
+        return layer_norm_fast(data, gamma, beta, axis=axis, eps=eps)
     ax = normalize_axis(pint(axis, -1), data.dim())
     eps = pfloat(eps, 1e-5)
     var, mean = torch.var_mean(data, dim=ax, keepdim=True, correction=0)
@@ -525,3 +539,400 @@ def mae_regression_output(data, label, grad_scale=1.0, **kw):
 def logistic_regression_output(data, label, grad_scale=1.0, **kw):
     return _RegressionFn.apply(data, label.to(data.dtype),
                                pfloat(grad_scale, 1.0), "logistic")
+
+
+# ---------------------------------------------------------------------------
+# L2Normalization, LRN, UpSampling, BilinearResize2D (parity:
+# mxnet_tpu/ops/nn.py:306, :323, :486, :499)
+# ---------------------------------------------------------------------------
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance", **kw):
+    """``data / sqrt(sum(data^2) + eps)`` over every axis but the batch
+    (instance), the channel axis (channel) or the spatial axes
+    (spatial)."""
+    mode = mode or "instance"
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    norm = torch.sqrt(data.square().sum(dim=red, keepdim=True)
+                      + pfloat(eps, 1e-10))
+    return data / norm
+
+
+@register("LRN")
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **kw):
+    """Local response normalization across channels: each element over
+    ``(knorm + alpha / nsize * sum of squares in its channel window) **
+    beta``, the window zero-padded at the channel edges."""
+    alpha, beta, knorm, nsize = (pfloat(alpha, 1e-4), pfloat(beta, 0.75),
+                                 pfloat(knorm, 2.0), pint(nsize, 5))
+    half = nsize // 2
+    sq = F.pad(data.square(), (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    summed = sum(sq[:, i:i + c] for i in range(nsize))
+    return data / torch.pow(knorm + alpha / nsize * summed, beta)
+
+
+def _bilinear(x, height, width):
+    """``jax.image.resize(method="bilinear")``: half-pixel centres, and
+    a triangle filter widened by the scale when shrinking (antialias)."""
+    shrink = height < x.shape[2] or width < x.shape[3]
+    return F.interpolate(x, size=(height, width), mode="bilinear",
+                         align_corners=False, antialias=shrink)
+
+
+@register("UpSampling", num_inputs=-1)
+def upsampling(*data, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=None, **kw):
+    """Repeat each pixel ``scale`` times along H and W (nearest), or
+    resize bilinearly; the first input only, as in the JAX op."""
+    scale = pint(scale, 1)
+    x = data[0]
+    if sample_type == "nearest":
+        return x.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                   dim=3)
+    return _bilinear(x, x.shape[2] * scale, x.shape[3] * scale)
+
+
+@register("_contrib_BilinearResize2D")
+def bilinear_resize_2d(data, height=1, width=1, scale_height=None,
+                       scale_width=None, mode="size", **kw):
+    h, w = data.shape[2:]
+    sh, sw = pfloat(scale_height), pfloat(scale_width)
+    if sh:
+        height, width = int(h * sh), int(w * (sw or sh))
+    return _bilinear(data, pint(height, 1), pint(width, 1))
+
+
+# ---------------------------------------------------------------------------
+# Sequence ops (parity: mxnet_tpu/ops/nn.py:515-560)
+# ---------------------------------------------------------------------------
+
+
+def _time_mask(data, sequence_length, ax):
+    """(T, N) or (N, T) booleans, true where the step lies within the
+    row's length, with trailing unit axes for the data's feature axes."""
+    steps = torch.arange(data.shape[ax], device=data.device)
+    length = sequence_length.to(steps.dtype)
+    mask = steps[:, None] < length[None, :] if ax == 0 \
+        else steps[None, :] < length[:, None]
+    return mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+
+
+@register("SequenceMask", num_inputs=-1)
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0, **kw):
+    """Set the steps past each row's length to ``value`` (time axis 0 or
+    1)."""
+    if not pbool(use_sequence_length) or sequence_length is None:
+        return data
+    mask = _time_mask(data, sequence_length, pint(axis, 0))
+    return torch.where(mask, data, torch.full_like(data, pfloat(value, 0.0)))
+
+
+@register("SequenceLast", num_inputs=-1)
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0, **kw):
+    """Each row's last valid step (the last step without lengths)."""
+    ax = pint(axis, 0)
+    if not pbool(use_sequence_length) or sequence_length is None:
+        return data.select(ax, -1)
+    last = sequence_length.to(torch.int64) - 1
+    rows = torch.arange(data.shape[1 - ax], device=data.device)
+    return data[last, rows] if ax == 0 else data[rows, last]
+
+
+@register("SequenceReverse", num_inputs=-1)
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     **kw):
+    """Reverse the time axis (0); with lengths, each row reverses its
+    first ``length`` steps and leaves its padding in place."""
+    if not pbool(use_sequence_length) or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    length = sequence_length.to(torch.int64)[None, :]
+    src = torch.where(steps < length, length - 1 - steps, steps)
+    rows = torch.arange(data.shape[1], device=data.device)[None, :]
+    return data[src, rows]
+
+
+# ---------------------------------------------------------------------------
+# Fused RNN (parity: mxnet_tpu/ops/nn.py:563-693; the reference's
+# src/operator/rnn-inl.h and its cuDNN-layout flat parameter vector)
+# ---------------------------------------------------------------------------
+
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def _rnn_num_outputs(attrs):
+    if pbool(attrs.get("state_outputs")):
+        return 3 if attrs.get("mode") == "lstm" else 2
+    return 1
+
+
+def _unpack_rnn_params(params, mode, num_layers, input_size, state_size,
+                       bidir):
+    """Views into the flat parameter vector: all weights (layer-major,
+    then direction: W_i2h then W_h2h), then all biases (b_i2h then
+    b_h2h), the order of rnn-inl.h's GetRnnParamSize.  Returns
+    ``[(wi, wh, bi, bh)]`` for each (layer, direction)."""
+    gates = _GATES[mode]
+    D = 2 if bidir else 1
+    H = state_size
+    ws, off = [], 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else H * D
+        for _ in range(D):
+            wi = params[off:off + gates * H * in_sz].view(gates * H, in_sz)
+            off += gates * H * in_sz
+            wh = params[off:off + gates * H * H].view(gates * H, H)
+            off += gates * H * H
+            ws.append((wi, wh))
+    out = []
+    for wi, wh in ws:
+        bi = params[off:off + gates * H]
+        bh = params[off + gates * H:off + 2 * gates * H]
+        off += 2 * gates * H
+        out.append((wi, wh, bi, bh))
+    return out
+
+
+def _rnn_cell_step(mode):
+    """One step of the plain recurrence on the hoisted input projection
+    ``gx`` (gate order LSTM ifgo, GRU rzn with ``n = tanh(x_n + r *
+    (W_hn h + b_hn))``)."""
+    if mode == "lstm":
+        def step(carry, gx, wh, bh):
+            h, c = carry
+            i, f, g, o = (gx + F.linear(h, wh, bh)).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            return (h, c), h
+    elif mode == "gru":
+        def step(carry, gx, wh, bh):
+            (h,) = carry
+            xr, xz, xn = gx.chunk(3, dim=-1)
+            hr, hz, hn = F.linear(h, wh, bh).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1 - z) * n + z * h
+            return (h,), h
+    else:
+        act = torch.tanh if mode == "rnn_tanh" else torch.relu
+
+        def step(carry, gx, wh, bh):
+            h = act(gx + F.linear(carry[0], wh, bh))
+            return (h,), h
+    return step
+
+
+def rnn_plain_layer(x, hx, cx, weights, mode, bidir):
+    """One layer of the recurrence as a loop over time: the input
+    projection over all T at once, then one cell step a time step, the
+    reverse direction on the time-flipped input.  ``weights`` holds
+    ``(wi, wh, bi, bh)`` per direction; returns ``(out, hn, cn)`` with
+    ``cn`` None unless LSTM.  The plain version of the layer call and
+    the tests' oracle."""
+    step = _rnn_cell_step(mode)
+    outs, hs, cs = [], [], []
+    for d, (wi, wh, bi, bh) in enumerate(weights):
+        seq = x if d == 0 else torch.flip(x, dims=(0,))
+        gates_x = F.linear(seq, wi, bi)
+        carry = (hx[d], cx[d]) if mode == "lstm" else (hx[d],)
+        ys = []
+        for t in range(seq.shape[0]):
+            carry, y = step(carry, gates_x[t], wh, bh)
+            ys.append(y)
+        ys = torch.stack(ys)
+        outs.append(ys if d == 0 else torch.flip(ys, dims=(0,)))
+        hs.append(carry[0])
+        if mode == "lstm":
+            cs.append(carry[1])
+    out = torch.cat(outs, dim=-1) if len(outs) == 2 else outs[0]
+    return out, torch.stack(hs), torch.stack(cs) if cs else None
+
+
+def _vf_layer(x, hx, cx, weights, mode, bidir):
+    """One layer through ``torch._VF``, the call ``torch.nn.LSTM`` makes
+    (cuDNN's fused RNN on the card, ATen's on the CPU)."""
+    flat = [w for per_dir in weights for w in per_dir]
+    fn = getattr(torch._VF, mode)   # the modes are _VF's names
+    if mode == "lstm":
+        return fn(x, (hx, cx), flat, True, 1, 0.0, True, bidir, False)
+    out, hn = fn(x, hx, flat, True, 1, 0.0, True, bidir, False)
+    return out, hn, None
+
+
+def _autograd_on():
+    """A guard that lets a custom op's body record autograd again: the
+    dispatcher excludes the autograd keys while the body runs."""
+    exclude = torch._C._dispatch_tls_local_exclude_set()
+    for key in ("AutogradFunctionality", "ADInplaceOrView", "AutogradCPU",
+                "AutogradCUDA", "AutogradOther"):
+        exclude = exclude.remove(getattr(torch._C.DispatchKey, key))
+    return torch._C._ForceDispatchKeyGuard(
+        torch._C._dispatch_tls_local_include_set(), exclude)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::rnn_layer", mutates_args=())
+def _rnn_layer_op(x: torch.Tensor, hx: torch.Tensor,
+                  cx: Optional[torch.Tensor], flat: List[torch.Tensor],
+                  mode: str, bidir: bool) -> List[torch.Tensor]:
+    """One RNN layer through ``_vf_layer`` as an op that dynamo and
+    inductor keep whole (a compiled graph cannot trace ``torch._VF``'s
+    RNNs); outputs ``[out, hn, cn]``, ``cn`` empty unless LSTM."""
+    weights = [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
+    out, hn, cn = _vf_layer(x, hx, cx, weights, mode, bidir)
+    return [out, hn, hn.new_empty(0) if cn is None else cn]
+
+
+@_rnn_layer_op.register_fake
+def _(x, hx, cx, flat, mode, bidir):
+    D = 2 if bidir else 1
+    return [x.new_empty(x.shape[0], x.shape[1], D * hx.shape[-1]),
+            hx.new_empty(hx.shape),
+            hx.new_empty(hx.shape if mode == "lstm" else (0,))]
+
+
+@torch.library.custom_op("mxnet_tpu_torch::rnn_layer_backward",
+                         mutates_args=())
+def _rnn_layer_backward_op(gout: torch.Tensor, ghn: torch.Tensor,
+                           gcn: torch.Tensor, x: torch.Tensor,
+                           hx: torch.Tensor, cx: Optional[torch.Tensor],
+                           flat: List[torch.Tensor], mode: str,
+                           bidir: bool) -> List[torch.Tensor]:
+    """The layer's gradients: its forward again through ``_vf_layer``
+    with autograd on (cuDNN keeps its workspace inside the autograd
+    graph only), then that graph's backward.  Returns the gradients of
+    ``[x, hx, (cx,) *flat]``."""
+    inputs = [x, hx] + ([cx] if cx is not None else []) + list(flat)
+    with _autograd_on(), torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        n = 3 if cx is not None else 2
+        w = leaves[n:]
+        out, hn, cn = _vf_layer(
+            leaves[0], leaves[1], leaves[2] if cx is not None else None,
+            [tuple(w[i:i + 4]) for i in range(0, len(w), 4)], mode, bidir)
+        outs, cots = [out, hn], [gout, ghn]
+        if cn is not None:
+            outs.append(cn)
+            cots.append(gcn)
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    # cuDNN returns the weights' gradients as views of one buffer; a
+    # custom op's outputs may not alias each other, so each is copied
+    return [torch.zeros_like(t) if g is None else g.clone()
+            for t, g in zip(inputs, grads)]
+
+
+@_rnn_layer_backward_op.register_fake
+def _(gout, ghn, gcn, x, hx, cx, flat, mode, bidir):
+    inputs = [x, hx] + ([cx] if cx is not None else []) + list(flat)
+    return [torch.empty_like(t) for t in inputs]
+
+
+def _rnn_layer_setup(ctx, inputs, output):
+    x, hx, cx, flat, mode, bidir = inputs
+    ctx.has_c = cx is not None
+    ctx.mode, ctx.bidir = mode, bidir
+    ctx.save_for_backward(x, hx, *([cx] if cx is not None else []), *flat)
+
+
+def _rnn_layer_backward(ctx, grads):
+    gout, ghn, gcn = grads   # None for an output that took no gradient
+    n = 3 if ctx.has_c else 2
+    x, hx = ctx.saved_tensors[:2]
+    cx = ctx.saved_tensors[2] if ctx.has_c else None
+    flat = list(ctx.saved_tensors[n:])
+    if gout is None:
+        gout = x.new_zeros(x.shape[0], x.shape[1],
+                           (2 if ctx.bidir else 1) * hx.shape[-1])
+    if ghn is None:
+        ghn = torch.zeros_like(hx)
+    if not ctx.has_c:
+        gcn = hx.new_empty(0)
+    elif gcn is None:
+        gcn = torch.zeros_like(hx)
+    g = _rnn_layer_backward_op(gout, ghn, gcn, x, hx, cx, flat, ctx.mode,
+                               ctx.bidir)
+    return g[0], g[1], g[2] if ctx.has_c else None, list(g[n:]), None, None
+
+
+_rnn_layer_op.register_autograd(_rnn_layer_backward,
+                                setup_context=_rnn_layer_setup)
+
+
+def rnn_layer(x, hx, cx, weights, mode, bidir):
+    """One layer (both directions when ``bidir``) of the fused RNN:
+    ``torch._VF`` directly when eager, the ``rnn_layer`` custom op in a
+    compiled graph.  Returns ``(out, hn, cn)``, ``cn`` None unless
+    LSTM."""
+    if not torch.compiler.is_compiling():
+        return _vf_layer(x, hx, cx, weights, mode, bidir)
+    flat = [w for per_dir in weights for w in per_dir]
+    out, hn, cn = _rnn_layer_op(x, hx, cx, flat, mode, bidir)
+    return out, hn, cn if mode == "lstm" else None
+
+
+def _rnn(layer_fn, data, parameters, state, state_cell, state_size,
+         num_layers, bidirectional, mode, p, state_outputs):
+    mode = mode or "lstm"
+    H = pint(state_size)
+    L = pint(num_layers, 1)
+    bidir = pbool(bidirectional)
+    D = 2 if bidir else 1
+    weights = _unpack_rnn_params(parameters, mode, L, data.shape[2], H,
+                                 bidir)
+    drop_p = pfloat(p, 0.0)
+    out, hs, cs = data, [], []
+    for layer in range(L):
+        sl = slice(layer * D, layer * D + D)
+        out, hn, cn = layer_fn(
+            out, state[sl], state_cell[sl] if mode == "lstm" else None,
+            weights[sl], mode, bidir)
+        hs.append(hn)
+        cs.append(cn)
+        if drop_p > 0.0 and layer < L - 1 and autograd.is_training():
+            gen = None if torch.compiler.is_compiling() \
+                else _random.next_key(out.device)
+            keep = 1.0 - drop_p
+            u = torch.rand(out.shape, generator=gen, device=out.device)
+            out = out * ((u < keep).to(out.dtype) / keep)
+    if not pbool(state_outputs):
+        return out
+    hN = torch.cat(hs)
+    return (out, hN, torch.cat(cs)) if mode == "lstm" else (out, hN)
+
+
+@register("RNN", num_inputs=-1, num_outputs=_rnn_num_outputs, uses_rng=True)
+def rnn(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, bidirectional=False, mode="lstm", p=0.0,
+        state_outputs=False, projection_size=None, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, lstm_state_clip_nan=False,
+        use_sequence_length=False, sequence_length=None, **kw):
+    """Fused multi-layer RNN over (T, N, C) input, the flat parameter
+    vector in the reference's layout (``_unpack_rnn_params``).  Modes
+    lstm, gru, rnn_tanh and rnn_relu, stacked and bidirectional.  Each
+    layer runs as one ``rnn_layer`` call (cuDNN on the card); between
+    layers, in training only, dropout ``p`` draws its mask from the
+    framework generator (torch's default one in a compiled graph), as
+    the Dropout op does.  ``projection_size`` and the ``lstm_state_clip``
+    attributes are accepted and ignored, as in the JAX op."""
+    return _rnn(rnn_layer, data, parameters, state, state_cell, state_size,
+                num_layers, bidirectional, mode, p, state_outputs)
+
+
+def rnn_plain(data, parameters, state, state_cell=None, state_size=None,
+              num_layers=1, bidirectional=False, mode="lstm", p=0.0,
+              state_outputs=False, **kw):
+    """The ``RNN`` op with every layer through ``rnn_plain_layer``: the
+    JAX op's composition (a hoisted input projection, then one cell step
+    a time step), the plain version the card's route is held to."""
+    return _rnn(rnn_plain_layer, data, parameters, state, state_cell,
+                state_size, num_layers, bidirectional, mode, p,
+                state_outputs)

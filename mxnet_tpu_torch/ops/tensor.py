@@ -373,7 +373,8 @@ def _mx_reshape(shape, src_shape):
         for v in out:
             if v != -1:
                 known *= v
-        total = int(np.prod(src_shape)) if src_shape else 1
+        # math.prod: dynamo would trace np.prod into a CPU tensor op
+        total = math.prod(src_shape)
         out[out.index(-1)] = total // known
     return tuple(out)
 

@@ -31,8 +31,8 @@ it runs eagerly through torch, with the same semantics:
 ``step_many`` runs ``steps_per_call`` steps in one call through the same
 step code, so it is bit for bit equal to as many ``step`` calls where the
 kernels are deterministic (the CPU; cuDNN's default backward algorithms
-on the card need not be).  The mesh, layouts, rematerialisation, fusion,
-AOT and checkpoint arguments of the JAX trainer are not ported yet.
+on the card need not be).  The mesh, layouts, rematerialisation, AOT and
+checkpoint arguments of the JAX trainer are not ported yet.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ from ..ndarray.ndarray import NDArray
 from .. import autograd
 from .. import config as _config
 from .. import dtype_policy as _dtp
+from .. import fusion_cost as _fc
 from ..checkpoint import check_finite, nonfinite_policy
 from ..gluon import block as _block_mod
 from ..gluon.parameter import DeferredInitializationError
@@ -221,7 +222,7 @@ class _Flat:
 
 _UNPORTED_DEFAULTS = (("mesh", None), ("batch_axis_spec", None),
                       ("param_spec_fn", None), ("donate", True),
-                      ("remat_policy", None), ("fusion", None),
+                      ("remat_policy", None),
                       ("aot", None), ("aot_spec", None), ("layout", None),
                       ("distributed", "auto"))
 
@@ -253,8 +254,13 @@ class ShardedTrainer:
         once per call)
     fetch_depth : bound on in-flight background fetches (default 2)
 
+    fusion : a fusion spec (None = the ``MXNET_FUSION`` default),
+        resolved into a plan at each step and installed
+        (``fusion_cost.scope``) around the forward, where an op's
+        shape-specialized fast path (LayerNorm's) consults it
+
     ``mesh``, ``batch_axis_spec``, ``param_spec_fn``, ``donate``,
-    ``remat_policy``, ``fusion``, ``aot``, ``aot_spec``, ``layout`` and
+    ``remat_policy``, ``aot``, ``aot_spec``, ``layout`` and
     ``distributed`` take the JAX trainer's defaults only; anything else
     raises ``MXNetError``.
     """
@@ -269,7 +275,7 @@ class ShardedTrainer:
                  distributed="auto"):
         given = dict(mesh=mesh, batch_axis_spec=batch_axis_spec,
                      param_spec_fn=param_spec_fn, donate=donate,
-                     remat_policy=remat_policy, fusion=fusion, aot=aot,
+                     remat_policy=remat_policy, aot=aot,
                      aot_spec=aot_spec, layout=layout,
                      distributed=distributed)
         for name, default in _UNPORTED_DEFAULTS:
@@ -277,6 +283,8 @@ class ShardedTrainer:
             if value != default:
                 raise MXNetError("ShardedTrainer(%s=%r) is not ported yet"
                                  % (name, value))
+        _fc.resolve_fusion(fusion)   # a bad spec fails here
+        self._fusion = fusion
         self.net = net
         self.loss_fn = loss_fn
         self._on_nonfinite = nonfinite_policy(on_nonfinite)
@@ -481,7 +489,8 @@ class ShardedTrainer:
         _block_mod._trace_state.active = True
         try:
             with torch.enable_grad(), autograd.record(train_mode=True), \
-                    _dtp.scope(policy):
+                    _dtp.scope(policy), \
+                    _fc.scope(_fc.resolve_fusion(self._fusion)):
                 for p, v, ct in zip(self._params, views, self._cast):
                     d = p.data()
                     saved.append((d, d._data))

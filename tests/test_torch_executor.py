@@ -187,7 +187,7 @@ def test_output_dict_monitor_and_errors():
         ex.backward()
     with pytest.raises(MXNetError, match="missing arguments"):
         _net(tmx).bind(tmx.cpu(), {})
-    for flag in ("remat_policy", "fusion", "aot"):
+    for flag in ("remat_policy", "aot"):
         with pytest.raises(MXNetError, match="not ported yet"):
             _net(tmx).simple_bind(ctx=tmx.cpu(), **{flag: "x"}, **SHAPES)
 

@@ -158,7 +158,7 @@ def test_hybridize_false_returns_to_eager():
 
 def test_flags():
     net = _net(tmx)
-    for flag in ("remat_policy", "fusion", "aot"):
+    for flag in ("remat_policy", "aot"):
         with pytest.raises(MXNetError, match="not ported yet"):
             net.hybridize(**{flag: "x"})
     with pytest.raises(TypeError):

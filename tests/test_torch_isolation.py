@@ -13,8 +13,11 @@ and a DataLoader, and one step of train_imagenet's --data-train loop),
 and the symbolic layer (mx.sym, mx.mod, mx.model, mx.callback,
 mx.monitor, mx.visualization: one Module update, one hybridized block
 and an export / SymbolBlock.imports round trip, compiled with the
-aot_eager backend) loads neither jax nor mxnet_tpu, and chip_smoke.py
-imports neither.  The import check runs in a subprocess because this
+aot_eager backend), and the recurrent family and fusion (mx.gluon.rnn,
+mx.gluon.contrib, mx.rnn, mx.nd.contrib.foreach, mx.sym.fusion and the
+two examples: one LSTM step with its backward, one unrolled mx.rnn
+stack and one apply_fusion) loads neither jax nor mxnet_tpu, and
+chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -142,6 +145,24 @@ with tempfile.TemporaryDirectory() as root:
     blk = mx.gluon.SymbolBlock.imports(root + "/lenet-symbol.json", "data",
                                        pfile, ctx=mx.cpu())
     assert np.abs(blk(xb).asnumpy() - lenet(xb).asnumpy()).max() < 1e-5
+import mxnet_tpu_torch.gluon.rnn
+import mxnet_tpu_torch.gluon.contrib
+import mxnet_tpu_torch.rnn
+import mxnet_tpu_torch.fusion_cost
+from mxnet_tpu_torch.examples import word_language_model, rnn_bucketing
+assert mx.nd.contrib.foreach is mxnet_tpu_torch.ops.control_flow.foreach
+lstm = mx.gluon.rnn.LSTM(8, num_layers=2, input_size=4)
+lstm.initialize(mx.init.Xavier(), ctx=mx.cpu())
+seq = mx.nd.ones((3, 2, 4), ctx=mx.cpu())
+with mx.autograd.record():
+    out, states = lstm(seq, lstm.begin_state(2, ctx=mx.cpu()))
+out.backward()
+assert out.shape == (3, 2, 8) and states[1].shape == (2, 2, 8)
+cells = mx.rnn.SequentialRNNCell().add(mx.rnn.LSTMCell(4, prefix="a_"))
+cells.unroll(2, inputs=mx.sym.var("data"), merge_outputs=True)
+net = mx.sym.Activation(mx.sym.var("x") + mx.sym.var("y"), act_type="relu")
+fused, fired = mx.sym.fusion.apply_fusion(net, "default")
+assert [f[0] for f in fired] == ["add_act"]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

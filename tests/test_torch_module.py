@@ -298,7 +298,7 @@ def test_feedforward_and_dist_kvstore():
     with pytest.raises(MXNetError, match="not ported"):
         mod.init_optimizer(kvstore="dist_sync")
     with pytest.raises(MXNetError, match="not ported"):
-        tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), fusion="auto")
+        tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), aot="auto")
 
 
 def test_monitor_collects_outputs_and_weights():

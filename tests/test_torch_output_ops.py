@@ -106,7 +106,7 @@ def test_softmax_alias_and_registry():
              "MAERegressionOutput", "LogisticRegressionOutput", "MakeLoss",
              "SVMOutput")
     assert set(names) <= set(treg.list_ops())
-    assert len(treg.list_ops()) == 338
+    assert len(treg.list_ops()) == 354
 
 
 def test_softmax_cross_entropy_matches_jax():
