@@ -193,9 +193,10 @@ non-zero, printing no result, without them.  Phases, one line each:
    its norm, floored at 1e-3 of the largest norm for the gradients whose
    exact value is 0), then 1 warm-up + 10 steps with finite, falling
    losses.
-   resnet18_v1 (resnet50_v1 before phases 14-15 came: cut in depth
-   for the script's time, at the same widths) and squeezenet1.1 at full
-   width (classes 1000, batch 32, 3x224x224 from a seed, sgd lr 0.01
+   resnet50_v1 cut in depth to one bottleneck unit a stage (its widths
+   64-256-512-1024-2048 and its biased 1x1 convolutions; whole before
+   phases 14-15 came, cut for the script's time) and squeezenet1.1 at
+   full width (classes 1000, batch 32, 3x224x224 from a seed, sgd lr 0.01
    momentum 0.9), eager against
    hybridize(): compile seconds, graph breaks (0), the step median over
    5 steps and img/s, kernels a step and the idle share over one
@@ -205,29 +206,33 @@ non-zero, printing no result, without them.  Phases, one line each:
    hybridized net's weights before each) within 1e-4 + 1e-4 |ref|; each
    of these within its bound or within 4x the same measure between the
    eager net and an eager run with cuDNN off.
-   resnet18_v1 exported, loaded with SymbolBlock.imports (logits within
+   that ResNet exported, loaded with SymbolBlock.imports (logits within
    1e-5 + 1e-5 |ref| of the source's) and bound in a Module under a
-   SoftmaxOutput head (one forward_backward's gradients against the
-   gluon path's, as above), each also against an eager run with cuDNN
-   off; no hand-written kernel launched;
-14. recurrent: f32 with TF32 off.  The RNN op (cuDNN's RNN a layer,
-   through the rnn_layer custom op when compiled) against its plain
+   SoftmaxOutput head, MXNET_FUSION unset (add_act fired at each
+   residual join and nothing else; one forward_backward's gradients
+   against the gluon path's, as above), each also against an eager run
+   with cuDNN off; no hand-written kernel launched;
+14. recurrent: f32 with TF32 off.  The RNN op (cuDNN's RNN a layer:
+   torch._VF eagerly; compiled with inductor, fullgraph, the rnn_layer
+   custom op over _cudnn_rnn and _cudnn_rnn_backward) against its plain
    composition (ops/nn.py rnn_plain) on the card at the word LM's width
    (T 35, N 32, C = H = 650, 2 layers): lstm, gru, rnn_tanh, rnn_relu and
-   a bidirectional lstm, outputs and final states within 1e-5 + 1e-5
-   |ref|, the gradients of data, parameters and states within 1e-4 of
-   each one's norm, one forward+backward timed each way (CUDA events),
-   with its kernels and the top ones by card time; a small case (T 5,
+   a bidirectional lstm, each route's outputs and final states within
+   1e-5 + 1e-5 |ref|, the gradients of data, parameters and states
+   within 1e-4 of each one's norm, one forward+backward timed each way
+   (CUDA events), the compile seconds, the kernels of each cuDNN route
+   and the eager one's top ones by card time; a small case (T 5,
    N 3, C 4, H 6) on the card against the port on the CPU.  The port's
    examples/word_language_model.py at upstream's medium configuration
    (LSTM 2 x 650, emsize 650, bptt 35, batch 32, lr 20, clip 0.25,
    dropout 0.2) at WikiText-2's vocabulary (33278) on the example's
-   seeded Markov corpus, hybridized: step 1's logits (1e-4 + 1e-4|ref|)
-   and gradients (1e-3 of each norm) hybridized against eager with
-   dropout 0; then 1 warm-up + 30 steps eager and hybridized: compile
-   seconds, graph breaks (0), step median and tokens/s, kernels a step
-   and the idle share over one more profiled step, peak memory, losses
-   finite and the perplexity falling.  rnn_bucketing --cells at upstream
+   seeded Markov corpus: 1 warm-up + 30 steps eager and hybridized:
+   compile seconds (the network's first compile in the process), graph
+   breaks (0), step median and tokens/s, kernels a step and the idle
+   share over one more profiled step, peak memory, losses finite and
+   the perplexity falling; then step 1's logits (1e-4 + 1e-4|ref|) and
+   gradients (1e-3 of each norm) hybridized against eager with dropout
+   0.  rnn_bucketing --cells at upstream
    lstm_bucketing.py's width (2 x mx.rnn.LSTMCell(200), embed 200,
    vocabulary 10000, batch 32) over BucketSentenceIter with buckets 10
    and 20, one epoch of a seeded corpus: compile seconds per bucket,
@@ -444,10 +449,20 @@ DATA_NORM_REL = 1e-6
 # PR 13)
 SYM_IMAGES, SYM_BATCH, SYM_LR, SYM_EPOCHS = 2048, 64, 0.05, 2
 SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 10
-# resnet18_v1 at full width where this phase ran resnet50_v1 before
-# phases 14-15: they add about 500 s, mostly inductor's compiles, so
-# this phase's ResNet is cut in depth (PERF.md section 4)
-SYM_NETS = ("resnet18_v1", "squeezenet1.1")
+# resnet50_v1 cut in depth only, where this phase ran resnet50_v1 whole
+# before phases 14-15 (they add about 500 s, mostly inductor's
+# compiles; PERF.md section 4): its stem, bottleneck units at its widths
+# (64-256-512-1024-2048, the biased 1x1 convolutions) and head, one
+# unit a stage in place of 3-4-6-3
+SYM_RESNET = "resnet50_v1 1-1-1-1"
+SYM_NETS = (SYM_RESNET, "squeezenet1.1")
+
+
+def sym_build(name):
+    if name == SYM_RESNET:
+        return vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                               [64, 256, 512, 1024, 2048], classes=1000)
+    return vision.get_model(name, classes=1000)
 SYM_NET_BATCH, SYM_NET_LR, SYM_COMPARE_STEPS, SYM_TIMED_STEPS = \
     32, 0.01, 3, 5
 SYM_PARAM_RTOL, SYM_LOGIT_TOL, SYM_GRAD_REL, SYM_STAT_TOL, SYM_EXPORT_TOL = \
@@ -1938,10 +1953,11 @@ def phase_paged(card, lm, ring):
           % (launched, time.perf_counter() - t_phase, card), flush=True)
 
 
-def device_kernels(fn):
+def device_kernels(fn, top=3):
     """fn() under torch.profiler: (kernels launched, their card time in
-    ms), or the reason it was not measured.  A measurement only: a
-    profiler failure is reported, not raised."""
+    ms, the ``top`` kernels by card time as (name cut, ms)), or the
+    reason it was not measured.  A measurement only: a profiler failure
+    is reported, not raised."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1950,20 +1966,27 @@ def device_kernels(fn):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = [(ev.count, _self_device_us(ev)) for ev in prof.key_averages()
+        rows = [(ev.count, _self_device_us(ev), ev.key[:48])
+                for ev in prof.key_averages()
                 if getattr(ev, "device_type", None) == DeviceType.CUDA
                 and _self_device_us(ev)]
     except Exception as e:  # noqa: BLE001 - the profile is optional
         return "not measured (torch.profiler failed: %r)" % (e,)
     if not rows:
         return "not measured (torch.profiler recorded no device time)"
-    return sum(c for c, _ in rows), sum(us for _, us in rows) / 1e3
+    ranked = sorted(rows, key=lambda r: -r[1])[:top]
+    return (sum(r[0] for r in rows), sum(r[1] for r in rows) / 1e3,
+            [(name, us / 1e3) for _, us, name in ranked])
 
 
-def kernels_text(res):
-    if isinstance(res, tuple):
-        return "%d kernels, %.3f ms on the card" % res
-    return res
+def kernels_text(res, top=False):
+    """device_kernels' result as text, with its top kernels if asked."""
+    if not isinstance(res, tuple):
+        return res
+    text = "%d kernels, %.3f ms on the card" % res[:2]
+    if top:
+        text += "; top: " + ", ".join("%s %.3f ms" % r for r in res[2])
+    return text
 
 
 def zoo_step(net, trainer, x, y, loss_fn):
@@ -3525,7 +3548,7 @@ def sym_network(name, card, problems):
     mx.random.seed(0)
     nets = []
     for _ in range(3):
-        net = vision.get_model(name, classes=1000)
+        net = sym_build(name)
         net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
         with mx.autograd.pause():
             net(x[0:2])
@@ -3626,7 +3649,7 @@ def sym_network(name, card, problems):
 def sym_export(card, root, hyb, x, y, problems):
     """SYM_NETS[0] exported and loaded back as a SymbolBlock, and bound
     in a Module under a SoftmaxOutput head."""
-    prefix = os.path.join(root, SYM_NETS[0])
+    prefix = os.path.join(root, "resnet")
     t0 = time.perf_counter()
     pfile = hyb.export(prefix)
     export_s = time.perf_counter() - t0
@@ -3663,6 +3686,12 @@ def sym_export(card, root, hyb, x, y, problems):
     got_g = {k: mod._exec_group.execs[0].grad_dict[k].asnumpy()
              for k in want}
     mod_s = time.perf_counter() - t0
+    # MXNET_FUSION unset: the Module's Executor fires the default-on
+    # add_act at each residual join (relu(x + body(x)))
+    fired = mod._exec_group.execs[0].fusion_fired
+    names = sorted({f[0] for f in fired})
+    check(names == ["add_act"], "Module on the export fired %s, not "
+          "add_act alone" % names)
     gerr, gworst = grad_rel(got_g, want)
     gyard, _ = grad_rel(want_alt, want)
     if not within(gerr, SYM_GRAD_REL, gyard):
@@ -3672,11 +3701,12 @@ def sym_export(card, root, hyb, x, y, problems):
           "states) | SymbolBlock.imports logits vs the source %.3g of the "
           "bound (first call %.1f s) | Module(SoftmaxOutput head) "
           "forward_backward gradients vs the gluon path %.3g of their norm "
-          "(%s; first call %.1f s) | eager with cuDNN off against eager: "
-          "logits %.3g, gradients %.3g | %s"
+          "(%s; first call %.1f s; fusion default: %s at %d sites) | eager "
+          "with cuDNN off against eager: logits %.3g, gradients %.3g | %s"
           % (SYM_NETS[0], export_s, len(sym.list_arguments()),
              len(sym.list_auxiliary_states()), err, blk_s, gerr, gworst,
-             mod_s, yard, gyard, card), flush=True)
+             mod_s, ",".join(names), len(fired), yard, gyard, card),
+          flush=True)
 
 
 def phase_symbolic(card):
@@ -3767,29 +3797,12 @@ def rec_fwd_bwd(fn, ins, attrs, cots):
     return [o.detach() for o in outs], list(grads)
 
 
-def top_kernels(fn, k=3):
-    """The k kernels with the most card time in one fn() (names cut)."""
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = sorted(((_self_device_us(ev), ev.key[:48])
-                       for ev in prof.key_averages()
-                       if getattr(ev, "device_type", None) == DeviceType.CUDA
-                       and _self_device_us(ev)), reverse=True)[:k]
-    except Exception as e:  # noqa: BLE001 - a report only
-        return "not measured (%r)" % (e,)
-    return ", ".join("%s %.3f ms" % (n, us / 1e3) for us, n in rows)
-
-
 def rec_op(card):
     """The RNN op (cuDNN a layer) against rnn_plain on the card, each
-    mode at the word LM's width, forward and gradients, with the time
-    of one forward+backward each way; the small case card vs CPU."""
+    mode at the word LM's width, forward and gradients, eagerly
+    (torch._VF) and compiled (the rnn_layer custom op: _cudnn_rnn and
+    _cudnn_rnn_backward), with the time of one forward+backward each
+    way; the small case card vs CPU."""
     from mxnet_tpu_torch.ops import nn as tnn
 
     op = registry.get_op("RNN").fn
@@ -3801,35 +3814,53 @@ def rec_op(card):
         gen = torch.Generator(device=dev).manual_seed(1)
         cots = [torch.randn(o.shape, generator=gen, device=dev)
                 for o in op(*ins, **attrs)]
-        got, got_g = rec_fwd_bwd(op, ins, attrs, cots)
+        compiled = torch.compile(functools.partial(op, **attrs),
+                                 fullgraph=True)
+
+        def run_compiled(*a, **k):
+            return compiled(*a)
         want, want_g = rec_fwd_bwd(tnn.rnn_plain, ins, attrs, cots)
-        out_err = max(close(g.cpu().numpy(), w.cpu().numpy(), REC_OUT_TOL,
-                            REC_OUT_TOL) for g, w in zip(got, want))
-        grad_err = max(float((g - w).norm() / w.norm().clamp_min(1e-30))
-                       for g, w in zip(got_g, want_g))
-        check(out_err <= 1.0, "RNN %s bidir=%s: outputs %g of the bound"
-              % (mode, bidir, out_err))
-        check(grad_err <= REC_GRAD_REL, "RNN %s bidir=%s: gradients %g of "
-              "their norm" % (mode, bidir, grad_err))
+        t0 = time.perf_counter()
+        rec_fwd_bwd(run_compiled, ins, attrs, cots)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        errs = {}
+        for route, fn in (("eager", op), ("compiled", run_compiled)):
+            got, got_g = rec_fwd_bwd(fn, ins, attrs, cots)
+            errs[route] = (
+                max(close(g.cpu().numpy(), w.cpu().numpy(), REC_OUT_TOL,
+                          REC_OUT_TOL) for g, w in zip(got, want)),
+                max(float((g - w).norm() / w.norm().clamp_min(1e-30))
+                    for g, w in zip(got_g, want_g)))
+            check(errs[route][0] <= 1.0, "RNN %s bidir=%s %s: outputs %g of "
+                  "the bound" % (mode, bidir, route, errs[route][0]))
+            check(errs[route][1] <= REC_GRAD_REL, "RNN %s bidir=%s %s: "
+                  "gradients %g of their norm" % (mode, bidir, route,
+                                                  errs[route][1]))
         ms = time_ms(lambda: rec_fwd_bwd(op, ins, attrs, cots))
+        compiled_ms = time_ms(lambda: rec_fwd_bwd(run_compiled, ins, attrs,
+                                                  cots))
         plain_ms = time_ms(lambda: rec_fwd_bwd(tnn.rnn_plain, ins, attrs,
                                                cots))
         prof = device_kernels(lambda: rec_fwd_bwd(op, ins, attrs, cots))
+        prof_c = device_kernels(lambda: rec_fwd_bwd(run_compiled, ins,
+                                                    attrs, cots))
         row = {"mode": mode, "bidirectional": bidir, "ms": ms,
-               "plain_ms": plain_ms, "out_err": out_err,
-               "grad_rel": grad_err}
+               "compiled_ms": compiled_ms, "plain_ms": plain_ms,
+               "compile_s": compile_s, "errs": errs}
         rows.append(row)
         print("recurrent op: %s%s T %d N %d C=H %d, %d layers | forward+"
-              "backward: cuDNN route %.3f ms, plain composition %.3f ms "
-              "(%.1fx) | outputs %.3g of 1e-5 + 1e-5|ref|, gradients %.3g "
-              "of their norm (bound 1e-4) | %s a forward+backward; top: %s "
-              "| %s" % (mode, " bidirectional" if bidir else "", REC_T,
-                        REC_N, REC_C, REC_LAYERS, ms, plain_ms,
-                        plain_ms / ms, out_err, grad_err,
-                        kernels_text(prof),
-                        top_kernels(lambda: rec_fwd_bwd(op, ins, attrs,
-                                                        cots)), card),
-              flush=True)
+              "backward: cuDNN eager %.3f ms, cuDNN compiled %.3f ms "
+              "(compile %.1f s), plain composition %.3f ms (%.1fx eager) | "
+              "outputs eager %.3g / compiled %.3g of 1e-5 + 1e-5|ref|, "
+              "gradients %.3g / %.3g of their norm (bound 1e-4) | eager: "
+              "%s | compiled: %s | %s"
+              % (mode, " bidirectional" if bidir else "", REC_T, REC_N,
+                 REC_C, REC_LAYERS, ms, compiled_ms, compile_s, plain_ms,
+                 plain_ms / ms, errs["eager"][0], errs["compiled"][0],
+                 errs["eager"][1], errs["compiled"][1],
+                 kernels_text(prof, top=True), kernels_text(prof_c),
+                 card), flush=True)
     T, N, C, H = REC_SMALL
     out_worst = grad_worst = 0.0
     for mode, bidir in REC_CASES:
@@ -3934,17 +3965,19 @@ def rec_lm(card):
     against hybridized (see the module doc, phase 14)."""
     from mxnet_tpu_torch.examples import word_language_model as wlm
 
-    lerr, gerr, gworst = lm_parity(wlm, card)
-    torch.cuda.empty_cache()
     args = wlm.parse_args(LM_ARGS)
     mx.random.seed(0)
     eager, hyb = lm_models(wlm, args, 2, mx.gpu(0))
     rows = {"eager": lm_run(wlm, args, eager, False)}
     del eager
     torch.cuda.empty_cache()
+    # timed before lm_parity compiles the dropout-0 copy of this network
     rows["hybridized"] = lm_run(wlm, args, hyb, True)
     h = rows["hybridized"]
     h["forward_compile_s"] = hyb._cached_op.compile_seconds
+    del hyb
+    torch.cuda.empty_cache()
+    lerr, gerr, gworst = lm_parity(wlm, card)
     check(h["graph_breaks"] == 0, "word LM: %d graph breaks"
           % h["graph_breaks"])
     for tag, r in rows.items():
@@ -3959,7 +3992,8 @@ def rec_lm(card):
         print("recurrent lm %s: LSTM 2x650, emsize 650, vocabulary 33278, "
               "bptt 35, batch 32, dropout 0.2, sgd lr 20 clip 0.25, f32 "
               "(TF32 off) | step %.2f ms (median of %d), %.0f tokens/s | "
-              "compile %.1f s (first step less the median) | graph breaks "
+              "compile %.1f s (first step less the median; this network's "
+              "first compile in the process) | graph breaks "
               "%d | %s a step, idle %s | peak %.2f GB | losses finite %s, "
               "perplexity %.1f (steps 2-6) -> %.1f (last 5) | %s"
               % (tag, r["step_ms"], LM_STEPS - 1, r["tokens_s"],

@@ -769,35 +769,44 @@ def _vf_layer(x, hx, cx, weights, mode, bidir):
     return out, hn, None
 
 
-def _autograd_on():
-    """A guard that lets a custom op's body record autograd again: the
-    dispatcher excludes the autograd keys while the body runs."""
-    exclude = torch._C._dispatch_tls_local_exclude_set()
-    for key in ("AutogradFunctionality", "ADInplaceOrView", "AutogradCPU",
-                "AutogradCUDA", "AutogradOther"):
-        exclude = exclude.remove(getattr(torch._C.DispatchKey, key))
-    return torch._C._ForceDispatchKeyGuard(
-        torch._C._dispatch_tls_local_include_set(), exclude)
+# cuDNN's RNN modes (cudnnRNNMode_t), keyed by the op's mode names
+_CUDNN_MODE = {"rnn_relu": 0, "rnn_tanh": 1, "lstm": 2, "gru": 3}
 
 
 @torch.library.custom_op("mxnet_tpu_torch::rnn_layer", mutates_args=())
 def _rnn_layer_op(x: torch.Tensor, hx: torch.Tensor,
                   cx: Optional[torch.Tensor], flat: List[torch.Tensor],
-                  mode: str, bidir: bool) -> List[torch.Tensor]:
-    """One RNN layer through ``_vf_layer`` as an op that dynamo and
-    inductor keep whole (a compiled graph cannot trace ``torch._VF``'s
-    RNNs); outputs ``[out, hn, cn]``, ``cn`` empty unless LSTM."""
-    weights = [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
-    out, hn, cn = _vf_layer(x, hx, cx, weights, mode, bidir)
-    return [out, hn, hn.new_empty(0) if cn is None else cn]
+                  mode: str, bidir: bool, train: bool) -> List[torch.Tensor]:
+    """One RNN layer as an op that dynamo and inductor keep whole (a
+    compiled graph cannot trace ``torch._VF``'s RNNs).  On the card it
+    is ``aten::_cudnn_rnn``; outputs ``[out, hn, cn, reserve, wbuf]``,
+    cuDNN's reserve (filled only when ``train``) and packed weight
+    buffer kept for the backward op.  On the CPU it runs ``_vf_layer``
+    and the last two are empty.  ``cn`` is empty unless LSTM."""
+    reserve = wbuf = None
+    if x.is_cuda:
+        out, hn, cn, reserve, wbuf = torch.ops.aten._cudnn_rnn(
+            x.contiguous(), flat, 4, None, hx.contiguous(),
+            None if cx is None else cx.contiguous(), _CUDNN_MODE[mode],
+            hx.shape[-1], 0, 1, False, 0.0, train, bidir, [], None)
+    else:
+        out, hn, cn = _vf_layer(x, hx, cx, [tuple(flat[i:i + 4]) for i in
+                                            range(0, len(flat), 4)], mode,
+                                bidir)
+    return [out, hn, hn.new_empty(0) if cn is None else cn,
+            x.new_empty(0, dtype=torch.uint8) if reserve is None else reserve,
+            x.new_empty(0) if wbuf is None else wbuf]
 
 
 @_rnn_layer_op.register_fake
-def _(x, hx, cx, flat, mode, bidir):
+def _(x, hx, cx, flat, mode, bidir, train):
     D = 2 if bidir else 1
+    ctx = torch.library.get_ctx()   # cuDNN sizes its two buffers itself
     return [x.new_empty(x.shape[0], x.shape[1], D * hx.shape[-1]),
             hx.new_empty(hx.shape),
-            hx.new_empty(hx.shape if mode == "lstm" else (0,))]
+            hx.new_empty(hx.shape if mode == "lstm" else (0,)),
+            x.new_empty(ctx.new_dynamic_size(), dtype=torch.uint8),
+            x.new_empty(ctx.new_dynamic_size())]
 
 
 @torch.library.custom_op("mxnet_tpu_torch::rnn_layer_backward",
@@ -805,62 +814,71 @@ def _(x, hx, cx, flat, mode, bidir):
 def _rnn_layer_backward_op(gout: torch.Tensor, ghn: torch.Tensor,
                            gcn: torch.Tensor, x: torch.Tensor,
                            hx: torch.Tensor, cx: Optional[torch.Tensor],
-                           flat: List[torch.Tensor], mode: str,
-                           bidir: bool) -> List[torch.Tensor]:
-    """The layer's gradients: its forward again through ``_vf_layer``
-    with autograd on (cuDNN keeps its workspace inside the autograd
-    graph only), then that graph's backward.  Returns the gradients of
-    ``[x, hx, (cx,) *flat]``."""
-    inputs = [x, hx] + ([cx] if cx is not None else []) + list(flat)
-    with _autograd_on(), torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in inputs]
-        n = 3 if cx is not None else 2
-        w = leaves[n:]
-        out, hn, cn = _vf_layer(
-            leaves[0], leaves[1], leaves[2] if cx is not None else None,
-            [tuple(w[i:i + 4]) for i in range(0, len(w), 4)], mode, bidir)
-        outs, cots = [out, hn], [gout, ghn]
-        if cn is not None:
-            outs.append(cn)
-            cots.append(gcn)
-        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
-    # cuDNN returns the weights' gradients as views of one buffer; a
-    # custom op's outputs may not alias each other, so each is copied
-    return [torch.zeros_like(t) if g is None else g.clone()
-            for t, g in zip(inputs, grads)]
+                           flat: List[torch.Tensor], out: torch.Tensor,
+                           reserve: torch.Tensor, wbuf: torch.Tensor,
+                           mode: str, bidir: bool) -> List[torch.Tensor]:
+    """The layer's gradients of ``[x, hx, (cx,) *flat]``.  On the card
+    ``aten::_cudnn_rnn_backward`` on the forward's reserve and weight
+    buffer; on the CPU the vjp of ``rnn_plain_layer`` (the plain
+    composition, run forward again)."""
+    has_c = cx is not None
+    if x.is_cuda:
+        dx, dhx, dcx, dw = torch.ops.aten._cudnn_rnn_backward(
+            x.contiguous(), flat, 4, wbuf, hx.contiguous(),
+            cx.contiguous() if has_c else None, out, gout.contiguous(),
+            ghn.contiguous(), gcn.contiguous() if has_c else None,
+            _CUDNN_MODE[mode], hx.shape[-1], 0, 1, False, 0.0, True, bidir,
+            [], None, reserve, [True, True, has_c, True])
+        # the weights' gradients share one buffer (cuDNN's layout); a
+        # custom op's outputs may not alias each other, so each is copied
+        grads = [dx, dhx] + ([dcx] if has_c else []) + [
+            g.clone() for g in dw]
+    else:
+        def layer(*ins):
+            c = ins[2] if has_c else None
+            w = ins[3 if has_c else 2:]
+            o, h, c = rnn_plain_layer(ins[0], ins[1], c, [
+                tuple(w[i:i + 4]) for i in range(0, len(w), 4)], mode, bidir)
+            return (o, h) if c is None else (o, h, c)
+        _, vjp = torch.func.vjp(layer, x, hx, *([cx] if has_c else []),
+                                *flat)
+        grads = [g.clone() for g in   # copies: views may share storage
+                 vjp((gout, ghn, gcn) if has_c else (gout, ghn))]
+    return grads
 
 
 @_rnn_layer_backward_op.register_fake
-def _(gout, ghn, gcn, x, hx, cx, flat, mode, bidir):
+def _(gout, ghn, gcn, x, hx, cx, flat, out, reserve, wbuf, mode, bidir):
     inputs = [x, hx] + ([cx] if cx is not None else []) + list(flat)
     return [torch.empty_like(t) for t in inputs]
 
 
 def _rnn_layer_setup(ctx, inputs, output):
-    x, hx, cx, flat, mode, bidir = inputs
+    x, hx, cx, flat, mode, bidir, train = inputs
     ctx.has_c = cx is not None
     ctx.mode, ctx.bidir = mode, bidir
-    ctx.save_for_backward(x, hx, *([cx] if cx is not None else []), *flat)
+    ctx.save_for_backward(x, hx, output[0], output[3], output[4],
+                          *([cx] if cx is not None else []), *flat)
 
 
 def _rnn_layer_backward(ctx, grads):
-    gout, ghn, gcn = grads   # None for an output that took no gradient
-    n = 3 if ctx.has_c else 2
-    x, hx = ctx.saved_tensors[:2]
-    cx = ctx.saved_tensors[2] if ctx.has_c else None
-    flat = list(ctx.saved_tensors[n:])
+    gout, ghn, gcn = grads[:3]   # None for an output that took no gradient
+    x, hx, out, reserve, wbuf = ctx.saved_tensors[:5]
+    cx = ctx.saved_tensors[5] if ctx.has_c else None
+    flat = list(ctx.saved_tensors[6 if ctx.has_c else 5:])
     if gout is None:
-        gout = x.new_zeros(x.shape[0], x.shape[1],
-                           (2 if ctx.bidir else 1) * hx.shape[-1])
+        gout = torch.zeros_like(out)
     if ghn is None:
         ghn = torch.zeros_like(hx)
     if not ctx.has_c:
         gcn = hx.new_empty(0)
     elif gcn is None:
         gcn = torch.zeros_like(hx)
-    g = _rnn_layer_backward_op(gout, ghn, gcn, x, hx, cx, flat, ctx.mode,
-                               ctx.bidir)
-    return g[0], g[1], g[2] if ctx.has_c else None, list(g[n:]), None, None
+    g = _rnn_layer_backward_op(gout, ghn, gcn, x, hx, cx, flat, out,
+                               reserve, wbuf, ctx.mode, ctx.bidir)
+    n = 3 if ctx.has_c else 2
+    return (g[0], g[1], g[2] if ctx.has_c else None, list(g[n:]), None,
+            None, None)
 
 
 _rnn_layer_op.register_autograd(_rnn_layer_backward,
@@ -870,12 +888,14 @@ _rnn_layer_op.register_autograd(_rnn_layer_backward,
 def rnn_layer(x, hx, cx, weights, mode, bidir):
     """One layer (both directions when ``bidir``) of the fused RNN:
     ``torch._VF`` directly when eager, the ``rnn_layer`` custom op in a
-    compiled graph.  Returns ``(out, hn, cn)``, ``cn`` None unless
-    LSTM."""
+    compiled graph (cuDNN's reserve kept only where a gradient will be
+    taken).  Returns ``(out, hn, cn)``, ``cn`` None unless LSTM."""
     if not torch.compiler.is_compiling():
         return _vf_layer(x, hx, cx, weights, mode, bidir)
     flat = [w for per_dir in weights for w in per_dir]
-    out, hn, cn = _rnn_layer_op(x, hx, cx, flat, mode, bidir)
+    train = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in [x, hx, cx] + flat)
+    out, hn, cn = _rnn_layer_op(x, hx, cx, flat, mode, bidir, train)[:3]
     return out, hn, cn if mode == "lstm" else None
 
 

@@ -255,8 +255,8 @@ class ShardedTrainer:
     fetch_depth : bound on in-flight background fetches (default 2)
 
     fusion : a fusion spec (None = the ``MXNET_FUSION`` default),
-        resolved into a plan at each step and installed
-        (``fusion_cost.scope``) around the forward, where an op's
+        resolved into a plan here and installed
+        (``fusion_cost.scope``) around each step's forward, where an op's
         shape-specialized fast path (LayerNorm's) consults it
 
     ``mesh``, ``batch_axis_spec``, ``param_spec_fn``, ``donate``,
@@ -283,8 +283,9 @@ class ShardedTrainer:
             if value != default:
                 raise MXNetError("ShardedTrainer(%s=%r) is not ported yet"
                                  % (name, value))
-        _fc.resolve_fusion(fusion)   # a bad spec fails here
-        self._fusion = fusion
+        # resolved once, as an Executor does at bind (a bad spec fails
+        # here)
+        self._fusion_plan = _fc.resolve_fusion(fusion)
         self.net = net
         self.loss_fn = loss_fn
         self._on_nonfinite = nonfinite_policy(on_nonfinite)
@@ -490,7 +491,7 @@ class ShardedTrainer:
         try:
             with torch.enable_grad(), autograd.record(train_mode=True), \
                     _dtp.scope(policy), \
-                    _fc.scope(_fc.resolve_fusion(self._fusion)):
+                    _fc.scope(self._fusion_plan):
                 for p, v, ct in zip(self._params, views, self._cast):
                     d = p.data()
                     saved.append((d, d._data))
