@@ -250,13 +250,35 @@ non-zero, printing no result, without them.  Phases, one line each:
    (1e-4 + 1e-4|ref|) against off, step time, compile and kernels a
    step; fold_batchnorm's logits in predict mode within 1e-4 + 1e-4
    |ref| of the unfolded graph; no hand-written kernel launched;
-16. flash times: each kernel, the plain version and
+16. detection: BASELINE config 5 through the port's
+   examples/ssd_detect_quant.py (the main path of the int8_conv and nms
+   kernels, counted from 0 across it): build_ssd at VGG16's widths
+   (width 64), VOC's 20 classes, 300x300, batch 32 (27,976 anchors),
+   ImageDetIter over the example's synthetic-JPEG .rec of 128 images,
+   30 Module steps (compiled Executor, f32, TF32 off), then the fp32
+   MultiBoxDetection forward (nms once) and quantize_model's int8 forward
+   (int8_conv 11 times, nms once); a 'detection train' line (compile,
+   step median, img/s, next() wait, kernels and idle share of a profiled
+   step, peak memory, finite losses) and a 'detection forward' line
+   (compile and ms of each forward, launches, the top-1 class agreement
+   and box error fp32 against int8, printed, not gated).  int8_conv
+   bit-equal to its plain version (an f64 convolution) at the 11 layer
+   shapes at batch 2 and with groups 2, stride 2 and dilation 2, timed at
+   conv1_2 (32, 64, 300, 300) -> 64 and at VGG16's fc7 (256 x 4096 ->
+   4096) beside torch._int_mm; nms's keep masks equal to its plain
+   version at MultiBoxDetection's call (32 images, nms_topk 100), box_nms
+   over one image's 27,976 boxes, Proposal's pre_n 6000 and a tie at the
+   threshold, each timed; the small case (width 8, image 64, batch 2,
+   4 objects) on the card against the port on the CPU (MultiBoxTarget,
+   the fp32 and the int8 detections, the int8 codes that differ); both
+   quantize_calibrate modes passing their gate;
+17. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-17. the whole script's wall time, then a {"kernels": [...]} line;
-18. last line: {"ok": true, "device": {...}}.
+18. the whole script's wall time, then a {"kernels": [...]} line;
+19. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -2754,8 +2776,14 @@ IMP_EARLIER_ALIASES = (
 
 
 # aliases that later slices registered: SoftmaxOutput's Softmax (its own
-# checks are in tests/test_torch_output_ops.py)
-IMP_LATER_ALIASES = ("Softmax",)
+# checks are in tests/test_torch_output_ops.py) and the detection and
+# int8 ops' other names (tests/test_torch_ssd_ops.py, test_torch_contrib_
+# ops.py, test_torch_quantization.py; phase 16)
+IMP_LATER_ALIASES = (
+    "Softmax", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+    "PSROIPooling", "Proposal", "_contrib_MultiProposal",
+    "_contrib_box_non_maximum_suppression", "_contrib_nms",
+    "_contrib_quadratic", "_quantized_concat")
 
 
 def imp_new_aliases():
@@ -4257,6 +4285,579 @@ def phase_fusion(card):
 
 
 
+# phase 16 (detection): BASELINE config 5 through the port's
+# examples/ssd_detect_quant.py at VGG16's widths (build_ssd width 64: the
+# 64x2, 128x2 and 256x3 convolutions of its three stages), VOC's 20
+# classes, SSD300's 300x300 input, batch 32 (4 x (75^2 + 37^2) = 27,976
+# anchors), the example's synthetic-JPEG .rec of 4 x 32 images through
+# ImageDetIter, 30 Module steps, f32 with TF32 off; then the int8 graph of
+# quantize_model.  Bounds: int8_conv's int32 outputs bit-equal to the
+# plain version, nms's keep masks equal to it; the small case (width 8,
+# image 64, batch 2, 3 classes, 4 objects an image) card against the
+# port on the CPU: the heads within 1e-4 + 1e-4 |ref|; MultiBoxTarget
+# and MultiBoxDetection on the same inputs, class targets and ids exact,
+# loc targets within 1e-5, scores and boxes within 1e-4; end to end the
+# sorted fp32 scores within 1e-4 and the int8 ones within one int8 step
+# of a value in [0, 1] (2^-7 > 1/127: a code parts from the CPU's only
+# where an f32 product lands on a rounding tie, by one step)
+DET_ARGS = ["--num-classes", "20", "--width", "64", "--image-size", "300",
+            "--batch-size", "32", "--train-steps", "30"]
+DET_CLASSES, DET_WIDTH, DET_SIDE, DET_BATCH = 20, 64, 300, 32
+DET_ANCHORS = 4 * (75 * 75 + 37 * 37)
+DET_TOPK, DET_NMS_THRESH = 100, 0.45
+INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
+INT8_FC = (256, 4096, 4096)      # VGG16's fc7: batch 256, 4096 -> 4096
+INT8_EXTRA = (                   # (N, C, H, W, F, k, stride, pad, dilate, g)
+    (2, 64, 75, 75, 128, 3, 1, 1, 1, 2),
+    (2, 64, 75, 75, 64, 3, 2, 1, 1, 1),
+    (2, 64, 75, 75, 64, 3, 1, 2, 2, 1))
+# nms: Proposal's defaults (rpn_pre_nms_top_n 6000, threshold 0.7,
+# min_size 16, scales 4-32, ratios 0.5-2, stride 16) on a (1, 24, 38, 50)
+# score map of a 600 x 800 image; box_nms over one image's anchors
+PROP_SHAPE, PROP_INFO, PROP_PRE_N, PROP_THRESH = (1, 24, 38, 50), \
+    (600.0, 800.0, 1.0), 6000, 0.7
+IOU_OPS = 14                     # f32 operations of one IoU
+PLAIN_REPS = 3                   # timed runs of a slow plain version
+DET_SMALL = dict(classes=3, width=8, side=64, batch=2, objects=4)
+DET_F32_TOL, DET_INT8_TOL, DET_TARGET_TOL = 1e-4, 2.0 ** -7, 1e-5
+
+
+def time_few(fn, reps=PLAIN_REPS):
+    """Median of ``reps`` CUDA-event timings of fn(), after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def det_layer_shapes(batch):
+    """(name, (N, C, H, W), filters) of the SSD's 11 convolutions at
+    DET_SIDE, DET_WIDTH and DET_CLASSES."""
+    w, s, heads = DET_WIDTH, DET_SIDE, 4 * (DET_CLASSES + 1)
+    return [("stage1_conv0", (batch, 3, s, s), w),
+            ("stage1_conv1", (batch, w, s, s), w),
+            ("stage2_conv0", (batch, w, s // 2, s // 2), 2 * w),
+            ("stage2_conv1", (batch, 2 * w, s // 2, s // 2), 2 * w),
+            ("stage3_conv0", (batch, 2 * w, s // 4, s // 4), 4 * w),
+            ("stage3_conv1", (batch, 4 * w, s // 4, s // 4), 4 * w),
+            ("stage3_conv2", (batch, 4 * w, s // 4, s // 4), 4 * w),
+            ("cls_head0", (batch, 2 * w, s // 4, s // 4), heads),
+            ("loc_head0", (batch, 2 * w, s // 4, s // 4), 16),
+            ("cls_head1", (batch, 4 * w, s // 8, s // 8), heads),
+            ("loc_head1", (batch, 4 * w, s // 8, s // 8), 16)]
+
+
+def int8_case(gen, shape, filters, k, stride, pad, dilate, groups):
+    x = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (filters, shape[1] // groups, k, k),
+                      generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    args = ((stride, stride), (pad, pad), (dilate, dilate), groups)
+    return x, w, args
+
+
+def int8_bound_ms(x, w, out):
+    macs = out.numel() * w[0].numel()
+    t_ops = 2 * macs / INT8_OPS_PER_S
+    t_bytes = (x.numel() + w.numel() + 4 * out.numel()) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def det_int8_kernel(card):
+    """int8_conv against its plain version: bit-equal at the 11 layer
+    shapes at batch 2 and with groups, stride and dilation; timed at
+    conv1_2 at batch 32 and at VGG16's fc7 beside torch._int_mm."""
+    from mxnet_tpu_torch.ops import quantization as quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    cases = [(name, shape, f, 3, 1, 1, 1, 1)
+             for name, shape, f in det_layer_shapes(2)]
+    cases += [("extra %s" % (c,), c[:4], *c[4:]) for c in INT8_EXTRA]
+    for name, shape, f, k, s, p, d, g in cases:
+        x, w, args = int8_case(gen, shape, f, k, s, p, d, g)
+        got = kernels.int8_conv(x, w, *args)
+        want = quant.int8_conv_plain(x, w, *args)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              "int8_conv %s %s: differs from the plain version in %d of %d"
+              % (name, shape, int((got != want).sum()), want.numel()))
+    x, w, args = int8_case(gen, det_layer_shapes(DET_BATCH)[1][1], DET_WIDTH,
+                           3, 1, 1, 1, 1)
+    out = kernels.int8_conv(x, w, *args)
+    check(torch.equal(out, quant.int8_conv_plain(x, w, *args)),
+          "int8_conv conv1_2 at batch 32: differs from the plain version")
+    ms = time_ms(lambda: kernels.int8_conv(x, w, *args))
+    plain_ms = time_few(lambda: quant.int8_conv_plain(x, w, *args))
+    bms, by = int8_bound_ms(x, w, out)
+    macs = out.numel() * w[0].numel()
+    del x, w, out
+    torch.cuda.empty_cache()
+    m, kdim, n = INT8_FC
+    a = torch.randint(-127, 128, (m, kdim), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-127, 128, (n, kdim), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    fc_args = ((1, 1), (0, 0), (1, 1), 1)
+
+    def fc():
+        return kernels.int8_conv(a.view(m, kdim, 1, 1), b.view(n, kdim, 1, 1),
+                                 *fc_args).view(m, n)
+
+    got = fc()
+    want = quant.int8_conv_plain(a.view(m, kdim, 1, 1), b.view(n, kdim, 1, 1),
+                                 *fc_args).view(m, n)
+    lib = torch._int_mm(a, b.t())
+    check(torch.equal(got, want) and torch.equal(lib, want),
+          "int8_conv fc7 %s: kernel %d, torch._int_mm %d elements off the "
+          "plain version" % (INT8_FC, int((got != want).sum()),
+                             int((lib != want).sum())))
+    fc_ms = time_ms(fc)
+    fc_plain_ms = time_ms(lambda: quant.int8_conv_plain(
+        a.view(m, kdim, 1, 1), b.view(n, kdim, 1, 1), *fc_args))
+    fc_lib_ms = time_ms(lambda: torch._int_mm(a, b.t()))
+    fc_bms, fc_by = int8_bound_ms(a, b, got)
+    print("detection int8_conv: int32 bit-equal to the plain version (f64 "
+          "convolution) at the 11 layer shapes at batch 2 and with groups 2, "
+          "stride 2, dilation 2 | conv1_2 (32, 64, 300, 300) -> 64: kernel "
+          "%.3f ms, plain %.3f ms, bound %.4f ms (%s; %.1f GMAC), kernel at "
+          "%.1f%% of the bound | fc7 %s: kernel %.4f ms, plain %.4f ms, "
+          "torch._int_mm %.4f ms, bound %.4f ms (%s), kernel at %.1f%% | %s"
+          % (ms, plain_ms, bms, by, macs / 1e9, 100 * bms / ms, INT8_FC,
+             fc_ms, fc_plain_ms, fc_lib_ms, fc_bms, fc_by,
+             100 * fc_bms / fc_ms, card), flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": [DET_BATCH, DET_WIDTH, DET_SIDE,
+                                          DET_SIDE],
+            "filters": DET_WIDTH, "fc_shape": list(INT8_FC), "fc_ms": fc_ms,
+            "fc_plain_ms": fc_plain_ms, "fc_library_ms": fc_lib_ms,
+            "fc_bound_ms": fc_bms, "fc_bound_by": fc_by, "max_abs_err": 0.0}
+
+
+def det_anchors(device):
+    """The SSD's 27,976 anchors at DET_SIDE, from MultiBoxPrior on its
+    two feature maps (build_ssd's sizes and ratios)."""
+    feats = [(DET_SIDE // 4, (0.2, 0.35)), (DET_SIDE // 8, (0.5, 0.75))]
+    out = [registry.get_op("MultiBoxPrior").fn(
+        torch.zeros((1, 1, s, s), device=device), sizes=sz,
+        ratios=(1.0, 2.0, 0.5)) for s, sz in feats]
+    return torch.cat(out, dim=1)
+
+
+def nms_bound_ms(boxes, ids, keep, class_aware):
+    """The least work of these inputs' greedy pass: every kept box read
+    (16 B), its id (4 B) and mask in and out (2 B), and an IoU (IOU_OPS
+    f32 operations) for each later kept box of its class and for each
+    suppressed box, at the f32 rate."""
+    k = keep.cpu().numpy()
+    n_boxes = keep.numel()
+    evals = 0
+    idn = ids.cpu().numpy()
+    for b in range(k.shape[0]):
+        kept = np.nonzero(k[b])[0]
+        if class_aware:
+            for c in np.unique(idn[b, kept]):
+                n = int((idn[b, kept] == c).sum())
+                evals += n * (n - 1) // 2
+        else:
+            evals += len(kept) * (len(kept) - 1) // 2
+    evals += int((~keep).sum())
+    t_bytes = 22 * n_boxes / HBM_BYTES_PER_S
+    t_ops = IOU_OPS * evals / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), evals
+
+
+def det_nms_case(label, boxes, ids, alive, thresh, class_aware, inclusive,
+                 plus_one, card):
+    from mxnet_tpu_torch.ops import ssd as ssd_ops
+
+    boxes, ids = boxes.contiguous(), ids.contiguous()
+    alive = alive.contiguous()
+    got = kernels.nms(boxes, ids, alive, thresh, class_aware, inclusive,
+                      plus_one)
+    want = ssd_ops.nms_plain(boxes, ids, alive, thresh, class_aware,
+                             inclusive, plus_one)
+    check(torch.equal(got, want), "nms %s: keep masks differ in %d of %d"
+          % (label, int((got != want).sum()), want.numel()))
+    ms = time_ms(lambda: kernels.nms(boxes, ids, alive, thresh, class_aware,
+                                     inclusive, plus_one))
+    plain_ms = time_few(lambda: ssd_ops.nms_plain(
+        boxes, ids, alive, thresh, class_aware, inclusive, plus_one), 1)
+    bms, by, evals = nms_bound_ms(boxes, ids, got, class_aware)
+    print("detection nms %s: %s boxes, %d alive, %d kept, keep mask equal to "
+          "the plain version | kernel %.4f ms, plain %.1f ms, bound %.5f ms "
+          "(%s; %d IoUs), kernel at %.2f%% of the bound | %s"
+          % (label, list(alive.shape), int(alive.sum()), int(got.sum()), ms,
+             plain_ms, bms, by, evals, 100 * bms / ms, card), flush=True)
+    return {"label": label, "shape": list(alive.shape), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "kept": int(got.sum())}
+
+
+def det_nms_kernel(card):
+    """nms against its plain version at MultiBoxDetection's call (32
+    images of 27,976 candidates, nms_topk 100), box_nms over one image's
+    27,976 boxes, Proposal's pre_n 6000 and a tie at the threshold."""
+    from mxnet_tpu_torch.ops import ssd as ssd_ops
+    from mxnet_tpu_torch.ops.ssd_ops import _base_anchors
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    anchors = det_anchors("cuda")
+    logits = torch.randn((DET_BATCH, DET_CLASSES + 1, DET_ANCHORS),
+                         generator=gen, device="cuda") * 2
+    cls_prob = torch.softmax(logits, dim=1)
+    loc = torch.randn((DET_BATCH, DET_ANCHORS * 4), generator=gen,
+                      device="cuda") * 0.5
+    oid, score, boxes = ssd_ops.detection_candidates(
+        cls_prob, loc, anchors, True, 0.01, 0, (0.1, 0.1, 0.2, 0.2), True)
+    alive = (oid >= 0) & (torch.arange(DET_ANCHORS, device="cuda")
+                          < DET_TOPK)[None]
+    rows = [det_nms_case("MultiBoxDetection (nms_topk 100, >=, per class)",
+                         boxes[:, :DET_TOPK], oid[:, :DET_TOPK],
+                         alive[:, :DET_TOPK], DET_NMS_THRESH, True, True,
+                         False, card)]
+    rows.append(det_nms_case(
+        "box_nms (one image, all anchors, >, any class)", boxes[:1],
+        score[:1], score[:1] > 0, 0.5, False, False, False, card))
+    cls = torch.rand(PROP_SHAPE, generator=gen, device="cuda")
+    A = PROP_SHAPE[1] // 2
+    deltas = (torch.rand((1, 4 * A) + PROP_SHAPE[2:], generator=gen,
+                         device="cuda") - 0.5) * 0.2
+    info = torch.tensor([PROP_INFO], device="cuda")
+    base = _base_anchors(16, (4.0, 8.0, 16.0, 32.0), (0.5, 1.0, 2.0))
+    top_score, top_boxes = ssd_ops.proposal_candidates(
+        cls, deltas, info, base, 16, PROP_PRE_N, 16.0)
+    rows.append(det_nms_case(
+        "Proposal (pre_n 6000, >, +1 pixel IoU)", top_boxes, top_score,
+        torch.ones_like(top_score, dtype=torch.bool), PROP_THRESH, False,
+        False, True, card))
+    pair = torch.tensor([[[0.1, 0.1, 0.5, 0.5], [0.1, 0.1, 0.5, 0.5],
+                          [0.3, 0.3, 0.7, 0.7], [0.3, 0.3, 0.7, 0.7]]],
+                        device="cuda")
+    ones = torch.ones((1, 4), device="cuda")
+    keep = kernels.nms(pair, ones, ones > 0, 1.0, True, True, False)
+    check(keep.tolist() == [[True, False, True, False]],
+          "nms at the threshold: identical boxes at 1.0 (>=) kept %s"
+          % keep.tolist())
+    keep = kernels.nms(pair, ones, ones > 0, 1.0, True, False, False)
+    check(keep.all(), "nms at the threshold: > 1.0 suppressed %s"
+          % keep.tolist())
+    print("detection nms tie: identical boxes at threshold 1.0 suppress "
+          "under >= and not under > | %s" % card, flush=True)
+    return rows
+
+
+def det_train(card):
+    """The example at DET_ARGS: returns its result and the training
+    line's numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.examples import ssd_detect_quant as ex
+
+    args = ex.parse_args(DET_ARGS)
+    last = args.train_steps - 1
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def step_hook(i):   # after step i's synchronize: profile the last one
+        if i == last - 1:
+            prof.start()
+        elif i == last:
+            prof.stop()
+
+    mx.random.seed(0)
+    torch.manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = ex.run(args, ctx=mx.gpu(0), step_hook=step_hook)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows = [(ev.count, _self_device_us(ev)) for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    card_ms = sum(us for _, us in rows) / 1e3
+    step_ms = 1e3 * res["step_s"][last]
+    prof_text = ("step %d under torch.profiler: %d kernels, %.1f ms on the "
+                 "card of %.1f ms: idle %.1f%%"
+                 % (last, sum(c for c, us in rows if us), card_ms, step_ms,
+                    100 * max(0.0, 1 - card_ms / step_ms))) if card_ms \
+        else "profile not measured (torch.profiler recorded no device time)"
+    return res, peak, prof_text
+
+
+def det_forward_launches(ex_):
+    """kernels launched by one more forward of executor ``ex_``."""
+    before = dict(kernels.launch_counts)
+    ex_.forward()
+    torch.cuda.synchronize()
+    return {n: c - before[n] for n, c in kernels.launch_counts.items()
+            if c - before[n]}
+
+
+def det_main(card):
+    """The main path (the example), its launches, times and checks."""
+    kernels.reset_launch_counts()
+    res, peak, prof_text = det_train(card)
+    launches = dict(kernels.launch_counts)
+    loss, cmax = res["loc_loss"], res["cls_prob_max"]
+    check(np.isfinite(loss).all() and np.isfinite(cmax).all(),
+          "detection training: non-finite losses %s / %s" % (loss, cmax))
+    check(len(loss) == 30, "detection training: %d steps" % len(loss))
+    check(res["n_q"] == 11, "quantize_model: %d int8 layers, not 11"
+          % res["n_q"])
+    for key in ("det_fp32", "det_int8"):
+        det = res[key]
+        check(det.shape == (DET_BATCH, DET_ANCHORS, 6)
+              and np.isfinite(det).all(), "%s: shape %s, finite %s"
+              % (key, det.shape, np.isfinite(det).all()))
+    fp32_l = det_forward_launches(res["dex"])
+    int8_l = det_forward_launches(res["qex"])
+    check(fp32_l == {"nms": 1}, "fp32 detection forward launched %s" % fp32_l)
+    check(int8_l == {"int8_conv": 11, "nms": 1},
+          "int8 detection forward launched %s" % int8_l)
+    check(launches["int8_conv"] == 22 and launches["nms"] == 4,
+          "the example launched %s (2 fp32 and 2 int8 forwards)" % launches)
+    dex, qex = res["dex"], res["qex"]
+    fp32_ms = time_ms(lambda: dex.forward())
+    int8_ms = time_ms(lambda: qex.forward())
+    med = statistics.median(res["step_s"][1:])
+    wait = statistics.median(res["wait_s"][1:])
+    n_valid = [int((res[k][:, :, 0] >= 0).sum()) for k in ("det_fp32",
+                                                          "det_int8")]
+    print("detection train: ssd_detect_quant %s | build_ssd width %d, %d "
+          "classes, %dx%d, batch %d, %d anchors, ImageDetIter over the "
+          "example's synthetic-JPEG .rec of %d images | compile %.1f s | step "
+          "median %.2f ms (steps 1-29), %.1f img/s | next() median %.2f ms a "
+          "step | %s | peak %.2f GB | loc_loss %s | mean max class prob %s "
+          "| %s" % (" ".join(DET_ARGS), DET_WIDTH, DET_CLASSES, DET_SIDE,
+                    DET_SIDE, DET_BATCH, DET_ANCHORS, 4 * DET_BATCH,
+                    res["train_compile_s"], 1e3 * med, DET_BATCH / med,
+                    1e3 * wait, prof_text, peak,
+                    ["%.4f" % v for v in loss[::6]],
+                    ["%.3f" % v for v in cmax[::6]], card), flush=True)
+    print("detection forward: fp32 MultiBoxDetection compile %.1f s, %.3f ms "
+          "(median of %d), launches %s | int8 (quantize_model, %d int8 "
+          "layers) compile %.1f s, %.3f ms, launches %s | valid detections "
+          "fp32 %d, int8 %d | top-1 of image 0: same class %s, box err %s | "
+          "%s" % (res["fp32_first_s"], fp32_ms, REPS, fp32_l, res["n_q"],
+                  res["int8_first_s"], int8_ms, int8_l, n_valid[0],
+                  n_valid[1], res["same_cls"], res["box_err"], card),
+          flush=True)
+    return launches
+
+
+def det_small_values(sym, shapes):
+    """Seeded weights for ``sym`` at ``shapes`` (He-scaled convolutions,
+    small biases)."""
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rng = np.random.RandomState(8)
+    vals = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("weight"):
+            v = rng.randn(*shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+        else:
+            v = rng.randn(*shape) * 0.1
+        vals[name] = v.astype(np.float32)
+    return vals
+
+
+def det_small_labels(rng, batch, objects, classes):
+    lab = np.full((batch, objects, 5), -1, np.float32)
+    for b in range(batch):
+        for m in range(objects - b):     # a padding row from image 1 on
+            xy = rng.uniform(0, 0.6, 2)
+            wh = rng.uniform(0.1, 0.4, 2)
+            lab[b, m] = [rng.randint(classes), *xy, *(xy + wh)]
+    return lab
+
+
+def det_scores_close(got, ref, tol, what):
+    """Detections (B, N, 6) card against CPU, end to end: the sorted
+    score column within ``tol`` row for row (two detections whose scores
+    lie within the bound may trade places, so ids and boxes are compared
+    on the same inputs instead, by det_small).  Returns (the worst score
+    error, rows whose id and box agree too)."""
+    s_err = float(np.abs(got[:, :, 1] - ref[:, :, 1]).max())
+    check(s_err <= tol, "%s: scores differ by %g (bound %g)"
+          % (what, s_err, tol))
+    same = (got[:, :, 0] == ref[:, :, 0]) & \
+        (np.abs(got[:, :, 2:] - ref[:, :, 2:]) <= tol).all(axis=2)
+    return s_err, int(same.sum())
+
+
+def det_op_both(op, ins, **attrs):
+    """Registry op ``op`` through mx.nd.contrib on the card and on the CPU
+    with the same numpy inputs: {device: [numpy outputs]}."""
+    out = {}
+    for dev, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        res = getattr(mx.nd.contrib, op)(
+            *[mx.nd.array(v, ctx=ctx) for v in ins], **attrs)
+        out[dev] = [o.asnumpy() for o in
+                    (res if isinstance(res, (list, tuple)) else [res])]
+    return out
+
+
+def det_small(card):
+    """The small case on the card against the port on the CPU: the SSD's
+    heads (1e-4 + 1e-4 |ref|), the fp32 and int8 detections end to end
+    (det_scores_close), and MultiBoxTarget and MultiBoxDetection on the
+    same inputs (the CPU's heads) on both devices: class targets, masks
+    and ids exact, loc targets within 1e-5, scores and boxes within
+    1e-4."""
+    from mxnet_tpu_torch.contrib import quantization as qmod
+    from mxnet_tpu_torch.examples import ssd_detect_quant as ex
+
+    c = DET_SMALL
+    rng = np.random.RandomState(9)
+    data = rng.rand(c["batch"], 3, c["side"], c["side"]).astype(np.float32)
+    label = det_small_labels(rng, c["batch"], c["objects"], c["classes"])
+    anchors, cls_preds, loc_preds = ex.build_ssd(c["classes"],
+                                                 width=c["width"])
+    heads = mx.sym.Group([anchors, cls_preds, loc_preds])
+    dsym = ex.detection_symbol(c["classes"], width=c["width"])
+    vals = det_small_values(dsym, {"data": data.shape})
+    outs = {}
+    prev_backend = mx.jit._BACKEND
+    try:
+        for dev in ("gpu", "cpu"):
+            ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+            if dev == "cpu":
+                mx.jit._BACKEND = "aot_eager"   # inductor's CPU codegen
+            args = {k: mx.nd.array(v, ctx=ctx) for k, v in vals.items()}
+            feed = dict(args, data=mx.nd.array(data, ctx=ctx))
+            with ctx:
+                # one graph (one compile) each: the heads with the fp32
+                # detections, the int8 codes with the int8 detections
+                both = mx.sym.Group(list(heads) + [dsym])
+                fv = [o.asnumpy() for o in both.bind(ctx=ctx, args={
+                    k: feed[k] for k in both.list_arguments()}).forward()]
+                qsym, qargs, _ = qmod.quantize_model(dsym, args, {},
+                                                     calib_mode="none")
+                qfeed = dict(qargs, data=feed["data"])
+                internals = qsym.get_internals()
+                names = [n for n in internals.list_outputs()
+                         if n.endswith("_data_quantize_output0")]
+                qboth = mx.sym.Group([internals[n] for n in names] + [qsym])
+                qv = [o.asnumpy() for o in qboth.bind(ctx=ctx, args={
+                    k: qfeed[k] for k in qboth.list_arguments()}).forward()]
+                outs[dev] = {"heads": fv[:3], "det": fv[3], "qdet": qv[-1],
+                             "codes": qv[:-1]}
+    finally:
+        mx.jit._BACKEND = prev_backend
+    g, r = outs["gpu"], outs["cpu"]
+    h_err = max(close(gh, rh, DET_F32_TOL, DET_F32_TOL)
+                for gh, rh in zip(g["heads"], r["heads"]))
+    check(h_err <= 1.0, "SSD heads card vs CPU: %g of 1e-4 + 1e-4|ref|"
+          % h_err)
+    a, cp, loc = r["heads"]
+    t = det_op_both("MultiBoxTarget", (a, label, cp), overlap_threshold=0.5,
+                    negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+    loc_err = float(np.abs(t["gpu"][0] - t["cpu"][0]).max())
+    check(np.array_equal(t["gpu"][2], t["cpu"][2])
+          and np.array_equal(t["gpu"][1], t["cpu"][1])
+          and loc_err <= DET_TARGET_TOL,
+          "MultiBoxTarget card vs CPU: class targets equal %s, loc %g"
+          % (np.array_equal(t["gpu"][2], t["cpu"][2]), loc_err))
+    e = np.exp(cp - cp.max(axis=1, keepdims=True))
+    prob = (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
+    d = det_op_both("MultiBoxDetection", (prob, loc, a), nms_threshold=0.45,
+                    nms_topk=100)
+    dg, dc = d["gpu"][0], d["cpu"][0]
+    d_err = float(np.abs(dg[:, :, 1:] - dc[:, :, 1:]).max())
+    check(np.array_equal(dg[:, :, 0], dc[:, :, 0]) and d_err <= DET_F32_TOL,
+          "MultiBoxDetection card vs CPU on the same inputs: ids equal %s, "
+          "scores and boxes %g" % (np.array_equal(dg[:, :, 0], dc[:, :, 0]),
+                                   d_err))
+    f32 = det_scores_close(g["det"], r["det"], DET_F32_TOL,
+                           "fp32 detections card vs CPU")
+    i8 = det_scores_close(g["qdet"], r["qdet"], DET_INT8_TOL,
+                          "int8 detections card vs CPU")
+    n_codes = sum(o.size for o in r["codes"])
+    differ = sum(int((gc != rc).sum()) for gc, rc in zip(g["codes"],
+                                                         r["codes"]))
+    rows = dc.shape[0] * dc.shape[1]
+    print("detection small: width %d, image %d, batch %d, %d classes, %d "
+          "objects an image (a padding row from image 1), card against the "
+          "port on the CPU | heads %.3g of 1e-4 + 1e-4|ref| | on the same "
+          "inputs: MultiBoxTarget class targets and masks equal, loc "
+          "targets within %.3g (bound %g), %d positives; MultiBoxDetection "
+          "ids equal, scores and boxes within %.3g (bound %g), %d valid | "
+          "end to end: fp32 scores within %.3g (bound %g), id and box equal "
+          "at %d of %d rows; int8 scores within %.3g (bound 2^-7, one int8 "
+          "step of a value in [0, 1]), id and box equal at %d of %d rows | "
+          "int8 activation codes (the %d quantize_v2 nodes): %d of %d "
+          "differ | %s"
+          % (c["width"], c["side"], c["batch"], c["classes"], c["objects"],
+             h_err, loc_err, DET_TARGET_TOL, int((t["cpu"][2] > 0).sum()),
+             d_err, DET_F32_TOL, int((dc[:, :, 0] >= 0).sum()), f32[0],
+             DET_F32_TOL, f32[1], rows, i8[0], i8[1], rows, len(names),
+             differ, n_codes, card), flush=True)
+
+
+def det_calibrate(card):
+    from mxnet_tpu_torch.examples import quantize_calibrate as qc
+
+    for mode in ("naive", "entropy"):
+        t0 = time.perf_counter()
+        rc = qc.main(["--calib-mode", mode], ctx=mx.gpu(0))
+        check(rc == 0, "quantize_calibrate --calib-mode %s: exit %d (its "
+              "gate: fp32 > 0.9, drop <= 0.02, >= 3 int8 layers)" % (mode, rc))
+        print("detection calibrate: quantize_calibrate --calib-mode %s "
+              "passed its gate in %.1f s | %s"
+              % (mode, time.perf_counter() - t0, card), flush=True)
+
+
+def phase_detection(card):
+    """Phase 16 (see the module doc): returns the two kernels' rows."""
+    t_phase = time.perf_counter()
+    laps = []
+
+    def lap(name):
+        laps.append("%s %.1f" % (name, time.perf_counter() - t_phase
+                                 - sum(float(x.split()[-1]) for x in laps)))
+
+    launches = det_main(card)
+    lap("example")
+    torch.cuda.empty_cache()
+    int8_row = det_int8_kernel(card)
+    lap("int8_conv")
+    torch.cuda.empty_cache()
+    nms_rows = det_nms_kernel(card)
+    lap("nms")
+    torch.cuda.empty_cache()
+    det_small(card)
+    lap("small case")
+    det_calibrate(card)
+    lap("calibrate")
+    print("detection: phase %.1f s (%s s) | %s"
+          % (time.perf_counter() - t_phase, ", ".join(laps), card),
+          flush=True)
+    first = nms_rows[0]
+    return [dict(int8_row, **{
+        "name": "int8_conv", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/int8_conv.cu",
+        "replaces": "mxnet_tpu/contrib/quantization.py:352",
+        "launches": launches["int8_conv"], "card": card}),
+        {"name": "nms", "route": "cuda",
+         "source": "mxnet_tpu_torch/kernels/nms.cu",
+         "replaces": "mxnet_tpu/ops/ssd_jax.py:226",
+         "launches": launches["nms"], "max_abs_err": 0.0,
+         "ms": first["ms"], "plain_ms": first["plain_ms"],
+         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+         "library_ms": None, "shape": first["shape"],
+         "times": nms_rows[1:], "card": card}]
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -4331,6 +4932,8 @@ def main():
     torch.cuda.empty_cache()
     phase_fusion(card)
     torch.cuda.empty_cache()
+    det_rows = phase_detection(card)
+    torch.cuda.empty_cache()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]
@@ -4376,6 +4979,7 @@ def main():
             row["bf16_max_abs_err"] = flash_worst[kernel, torch.bfloat16]
             row["bf16_bound_share"] = flash_share[kernel, torch.bfloat16]
         rows.append(row)
+    rows += det_rows
     print("wall: the whole script %.1f s | %s"
           % (time.perf_counter() - t_start, card), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -134,6 +134,15 @@ FLAGS = {
         "paged-engine prefix sharing: full prompt pages are content-"
         "hashed and later prompts with the same page-aligned prefix "
         "attach to them refcounted (0 disables)"),
+    "MXNET_QUANTIZE_TOPK": (
+        "5", _pint,
+        "k of the int8 accuracy gate (contrib.quantization."
+        "quantize_serving_artifact): fp32-of-record against int8 top-k "
+        "agreement on the recorded calibration batch"),
+    "MXNET_QUANTIZE_MAX_DELTA": (
+        "0.02", _pfloat,
+        "largest tolerated top-k accuracy delta (1 - agreement) of the "
+        "int8 gate; a larger measured delta refuses the artifact"),
 }
 
 _warned = set()

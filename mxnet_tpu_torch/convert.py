@@ -6,9 +6,11 @@ packages never share a random stream, so numpy is the only common ground.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from .base import MXNetError
 
-__all__ = ["load_from_numpy"]
+__all__ = ["load_from_numpy", "params_from_numpy"]
 
 
 def load_from_numpy(block, arrays):
@@ -28,3 +30,16 @@ def load_from_numpy(block, arrays):
             raise MXNetError("load_from_numpy: %s has shape %s, array %s"
                              % (name, p.shape, tuple(value.shape)))
         p.set_data(value)
+
+
+def params_from_numpy(arrays, ctx=None):
+    """{name: numpy array} -> {name: NDArray} on ``ctx`` (the current
+    context unless given), each keeping its dtype (int8 included): a
+    symbolic model's ``arg_params`` / ``aux_params`` (or
+    ``quantize_model``'s int8 ones) carried across for ``Module.set_params``
+    and ``bind``."""
+    from .ndarray.ndarray import array
+
+    return {name: array(np.asarray(value), ctx=ctx,
+                        dtype=np.asarray(value).dtype)
+            for name, value in arrays.items()}

@@ -19,6 +19,12 @@ attention has two sources, and a launch counts under the one that ran:
 at any head dim and bf16 inputs with D > ``FLASH_MAX_HEAD_DIM``, and counts
 ``"flash_attention"``; ``flash_attention_bf16.cu`` (tensor cores) takes
 bf16 inputs up to that head dim and counts ``"flash_attention_bf16"``.
+Two kernels replace no Pallas kernel: ``int8_conv.cu``, the int8 x int8
+-> int32 implicit-GEMM convolution of ``quantized_conv`` and
+``quantized_fully_connected`` (``int8_conv``), and ``nms.cu``, the greedy
+suppression pass of MultiBoxDetection, ``box_nms`` and Proposal
+(``nms``); each is reached through a ``torch.library`` custom op
+(``ops/quantization.py``, ``ops/ssd.py``), so a compiled graph holds it.
 """
 from __future__ import annotations
 
@@ -41,19 +47,25 @@ __all__ = ["build", "quantize_2bit", "dequantize_2bit", "quantize_2bit_batch",
            "flash_attention_fwd",
            "flash_kernel", "bf16_vector_loads", "f32_vector_loads",
            "launch_counts", "reset_launch_counts", "SOURCES",
-           "FLASH_MAX_HEAD_DIM"]
+           "FLASH_MAX_HEAD_DIM", "int8_conv", "nms", "NMS_MAX_BOXES"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
            "flash_attention": _HERE / "flash_attention.cu",
-           "flash_attention_bf16": _HERE / "flash_attention_bf16.cu"}
+           "flash_attention_bf16": _HERE / "flash_attention_bf16.cu",
+           "int8_conv": _HERE / "int8_conv.cu",
+           "nms": _HERE / "nms.cu"}
 _BUILD_DIR = _HERE.parent / "_build"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the tensor-core kernel's largest head dim; flash_attention.cu takes any
 FLASH_MAX_HEAD_DIM = 256
 
+# the nms kernel keeps an image's mask in shared memory, a byte a box
+NMS_MAX_BOXES = 232448
+
 launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0,
-                 "flash_attention": 0, "flash_attention_bf16": 0}
+                 "flash_attention": 0, "flash_attention_bf16": 0,
+                 "int8_conv": 0, "nms": 0}
 
 _libs = {}
 
@@ -93,10 +105,17 @@ def _bind(name, lib):
         lib.mxtt_flash_attention_fwd.argtypes = (
             [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, i32, vp])
         lib.mxtt_flash_attention_fwd.restype = i32
-    else:  # the bf16 entry point also takes the loader flag
+    elif name == "flash_attention_bf16":  # also takes the loader flag
         lib.mxtt_flash_attention_fwd_bf16.argtypes = (
             [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, vp])
         lib.mxtt_flash_attention_fwd_bf16.restype = i32
+    elif name == "int8_conv":
+        lib.mxtt_int8_conv.argtypes = [vp] * 3 + [i32] * 15 + [vp]
+        lib.mxtt_int8_conv.restype = i32
+    else:
+        lib.mxtt_nms.argtypes = [vp] * 4 + [i32, i32, f32, i32, i32, i32,
+                                             vp]
+        lib.mxtt_nms.restype = i32
     lib.mxtt_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_error_string.restype = ctypes.c_char_p
     return lib
@@ -436,3 +455,79 @@ def flash_attention_fwd(q, k, v, scale, causal):
     _raise_on(lib, err, name)
     launch_counts[name] += 1
     return o, lse
+
+
+def int8_conv(x, w, stride, pad, dilate, groups):
+    """Launch ``int8_conv.cu`` once: int8 NCHW ``x`` convolved with int8
+    OIHW ``w`` (stride, pad and dilation pairs, ``groups``) into a new
+    int32 (N, F, Ho, Wo) tensor, summed exactly in int32."""
+    _check(x, torch.int8, "x")
+    _check(w, torch.int8, "w")
+    if x.dim() != 4 or w.dim() != 4 or x.device != w.device:
+        raise ValueError("int8_conv takes (N, C, H, W) data and (F, C/g, KH, "
+                         "KW) weights on one device; got %s and %s"
+                         % (tuple(x.shape), tuple(w.shape)))
+    N, C, H, W = x.shape
+    F, Cg, KH, KW = w.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, pad, dilate
+    if groups < 1 or C != Cg * groups or F % groups:
+        raise ValueError("int8_conv: %d channels, %d filters of %d channels "
+                         "and %d groups do not agree" % (C, F, Cg, groups))
+    Ho = (H + 2 * ph - (dh * (KH - 1) + 1)) // sh + 1
+    Wo = (W + 2 * pw - (dw * (KW - 1) + 1)) // sw + 1
+    if Ho < 1 or Wo < 1:
+        raise ValueError("int8_conv: empty output %dx%d" % (Ho, Wo))
+    kg = Cg * KH * KW
+    kp = -(-kg // 32) * 32
+    # the weights as (F, Kp) rows, each zero-padded to a multiple of 32
+    wp = torch.nn.functional.pad(w.reshape(F, kg), (0, kp - kg)) \
+        .contiguous()
+    out = torch.empty((N, F, Ho, Wo), dtype=torch.int32, device=x.device)
+    vector_rows = int(H == W == KH == KW == 1 and ph == pw == 0
+                      and Cg % 16 == 0 and C % 16 == 0
+                      and x.data_ptr() % 16 == 0)
+    lib = _load("int8_conv")
+    with torch.cuda.device(x.device):
+        err = lib.mxtt_int8_conv(
+            x.data_ptr(), wp.data_ptr(), out.data_ptr(), N, C, H, W, F, KH,
+            KW, sh, sw, ph, pw, dh, dw, groups, vector_rows,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "int8_conv")
+    launch_counts["int8_conv"] += 1
+    return out
+
+
+def nms(boxes, ids, alive, thresh, class_aware, inclusive, plus_one):
+    """Launch ``nms.cu`` once over a batch of sorted candidates: f32
+    corner ``boxes`` (B, N, 4), f32 class ``ids`` (B, N) and bool
+    ``alive`` (B, N) give the bool keep mask (B, N) of greedy
+    suppression at IoU ``thresh`` (``>=`` when ``inclusive``, else ``>``;
+    only within a class when ``class_aware``; the +1 pixel areas when
+    ``plus_one``)."""
+    _check(boxes, torch.float32, "boxes")
+    _check(ids, torch.float32, "ids")
+    _check(alive, torch.bool, "alive")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or \
+            ids.shape != boxes.shape[:2] or alive.shape != ids.shape or \
+            ids.device != boxes.device or alive.device != boxes.device:
+        raise ValueError("nms takes (B, N, 4) boxes with (B, N) ids and alive "
+                         "on one device; got %s, %s, %s"
+                         % (tuple(boxes.shape), tuple(ids.shape),
+                            tuple(alive.shape)))
+    B, N = ids.shape
+    if N > NMS_MAX_BOXES:
+        raise ValueError("nms: %d boxes an image, at most %d"
+                         % (N, NMS_MAX_BOXES))
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms: boxes must be 16-byte aligned")
+    keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
+    lib = _load("nms")
+    with torch.cuda.device(boxes.device):
+        err = lib.mxtt_nms(boxes.data_ptr(), ids.data_ptr(), alive.data_ptr(),
+                           keep.data_ptr(), B, N, float(thresh),
+                           int(bool(class_aware)), int(bool(inclusive)),
+                           int(bool(plus_one)),
+                           torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "nms")
+    launch_counts["nms"] += 1
+    return keep

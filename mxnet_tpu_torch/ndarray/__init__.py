@@ -8,6 +8,10 @@ from ..ops import optimizer_ops as _ops_opt  # noqa: F401 (registers ops)
 from ..ops import random_ops as _ops_random  # noqa: F401 (registers ops)
 from ..ops import fused as _ops_fused  # noqa: F401 (registers ops)
 from ..ops import control_flow as _ops_cf  # noqa: F401 (registers ops)
+from ..ops import contrib_ops as _ops_contrib  # noqa: F401 (registers ops)
+from ..ops import ssd_ops as _ops_ssd  # noqa: F401 (registers ops)
+from ..ops import deformable as _ops_def  # noqa: F401 (registers ops)
+from ..ops import quantization as _ops_quant  # noqa: F401 (registers ops)
 from ..ops.registry import list_ops as _list_ops
 from ..ops.utils import scalar_or_array as _soa
 

@@ -50,6 +50,20 @@ def ptuple(v, ndim=None, default=None):
     return t
 
 
+def pftuple(v, default=None):
+    """Parse a float-tuple attr (e.g. variances '(0.1, 0.1, 0.2, 0.2)')."""
+    if v is None:
+        return default
+    if isinstance(v, str):
+        v = v.strip()
+        if v in ("None", ""):
+            return default
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, float, np.floating, np.integer)):
+        v = (float(v),)
+    return tuple(float(x) for x in v)
+
+
 def pdtype(v, default=torch.float32):
     """A dtype attr (name, numpy or torch dtype) as a ``torch.dtype``."""
     if v is None:

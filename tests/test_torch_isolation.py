@@ -16,8 +16,11 @@ and an export / SymbolBlock.imports round trip, compiled with the
 aot_eager backend), and the recurrent family and fusion (mx.gluon.rnn,
 mx.gluon.contrib, mx.rnn, mx.nd.contrib.foreach, mx.sym.fusion and the
 two examples: one LSTM step with its backward, one unrolled mx.rnn
-stack and one apply_fusion) loads neither jax nor mxnet_tpu, and
-chip_smoke.py imports neither.  The import check runs in a subprocess because this
+stack and one apply_fusion), and the detection and int8 slice (the
+contrib, ssd, deformable and quantization ops, contrib.quantization and
+the ssd_detect_quant and quantize_calibrate examples: one int8
+detection forward of quantize_model's graph) loads neither jax nor
+mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -163,6 +166,24 @@ cells.unroll(2, inputs=mx.sym.var("data"), merge_outputs=True)
 net = mx.sym.Activation(mx.sym.var("x") + mx.sym.var("y"), act_type="relu")
 fused, fired = mx.sym.fusion.apply_fusion(net, "default")
 assert [f[0] for f in fired] == ["add_act"]
+import mxnet_tpu_torch.ops.contrib_ops
+import mxnet_tpu_torch.ops.ssd
+import mxnet_tpu_torch.ops.ssd_ops
+import mxnet_tpu_torch.ops.deformable
+import mxnet_tpu_torch.ops.quantization
+import mxnet_tpu_torch.contrib.quantization
+from mxnet_tpu_torch.examples import ssd_detect_quant, quantize_calibrate
+with mx.name.NameManager():
+    dsym = ssd_detect_quant.detection_symbol(3, width=4)
+arg_shapes, _, _ = dsym.infer_shape(data=(1, 3, 16, 16))
+rng = np.random.RandomState(0)
+args = {n: mx.nd.array(rng.randn(*s).astype(np.float32) * 0.3, ctx=mx.cpu())
+        for n, s in zip(dsym.list_arguments(), arg_shapes) if n != "data"}
+qsym, qargs, _ = mx.contrib.quantization.quantize_model(dsym, args, {})
+qargs["data"] = mx.nd.array(rng.rand(1, 3, 16, 16).astype(np.float32),
+                            ctx=mx.cpu())
+det = qsym.bind(ctx=mx.cpu(), args=qargs).forward()[0]
+assert det.shape == (1, 80, 6)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

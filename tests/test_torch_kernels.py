@@ -21,6 +21,7 @@ import torch
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.contrib import compression as comp
 from mxnet_tpu_torch.ops import attention as attn
+from mxnet_tpu_torch.ops import quantization as quant, ssd
 
 T = 0.5
 
@@ -47,7 +48,8 @@ def test_cpu_path_launches_no_kernel():
     assert kernels.launch_counts == {"quantize_2bit": 0,
                                      "dequantize_2bit": 0,
                                      "flash_attention": 0,
-                                     "flash_attention_bf16": 0}
+                                     "flash_attention_bf16": 0,
+                                     "int8_conv": 0, "nms": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -136,7 +138,8 @@ def test_cuda_batched_kernels_match_plain_batch():
         torch.cuda.synchronize()
         assert {n: c - before[n] for n, c in kernels.launch_counts.items()} \
             == {"quantize_2bit": 1, "dequantize_2bit": 1,
-                "flash_attention": 0, "flash_attention_bf16": 0}
+                "flash_attention": 0, "flash_attention_bf16": 0,
+                "int8_conv": 0, "nms": 0}
         if push:
             assert kernels.table_uploads == uploads
         table = kernels._device_table(layout, arena.device, grads, arena,
@@ -422,3 +425,102 @@ def test_cuda_flash_takes_any_scale(scale, dtype):
         assert diff.max().item() <= 5e-5
     else:
         assert (diff / (BF16_REL * (ro.abs() + obar) + F32_ABS)).max() <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# int8_conv.cu and nms.cu: the SSD / int8 slice's kernels
+# ---------------------------------------------------------------------------
+
+# (N, C, H, W, F, kernel, stride, pad, dilate, groups): the SSD's layer
+# shapes at width 8 (conv1_1's 27-deep K, a 1x1 head-free layer), groups,
+# stride and dilation, and a fully connected layer as a 1x1 map
+INT8_CASES = [
+    (2, 3, 32, 32, 8, 3, 1, 1, 1, 1),
+    (2, 8, 32, 32, 8, 3, 1, 1, 1, 1),
+    (2, 32, 8, 8, 80, 3, 1, 1, 1, 1),
+    (2, 16, 17, 13, 70, 3, 2, 1, 1, 2),
+    (2, 12, 15, 15, 6, 3, 1, 2, 2, 1),
+    (3, 256, 1, 1, 130, 1, 1, 0, 1, 1),
+    (3, 40, 1, 1, 33, 1, 1, 0, 1, 1),
+]
+
+
+def _int8(shape, rng):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+
+
+def test_int8_conv_cpu_is_plain_version():
+    """On the CPU the custom op is the f64 plain version: exact int32 at a
+    depth where an f32 sum would not be (127^2 x 2304 > 2^24), and no
+    kernel launches."""
+    kernels.reset_launch_counts()
+    x = torch.full((1, 256, 3, 3), 127, dtype=torch.int8)
+    w = torch.full((2, 256, 3, 3), 127, dtype=torch.int8)
+    w[1] = -127
+    out = quant.int8_conv(x, w, pad=(1, 1))
+    assert out.dtype == torch.int32
+    assert int(out[0, 0, 1, 1]) == 127 * 127 * 2304
+    assert int(out[0, 1, 1, 1]) == -127 * 127 * 2304
+    assert kernels.launch_counts["int8_conv"] == 0
+
+
+def test_int8_and_nms_wrappers_reject_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.int8_conv(torch.zeros(1, 1, 3, 3, dtype=torch.int8),
+                          torch.zeros(1, 1, 3, 3, dtype=torch.int8),
+                          (1, 1), (0, 0), (1, 1), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.nms(torch.zeros(1, 4, 4), torch.zeros(1, 4),
+                    torch.ones(1, 4, dtype=torch.bool), 0.5, False, False,
+                    False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_cuda_int8_conv_matches_plain_version(case):
+    """One launch, int32 bit for bit equal to the f64 plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    N, C, H, W, F, k, s, p, d, g = case
+    rng = np.random.RandomState(sum(case))
+    x, w = _int8((N, C, H, W), rng), _int8((F, C // g, k, k), rng)
+    before = kernels.launch_counts["int8_conv"]
+    got = kernels.int8_conv(x.cuda(), w.cuda(), (s, s), (p, p), (d, d), g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["int8_conv"] == before + 1
+    want = quant.int8_conv_plain(x, w, (s, s), (p, p), (d, d), g)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def _nms_boxes(B, N, rng):
+    xy = rng.rand(B, N, 2) * 0.8
+    wh = rng.rand(B, N, 2) * 0.3 + 0.02
+    boxes = np.concatenate([xy, xy + wh], axis=2).astype(np.float32)
+    boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]   # ties
+    return torch.from_numpy(boxes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [(0.5, True, True, False),
+                                  (0.45, False, False, False),
+                                  (0.7, False, False, True),
+                                  (1.0, True, True, False)])
+def test_cuda_nms_matches_plain_version(opts):
+    """Keep masks equal to the plain version: class-aware and forced,
+    >= and >, corner and +1 IoU, identical boxes at the threshold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    thresh, class_aware, inclusive, plus_one = opts
+    rng = np.random.RandomState(3)
+    B, N = 3, 700
+    boxes = _nms_boxes(B, N, rng) * (100.0 if plus_one else 1.0)
+    ids = torch.from_numpy(rng.randint(0, 3, (B, N)).astype(np.float32))
+    alive = torch.from_numpy(rng.rand(B, N) < 0.9)
+    before = kernels.launch_counts["nms"]
+    got = kernels.nms(boxes.cuda(), ids.cuda(), alive.cuda(), thresh,
+                      class_aware, inclusive, plus_one)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["nms"] == before + 1
+    want = ssd.nms_plain(boxes, ids, alive, thresh, class_aware, inclusive,
+                         plus_one)
+    assert torch.equal(got.cpu(), want)
