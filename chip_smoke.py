@@ -263,13 +263,21 @@ non-zero, printing no result, without them.  Phases, one line each:
    (compile and ms of each forward, launches, the top-1 class agreement
    and box error fp32 against int8, printed, not gated).  int8_conv
    bit-equal to its plain version (an f64 convolution) at the 11 layer
-   shapes at batch 2 and with groups 2, stride 2 and dilation 2, timed at
-   conv1_2 (32, 64, 300, 300) -> 64 and at VGG16's fc7 (256 x 4096 ->
-   4096) beside torch._int_mm; nms's keep masks equal to its plain
-   version at MultiBoxDetection's call (32 images, nms_topk 100), box_nms
-   over one image's 27,976 boxes, Proposal's pre_n 6000 and a tie at the
-   threshold, each timed; the small case (width 8, image 64, batch 2,
-   4 objects) on the card against the port on the CPU (MultiBoxTarget,
+   shapes at batch 2 (conv1_1's 3 channels padded to 16) and with groups
+   2, stride 2 and dilation 2, on data at a storage offset of 1 byte, at
+   two ragged fully connected layers (M and N off the tiles, one with K
+   off 16), and on the 1-D and 3-D routes
+   of the registered quantized_conv (one launch, and one a kernel depth);
+   each of the 11 layers at batch 32 bit-equal and timed beside its bound,
+   one call and in runs of 10 calls (the plain version timed at conv1_2
+   (32, 64, 300, 300) -> 64), and VGG16's fc7 (256 x 4096 -> 4096) beside
+   torch._int_mm; nms's keep
+   masks equal to its plain version at MultiBoxDetection's call (32
+   images, nms_topk 100), box_nms over one image's 27,976 boxes,
+   Proposal's pre_n 6000 and a tie at the threshold, each timed, and in
+   passes over row ranges (a workspace cap below the mask's size) on
+   box_nms's and Proposal's boxes with a fifth of the rows dead; the
+   small case (width 8, image 64, batch 2, 4 objects) on the card against the port on the CPU (MultiBoxTarget,
    the fp32 and the int8 detections, the int8 codes that differ); both
    quantize_calibrate modes passing their gate;
 17. flash times: each kernel, the plain version and
@@ -282,6 +290,7 @@ non-zero, printing no result, without them.  Phases, one line each:
 
 Any failed check raises and the script exits non-zero.
 """
+import contextlib
 import functools
 import hashlib
 import json
@@ -4311,12 +4320,18 @@ INT8_EXTRA = (                   # (N, C, H, W, F, k, stride, pad, dilate, g)
     (2, 64, 75, 75, 128, 3, 1, 1, 1, 2),
     (2, 64, 75, 75, 64, 3, 2, 1, 1, 1),
     (2, 64, 75, 75, 64, 3, 1, 2, 2, 1))
+INT8_RAGGED_FC = ((300, 4096, 1000), (77, 1000, 333))   # (M, K, N)
+INT8_RANKS = (     # quantized_conv: (shape, kernel, stride, pad, dilate, F, g)
+    ((2, 64, 1000), (5,), (2,), (2,), (2,), 64, 2),
+    ((2, 32, 8, 28, 28), (3, 3, 3), (2, 1, 1), (1, 1, 1), (2, 1, 1), 32, 2))
 # nms: Proposal's defaults (rpn_pre_nms_top_n 6000, threshold 0.7,
 # min_size 16, scales 4-32, ratios 0.5-2, stride 16) on a (1, 24, 38, 50)
 # score map of a 600 x 800 image; box_nms over one image's anchors
 PROP_SHAPE, PROP_INFO, PROP_PRE_N, PROP_THRESH = (1, 24, 38, 50), \
     (600.0, 800.0, 1.0), 6000, 0.7
 IOU_OPS = 14                     # f32 operations of one IoU
+NMS_PASS_CAPS = (16 << 20, 1 << 20)   # workspace caps that force passes:
+NMS_DEAD = 0.2                   # box_nms, Proposal; a fifth of rows dead
 PLAIN_REPS = 3                   # timed runs of a slow plain version
 DET_SMALL = dict(classes=3, width=8, side=64, batch=2, objects=4)
 DET_F32_TOL, DET_INT8_TOL, DET_TARGET_TOL = 1e-4, 2.0 ** -7, 1e-5
@@ -4372,10 +4387,74 @@ def int8_bound_ms(x, w, out):
                                        else "operations")
 
 
+def int8_layer_times(gen):
+    """Each of the 11 SSD layers at batch 32: int8_conv bit-equal to the
+    plain version, timed beside its bound; the plain version timed at
+    conv1_2 only.  Returns the rows and conv1_2's plain ms."""
+    from mxnet_tpu_torch.ops import quantization as quant
+
+    rows, plain_ms = [], None
+    for name, shape, f in det_layer_shapes(DET_BATCH):
+        x, w, args = int8_case(gen, shape, f, 3, 1, 1, 1, 1)
+        out = kernels.int8_conv(x, w, *args)
+        want = quant.int8_conv_plain(x, w, *args)
+        check(torch.equal(out, want), "int8_conv %s %s at batch %d: differs "
+              "from the plain version in %d of %d" % (
+                  name, shape, DET_BATCH, int((out != want).sum()),
+                  want.numel()))
+        del want
+        ms = time_ms(lambda: kernels.int8_conv(x, w, *args))
+        run_ms = time_ms(lambda: kernels.int8_conv(x, w, *args), RUN)
+        if name == "stage1_conv1":
+            plain_ms = time_few(lambda: quant.int8_conv_plain(x, w, *args))
+        bms, by = int8_bound_ms(x, w, out)
+        rows.append({"layer": name, "shape": list(shape), "filters": f,
+                     "ms": ms, "run_ms": run_ms, "bound_ms": bms,
+                     "bound_by": by})
+        del x, w, out
+        torch.cuda.empty_cache()
+    return rows, plain_ms
+
+
+def int8_registered_ranks(gen):
+    """quantized_conv's 1-D and 3-D routes through the registry on the
+    card: int32 bit-equal to an f64 conv1d / conv3d, one int8_conv launch
+    for 1-D and one a kernel depth for 3-D."""
+    op = registry.get_op("_contrib_quantized_conv").fn
+    one = torch.ones((), device="cuda")
+    done = []
+    for shape, k, stride, pad, dilate, f, g in INT8_RANKS:
+        nd = len(k)
+        x = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (f, shape[1] // g) + k, generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int8)
+        before = kernels.launch_counts["int8_conv"]
+        got = op(x, w, -one, one, -one, one, kernel=k, stride=stride,
+                 pad=pad, dilate=dilate, num_filter=f, num_group=g)[0]
+        launched = kernels.launch_counts["int8_conv"] - before
+        conv = F.conv1d if nd == 1 else F.conv3d
+        want = conv(x.double(), w.double(), None, stride, pad, dilate,
+                    g).to(torch.int32)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              "quantized_conv %d-D %s kernel %s: differs from the f64 conv "
+              "in %d of %d" % (nd, shape, k, int((got != want).sum()),
+                               want.numel()))
+        check(launched == (1 if nd == 1 else k[0]),
+              "quantized_conv %d-D launched int8_conv %d times" % (nd,
+                                                                  launched))
+        done.append("%d-D %s kernel %s: %d launch%s" % (
+            nd, list(shape), list(k), launched, "" if launched == 1
+            else "es"))
+    return done
+
+
 def det_int8_kernel(card):
     """int8_conv against its plain version: bit-equal at the 11 layer
-    shapes at batch 2 and with groups, stride and dilation; timed at
-    conv1_2 at batch 32 and at VGG16's fc7 beside torch._int_mm."""
+    shapes at batch 2, with groups, stride and dilation, at ragged fully
+    connected layers and on quantized_conv's 1-D and 3-D routes; each
+    layer at batch 32 bit-equal and timed (the plain version at conv1_2),
+    and VGG16's fc7 beside torch._int_mm."""
     from mxnet_tpu_torch.ops import quantization as quant
 
     gen = torch.Generator(device="cuda")
@@ -4390,23 +4469,34 @@ def det_int8_kernel(card):
         check(got.dtype == torch.int32 and torch.equal(got, want),
               "int8_conv %s %s: differs from the plain version in %d of %d"
               % (name, shape, int((got != want).sum()), want.numel()))
-    x, w, args = int8_case(gen, det_layer_shapes(DET_BATCH)[1][1], DET_WIDTH,
-                           3, 1, 1, 1, 1)
-    out = kernels.int8_conv(x, w, *args)
-    check(torch.equal(out, quant.int8_conv_plain(x, w, *args)),
-          "int8_conv conv1_2 at batch 32: differs from the plain version")
-    ms = time_ms(lambda: kernels.int8_conv(x, w, *args))
-    plain_ms = time_few(lambda: quant.int8_conv_plain(x, w, *args))
-    bms, by = int8_bound_ms(x, w, out)
-    macs = out.numel() * w[0].numel()
-    del x, w, out
-    torch.cuda.empty_cache()
+    x, w, args = int8_case(gen, (2, 64, 75, 76), 64, 3, 1, 1, 1, 1)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int8, device="cuda")
+    xv = buf[1:].view(x.shape)   # contiguous, 1 byte past an aligned start
+    xv.copy_(x)
+    got = kernels.int8_conv(xv, w, *args)
+    check(torch.equal(got, quant.int8_conv_plain(x, w, *args)),
+          "int8_conv on data at a storage offset of 1 byte: differs from "
+          "the plain version")
+    del x, w, buf, xv
+    fc_args = ((1, 1), (0, 0), (1, 1), 1)
+    for m, kdim, n in INT8_RAGGED_FC:
+        a = torch.randint(-127, 128, (m, kdim, 1, 1), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int8)
+        b = torch.randint(-127, 128, (n, kdim, 1, 1), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.int8)
+        got = kernels.int8_conv(a, b, *fc_args)
+        want = quant.int8_conv_plain(a, b, *fc_args)
+        check(torch.equal(got, want), "int8_conv ragged fc %d x %d -> %d: "
+              "differs in %d of %d" % (m, kdim, n, int((got != want).sum()),
+                                       want.numel()))
+    ranks = int8_registered_ranks(gen)
+    layers, plain_ms = int8_layer_times(gen)
+    conv12 = layers[1]
     m, kdim, n = INT8_FC
     a = torch.randint(-127, 128, (m, kdim), generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.int8)
     b = torch.randint(-127, 128, (n, kdim), generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.int8)
-    fc_args = ((1, 1), (0, 0), (1, 1), 1)
 
     def fc():
         return kernels.int8_conv(a.view(m, kdim, 1, 1), b.view(n, kdim, 1, 1),
@@ -4420,26 +4510,111 @@ def det_int8_kernel(card):
           "int8_conv fc7 %s: kernel %d, torch._int_mm %d elements off the "
           "plain version" % (INT8_FC, int((got != want).sum()),
                              int((lib != want).sum())))
-    fc_ms = time_ms(fc)
+    fc_ms, fc_run_ms = time_ms(fc), time_ms(fc, RUN)
     fc_plain_ms = time_ms(lambda: quant.int8_conv_plain(
         a.view(m, kdim, 1, 1), b.view(n, kdim, 1, 1), *fc_args))
     fc_lib_ms = time_ms(lambda: torch._int_mm(a, b.t()))
+    fc_lib_run_ms = time_ms(lambda: torch._int_mm(a, b.t()), RUN)
     fc_bms, fc_by = int8_bound_ms(a, b, got)
+    layer_text = ", ".join("%s %.4f [%.4f] ms (bound %.4f, %s, %.1f%%)" % (
+        r["layer"], r["ms"], r["run_ms"], r["bound_ms"], r["bound_by"][0],
+        100 * r["bound_ms"] / r["ms"]) for r in layers)
+    total = sum(r["ms"] for r in layers)
+    total_run = sum(r["run_ms"] for r in layers)
+    total_bound = sum(r["bound_ms"] for r in layers)
     print("detection int8_conv: int32 bit-equal to the plain version (f64 "
-          "convolution) at the 11 layer shapes at batch 2 and with groups 2, "
-          "stride 2, dilation 2 | conv1_2 (32, 64, 300, 300) -> 64: kernel "
-          "%.3f ms, plain %.3f ms, bound %.4f ms (%s; %.1f GMAC), kernel at "
-          "%.1f%% of the bound | fc7 %s: kernel %.4f ms, plain %.4f ms, "
-          "torch._int_mm %.4f ms, bound %.4f ms (%s), kernel at %.1f%% | %s"
-          % (ms, plain_ms, bms, by, macs / 1e9, 100 * bms / ms, INT8_FC,
-             fc_ms, fc_plain_ms, fc_lib_ms, fc_bms, fc_by,
+          "convolution) at the 11 layer shapes at batch 2 and 32 (conv1_1's "
+          "3 channels padded to 16), with groups 2, stride 2, dilation 2, "
+          "on data at a storage offset of 1 byte, "
+          "at the ragged fc layers %s and on quantized_conv's routes (%s) | "
+          "conv1_2 (32, 64, 300, 300) -> 64: kernel %.4f ms [runs of %d: "
+          "%.4f], plain %.3f ms, bound %.4f ms (%s), kernel at %.1f%% of the "
+          "bound | the 11 layers at batch 32 (one call [runs of %d]): %.3f "
+          "[%.3f] ms against %.3f ms of bounds (%s) | fc7 %s: kernel %.4f "
+          "[%.4f] ms, plain %.4f ms, torch._int_mm %.4f [%.4f] ms, bound %.4f "
+          "ms (%s), kernel at %.1f%% | %s"
+          % (list(INT8_RAGGED_FC), "; ".join(ranks), conv12["ms"], RUN,
+             conv12["run_ms"], plain_ms, conv12["bound_ms"],
+             conv12["bound_by"], 100 * conv12["bound_ms"] / conv12["ms"],
+             RUN, total, total_run, total_bound, layer_text, INT8_FC, fc_ms,
+             fc_run_ms, fc_plain_ms, fc_lib_ms, fc_lib_run_ms, fc_bms, fc_by,
              100 * fc_bms / fc_ms, card), flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "shape": [DET_BATCH, DET_WIDTH, DET_SIDE,
-                                          DET_SIDE],
-            "filters": DET_WIDTH, "fc_shape": list(INT8_FC), "fc_ms": fc_ms,
+    return {"ms": conv12["ms"], "run_ms": conv12["run_ms"],
+            "plain_ms": plain_ms, "bound_ms": conv12["bound_ms"],
+            "bound_by": conv12["bound_by"], "library_ms": None,
+            "shape": conv12["shape"], "filters": DET_WIDTH, "layers": layers,
+            "layers_ms": total, "layers_run_ms": total_run,
+            "layers_bound_ms": total_bound, "fc_shape": list(INT8_FC),
+            "fc_ms": fc_ms, "fc_run_ms": fc_run_ms,
             "fc_plain_ms": fc_plain_ms, "fc_library_ms": fc_lib_ms,
-            "fc_bound_ms": fc_bms, "fc_bound_by": fc_by, "max_abs_err": 0.0}
+            "fc_library_run_ms": fc_lib_run_ms, "fc_bound_ms": fc_bms,
+            "fc_bound_by": fc_by, "max_abs_err": 0.0}
+
+
+def split_text(fn, reps=5):
+    """Device ms a call of fn() by kernel (device_kernels over ``reps``
+    calls after a warm-up), the largest first."""
+    fn()
+    res = device_kernels(lambda: [fn() for _ in range(reps)], top=4)
+    if not isinstance(res, tuple):
+        return res
+    return ", ".join("%s %.4f" % (name.replace("void ", "").replace(
+        "(anonymous namespace)::", ""), ms / reps) for name, ms in res[2])
+
+
+def det_kernel_split(card):
+    """Where a call's device time goes, by kernel (torch.profiler): the
+    layout pass against the convolution at conv1_2, stage3_conv1 and fc7
+    (and torch._int_mm's kernel at fc7); the mask against the walk at
+    box_nms's and Proposal's calls.  Not a phase; run it on its own:
+    python3 -c 'import chip_smoke as s; s.det_kernel_split(s.phase_device())'
+    """
+    from mxnet_tpu_torch.ops import ssd as ssd_ops
+    from mxnet_tpu_torch.ops.ssd_ops import _base_anchors
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    parts = []
+    for name, shape, f in det_layer_shapes(DET_BATCH):
+        if name in ("stage1_conv1", "stage3_conv1"):
+            x, w, args = int8_case(gen, shape, f, 3, 1, 1, 1, 1)
+            parts.append("%s: %s" % (name, split_text(
+                lambda: kernels.int8_conv(x, w, *args))))
+            del x, w
+    m, kdim, n = INT8_FC
+    a = torch.randint(-127, 128, (m, kdim, 1, 1), generator=gen,
+                      device="cuda", dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-127, 128, (n, kdim, 1, 1), generator=gen,
+                      device="cuda", dtype=torch.int32).to(torch.int8)
+    parts.append("fc7: %s" % split_text(
+        lambda: kernels.int8_conv(a, b, (1, 1), (0, 0), (1, 1), 1)))
+    a2, b2 = a.view(m, kdim), b.view(n, kdim)
+    parts.append("fc7 by torch._int_mm (the yardstick): %s" % split_text(
+        lambda: torch._int_mm(a2, b2.t())))
+    anchors = det_anchors("cuda")
+    prob = torch.softmax(torch.randn((1, DET_CLASSES + 1, DET_ANCHORS),
+                                     generator=gen, device="cuda") * 2, 1)
+    loc = torch.randn((1, DET_ANCHORS * 4), generator=gen,
+                      device="cuda") * 0.5
+    _, score, boxes = ssd_ops.detection_candidates(
+        prob, loc, anchors, True, 0.01, 0, (0.1, 0.1, 0.2, 0.2), True)
+    parts.append("box_nms: %s" % split_text(
+        lambda: kernels.nms(boxes, score, score > 0, 0.5, False, False,
+                            False)))
+    cls = torch.rand(PROP_SHAPE, generator=gen, device="cuda")
+    deltas = (torch.rand((1, 2 * PROP_SHAPE[1]) + PROP_SHAPE[2:],
+                         generator=gen, device="cuda") - 0.5) * 0.2
+    top_score, top_boxes = ssd_ops.proposal_candidates(
+        cls, deltas, torch.tensor([PROP_INFO], device="cuda"),
+        _base_anchors(16, (4.0, 8.0, 16.0, 32.0), (0.5, 1.0, 2.0)), 16,
+        PROP_PRE_N, 16.0)
+    top_boxes, top_score = top_boxes.contiguous(), top_score.contiguous()
+    parts.append("Proposal: %s" % split_text(
+        lambda: kernels.nms(top_boxes, top_score,
+                            torch.ones_like(top_score, dtype=torch.bool),
+                            PROP_THRESH, False, False, True)))
+    print("detection split (device ms a call by kernel, torch.profiler): %s "
+          "| %s" % (" | ".join(parts), card), flush=True)
 
 
 def det_anchors(device):
@@ -4476,6 +4651,17 @@ def nms_bound_ms(boxes, ids, keep, class_aware):
                                        else "operations"), evals
 
 
+@contextlib.contextmanager
+def nms_cap(cap):
+    """kernels.NMS_WORKSPACE_BYTES set to ``cap`` inside the block."""
+    old = kernels.NMS_WORKSPACE_BYTES
+    kernels.NMS_WORKSPACE_BYTES = cap
+    try:
+        yield
+    finally:
+        kernels.NMS_WORKSPACE_BYTES = old
+
+
 def det_nms_case(label, boxes, ids, alive, thresh, class_aware, inclusive,
                  plus_one, card):
     from mxnet_tpu_torch.ops import ssd as ssd_ops
@@ -4488,25 +4674,31 @@ def det_nms_case(label, boxes, ids, alive, thresh, class_aware, inclusive,
                              inclusive, plus_one)
     check(torch.equal(got, want), "nms %s: keep masks differ in %d of %d"
           % (label, int((got != want).sum()), want.numel()))
-    ms = time_ms(lambda: kernels.nms(boxes, ids, alive, thresh, class_aware,
-                                     inclusive, plus_one))
+    def call():
+        return kernels.nms(boxes, ids, alive, thresh, class_aware, inclusive,
+                           plus_one)
+
+    ms, run_ms = time_ms(call), time_ms(call, RUN)
     plain_ms = time_few(lambda: ssd_ops.nms_plain(
         boxes, ids, alive, thresh, class_aware, inclusive, plus_one), 1)
     bms, by, evals = nms_bound_ms(boxes, ids, got, class_aware)
     print("detection nms %s: %s boxes, %d alive, %d kept, keep mask equal to "
-          "the plain version | kernel %.4f ms, plain %.1f ms, bound %.5f ms "
-          "(%s; %d IoUs), kernel at %.2f%% of the bound | %s"
+          "the plain version | kernel %.4f ms [runs of %d: %.4f], plain %.1f "
+          "ms, bound %.5f ms (%s; %d IoUs), kernel at %.2f%% of the bound | %s"
           % (label, list(alive.shape), int(alive.sum()), int(got.sum()), ms,
-             plain_ms, bms, by, evals, 100 * bms / ms, card), flush=True)
+             RUN, run_ms, plain_ms, bms, by, evals, 100 * bms / ms, card),
+          flush=True)
     return {"label": label, "shape": list(alive.shape), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "kept": int(got.sum())}
+            "run_ms": run_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "kept": int(got.sum())}
 
 
 def det_nms_kernel(card):
     """nms against its plain version at MultiBoxDetection's call (32
     images of 27,976 candidates, nms_topk 100), box_nms over one image's
-    27,976 boxes, Proposal's pre_n 6000 and a tie at the threshold."""
+    27,976 boxes, Proposal's pre_n 6000 and a tie at the threshold; then
+    box_nms's and Proposal's boxes with a fifth of the rows dead, in
+    passes over row ranges under NMS_PASS_CAPS."""
     from mxnet_tpu_torch.ops import ssd as ssd_ops
     from mxnet_tpu_torch.ops.ssd_ops import _base_anchors
 
@@ -4541,6 +4733,37 @@ def det_nms_kernel(card):
         "Proposal (pre_n 6000, >, +1 pixel IoU)", top_boxes, top_score,
         torch.ones_like(top_score, dtype=torch.bool), PROP_THRESH, False,
         False, True, card))
+    passes = []
+    for (label, bx, sc, thresh, plus_one), cap in zip(
+            (("box_nms", boxes[:1], score[:1], 0.5, False),
+             ("Proposal", top_boxes.contiguous(), top_score.contiguous(),
+              PROP_THRESH, True)),
+            NMS_PASS_CAPS):
+        dead = torch.rand(sc.shape, generator=gen, device="cuda") < NMS_DEAD
+        live = (sc > 0) & ~dead
+        n = sc.shape[1]
+        whole = kernels.nms(bx, sc, live, thresh, False, False, plus_one)
+        with nms_cap(cap):
+            per_pass = kernels.nms_rows_per_pass(sc.shape[0], n)
+            check(per_pass < n, "nms %s: a cap of %d bytes leaves one pass"
+                  % (label, cap))
+            got = kernels.nms(bx, sc, live, thresh, False, False, plus_one)
+            ms = time_ms(lambda: kernels.nms(bx, sc, live, thresh, False,
+                                             False, plus_one))
+        want = ssd_ops.nms_plain(bx, sc, live, thresh, False, False,
+                                 plus_one)
+        check(torch.equal(got, want) and torch.equal(whole, want),
+              "nms %s in passes of %d rows: keep masks differ in %d (one "
+              "pass: %d) of %d" % (label, per_pass,
+                                   int((got != want).sum()),
+                                   int((whole != want).sum()), n))
+        passes.append("%s %d boxes, %d alive, %d kept: %d passes of %d rows "
+                      "(cap %d MiB) %.4f ms" % (label, n, int(live.sum()),
+                                                int(want.sum()),
+                                                -(-n // per_pass),
+                                                per_pass, cap >> 20, ms))
+    print("detection nms passes: keep masks equal to the plain version and "
+          "to one pass | %s | %s" % ("; ".join(passes), card), flush=True)
     pair = torch.tensor([[[0.1, 0.1, 0.5, 0.5], [0.1, 0.1, 0.5, 0.5],
                           [0.3, 0.3, 0.7, 0.7], [0.3, 0.3, 0.7, 0.7]]],
                         device="cuda")
@@ -4852,7 +5075,8 @@ def phase_detection(card):
          "source": "mxnet_tpu_torch/kernels/nms.cu",
          "replaces": "mxnet_tpu/ops/ssd_jax.py:226",
          "launches": launches["nms"], "max_abs_err": 0.0,
-         "ms": first["ms"], "plain_ms": first["plain_ms"],
+         "ms": first["ms"], "run_ms": first["run_ms"],
+         "plain_ms": first["plain_ms"],
          "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
          "library_ms": None, "shape": first["shape"],
          "times": nms_rows[1:], "card": card}]

@@ -21,13 +21,16 @@ at any head dim and bf16 inputs with D > ``FLASH_MAX_HEAD_DIM``, and counts
 bf16 inputs up to that head dim and counts ``"flash_attention_bf16"``.
 Two kernels replace no Pallas kernel: ``int8_conv.cu``, the int8 x int8
 -> int32 implicit-GEMM convolution of ``quantized_conv`` and
-``quantized_fully_connected`` (``int8_conv``), and ``nms.cu``, the greedy
-suppression pass of MultiBoxDetection, ``box_nms`` and Proposal
-(``nms``); each is reached through a ``torch.library`` custom op
+``quantized_fully_connected`` (``int8_conv``: a layout pass to padded
+NHWC, then ``wgmma`` on a ``cp.async`` ring), and ``nms.cu``, the greedy
+suppression pass of MultiBoxDetection, ``box_nms`` and Proposal (``nms``:
+a bitmask NMS, the IoU mask on every SM, then a walk of 64-box chunks);
+each is reached through a ``torch.library`` custom op
 (``ops/quantization.py``, ``ops/ssd.py``), so a compiled graph holds it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,7 +50,9 @@ __all__ = ["build", "quantize_2bit", "dequantize_2bit", "quantize_2bit_batch",
            "flash_attention_fwd",
            "flash_kernel", "bf16_vector_loads", "f32_vector_loads",
            "launch_counts", "reset_launch_counts", "SOURCES",
-           "FLASH_MAX_HEAD_DIM", "int8_conv", "nms", "NMS_MAX_BOXES"]
+           "FLASH_MAX_HEAD_DIM", "int8_conv", "int8_conv_weight_rows",
+           "int8_conv_nhwc_plain", "nms", "nms_rows_per_pass",
+           "NMS_MAX_BOXES", "NMS_WORKSPACE_BYTES"]
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"compression_2bit": _HERE / "compression_2bit.cu",
@@ -60,8 +65,12 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # the tensor-core kernel's largest head dim; flash_attention.cu takes any
 FLASH_MAX_HEAD_DIM = 256
 
-# the nms kernel keeps an image's mask in shared memory, a byte a box
+# the nms kernel's walk keeps an image's removed bits in shared memory, a
+# bit a box (29 KB at this many)
 NMS_MAX_BOXES = 232448
+# the most bytes of suppression mask one nms call holds; a larger mask is
+# made and walked in passes over row ranges
+NMS_WORKSPACE_BYTES = 256 << 20
 
 launch_counts = {"quantize_2bit": 0, "dequantize_2bit": 0,
                  "flash_attention": 0, "flash_attention_bf16": 0,
@@ -110,11 +119,11 @@ def _bind(name, lib):
             [vp] * 5 + [i32] * 5 + [ll] * 9 + [f32, i32, i32, vp])
         lib.mxtt_flash_attention_fwd_bf16.restype = i32
     elif name == "int8_conv":
-        lib.mxtt_int8_conv.argtypes = [vp] * 3 + [i32] * 15 + [vp]
+        lib.mxtt_int8_conv.argtypes = [vp] * 4 + [i32] * 14 + [vp]
         lib.mxtt_int8_conv.restype = i32
     else:
-        lib.mxtt_nms.argtypes = [vp] * 4 + [i32, i32, f32, i32, i32, i32,
-                                             vp]
+        lib.mxtt_nms.argtypes = [vp] * 6 + [i32, i32, i32, f32, i32, i32,
+                                             i32, vp]
         lib.mxtt_nms.restype = i32
     lib.mxtt_error_string.argtypes = [ctypes.c_int]
     lib.mxtt_error_string.restype = ctypes.c_char_p
@@ -170,6 +179,15 @@ def _check(t, dtype, name):
         raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
+
+
+def _on(device):
+    """The device context for a launch on ``device``: nothing to enter when
+    it is current already (the common case; entering costs host time a
+    call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _raise_on(lib, err, what):
@@ -457,10 +475,38 @@ def flash_attention_fwd(q, k, v, scale, causal):
     return o, lse
 
 
+def int8_conv_weight_rows(w):
+    """The weights as ``int8_conv.cu`` reads them: OIHW int8 ``w`` (F, Cg,
+    KH, KW) permuted to (F, KH, KW, Cg16) rows, each group's channels
+    zero-padded to Cg16 (a multiple of 16), as one (F, KH KW Cg16)
+    tensor: depth k = (ky, kx, c), channels innermost."""
+    F, Cg, KH, KW = w.shape
+    if KH * KW == 1 and Cg % 16 == 0:
+        return w.reshape(F, Cg)   # that order already: a view
+    rows = w.permute(0, 2, 3, 1)
+    if Cg % 16:
+        rows = torch.nn.functional.pad(rows, (0, -Cg % 16))
+    return rows.reshape(F, -1)
+
+
+def int8_conv_nhwc_plain(x, groups):
+    """The plain version of ``int8_conv.cu``'s layout pass: NCHW int8
+    ``x`` as (N, H, W, groups Cg16), each group's channels zero-padded to
+    Cg16."""
+    N, C, H, W = x.shape
+    cg = C // groups
+    cg16 = -(-cg // 16) * 16
+    g = x.reshape(N, groups, cg, H, W).permute(0, 3, 4, 1, 2)
+    return torch.nn.functional.pad(g, (0, cg16 - cg)) \
+        .reshape(N, H, W, groups * cg16)
+
+
 def int8_conv(x, w, stride, pad, dilate, groups):
     """Launch ``int8_conv.cu`` once: int8 NCHW ``x`` convolved with int8
     OIHW ``w`` (stride, pad and dilation pairs, ``groups``) into a new
-    int32 (N, F, Ho, Wo) tensor, summed exactly in int32."""
+    int32 (N, F, Ho, Wo) tensor, summed exactly in int32.  The call
+    rewrites the data as padded NHWC into a workspace first (a 1x1 map
+    whose group width is a multiple of 16 is that layout already)."""
     _check(x, torch.int8, "x")
     _check(w, torch.int8, "w")
     if x.dim() != 4 or w.dim() != 4 or x.device != w.device:
@@ -477,24 +523,40 @@ def int8_conv(x, w, stride, pad, dilate, groups):
     Wo = (W + 2 * pw - (dw * (KW - 1) + 1)) // sw + 1
     if Ho < 1 or Wo < 1:
         raise ValueError("int8_conv: empty output %dx%d" % (Ho, Wo))
-    kg = Cg * KH * KW
-    kp = -(-kg // 32) * 32
-    # the weights as (F, Kp) rows, each zero-padded to a multiple of 32
-    wp = torch.nn.functional.pad(w.reshape(F, kg), (0, kp - kg)) \
-        .contiguous()
+    cg16 = -(-Cg // 16) * 16
+    if N * Ho * Wo >= 2 ** 31 or H * W * groups * cg16 >= 2 ** 31:
+        raise ValueError("int8_conv: %d output pixels or %d bytes an image "
+                         "reach 2^31" % (N * Ho * Wo, H * W * groups * cg16))
+    wp = int8_conv_weight_rows(w)
+    if wp.data_ptr() % 16:
+        wp = wp.clone()
     out = torch.empty((N, F, Ho, Wo), dtype=torch.int32, device=x.device)
-    vector_rows = int(H == W == KH == KW == 1 and ph == pw == 0
-                      and Cg % 16 == 0 and C % 16 == 0
-                      and x.data_ptr() % 16 == 0)
+    ws = None
+    if not (H * W == 1 and Cg % 16 == 0 and x.data_ptr() % 16 == 0):
+        ws = torch.empty(N * H * W * groups * cg16, dtype=torch.int8,
+                         device=x.device)
     lib = _load("int8_conv")
-    with torch.cuda.device(x.device):
+    with _on(x.device):
         err = lib.mxtt_int8_conv(
-            x.data_ptr(), wp.data_ptr(), out.data_ptr(), N, C, H, W, F, KH,
-            KW, sh, sw, ph, pw, dh, dw, groups, vector_rows,
+            x.data_ptr(), wp.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), N, C, H, W, F, KH, KW,
+            sh, sw, ph, pw, dh, dw, groups,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "int8_conv")
     launch_counts["int8_conv"] += 1
     return out
+
+
+def nms_rows_per_pass(batch, n):
+    """Rows of each of ``nms.cu``'s passes: all of them (rounded up to
+    64) when the mask, ``batch`` x rows x ceil(n/64) 8-byte words, fits in
+    ``NMS_WORKSPACE_BYTES`` (read at each call), else the most multiples of
+    64 that do (at least 64)."""
+    nb = -(-n // 64)
+    row_bytes = max(1, batch) * nb * 8
+    if nb * 64 * row_bytes <= NMS_WORKSPACE_BYTES:
+        return nb * 64
+    return max(64, NMS_WORKSPACE_BYTES // row_bytes // 64 * 64)
 
 
 def nms(boxes, ids, alive, thresh, class_aware, inclusive, plus_one):
@@ -503,7 +565,9 @@ def nms(boxes, ids, alive, thresh, class_aware, inclusive, plus_one):
     ``alive`` (B, N) give the bool keep mask (B, N) of greedy
     suppression at IoU ``thresh`` (``>=`` when ``inclusive``, else ``>``;
     only within a class when ``class_aware``; the +1 pixel areas when
-    ``plus_one``)."""
+    ``plus_one``).  The suppression mask's workspace stays under
+    ``NMS_WORKSPACE_BYTES``: above it the call runs in passes over row
+    ranges (``nms_rows_per_pass``)."""
     _check(boxes, torch.float32, "boxes")
     _check(ids, torch.float32, "ids")
     _check(alive, torch.bool, "alive")
@@ -518,13 +582,22 @@ def nms(boxes, ids, alive, thresh, class_aware, inclusive, plus_one):
     if N > NMS_MAX_BOXES:
         raise ValueError("nms: %d boxes an image, at most %d"
                          % (N, NMS_MAX_BOXES))
+    if B > 65535:
+        raise ValueError("nms: %d images, at most 65535" % B)
     if boxes.data_ptr() % 16:
         raise ValueError("nms: boxes must be 16-byte aligned")
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
+    rows = nms_rows_per_pass(B, N)
+    nb = -(-N // 64)
+    mask = torch.empty(max(1, B * rows * nb), dtype=torch.int64,
+                       device=boxes.device)
+    removed = torch.empty(max(1, B * nb), dtype=torch.int64,
+                          device=boxes.device)
     lib = _load("nms")
-    with torch.cuda.device(boxes.device):
+    with _on(boxes.device):
         err = lib.mxtt_nms(boxes.data_ptr(), ids.data_ptr(), alive.data_ptr(),
-                           keep.data_ptr(), B, N, float(thresh),
+                           keep.data_ptr(), mask.data_ptr(),
+                           removed.data_ptr(), B, N, rows, float(thresh),
                            int(bool(class_aware)), int(bool(inclusive)),
                            int(bool(plus_one)),
                            torch.cuda.current_stream().cuda_stream)

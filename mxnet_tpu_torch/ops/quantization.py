@@ -15,7 +15,8 @@ ranges come back as 0-d f32 tensors, as the JAX ops return them.
 x int8 -> int32 on the tensor cores) for a CUDA tensor, ``int8_conv_plain``
 (an f64 convolution rounded to int32, exact since |sum| <= 127^2 K <
 2^53) for a CPU one.  The fully connected layer is a 1x1 convolution of
-a 1x1 map.
+a 1x1 map; a 1-D convolution is a 2-D one of height 1, and a 3-D one
+the int32 sum of one 2-D launch per kernel depth (``_int8_conv3d``).
 """
 from __future__ import annotations
 
@@ -101,8 +102,8 @@ def _int8_conv_op(x: torch.Tensor, w: torch.Tensor, stride: List[int],
                   pad: List[int], dilate: List[int],
                   groups: int) -> torch.Tensor:
     """int8 NCHW ``x`` convolved with int8 OIHW ``w`` into int32: one
-    launch of ``kernels/int8_conv.cu`` on the card, ``int8_conv_plain``
-    on the CPU."""
+    call of ``kernels/int8_conv.cu`` (its layout pass and convolution) on
+    the card, ``int8_conv_plain`` on the CPU."""
     if x.is_cuda:
         from .. import kernels
 
@@ -150,21 +151,54 @@ def _quantized_fc(data, weight, min_data, max_data, min_w, max_w,
     return out.reshape(lead + (weight.shape[0],)), lo, hi
 
 
+def _int8_conv3d(x, w, stride, pad, dilate, groups):
+    """int8 NCDHW ``x`` convolved with int8 OIDHW ``w`` into int32 as KD
+    2-D convolutions: the data zero-padded in depth, launch kd takes the
+    depth slices ``kd * dilate_d + stride_d * od`` folded into the batch
+    (N Do images), and the launches sum in int32 (exact, in any order)."""
+    N, C, D, H, W = x.shape
+    Fo, Cg, KD, KH, KW = w.shape
+    sd, pd, dd = stride[0], pad[0], dilate[0]
+    Do = (D + 2 * pd - (dd * (KD - 1) + 1)) // sd + 1
+    xp = F.pad(x, (0, 0, 0, 0, pd, pd))
+    out = None
+    for kd in range(KD):
+        start = kd * dd
+        xs = xp[:, :, start:start + sd * (Do - 1) + 1:sd]
+        xs = xs.permute(0, 2, 1, 3, 4).reshape(N * Do, C, H, W)
+        part = int8_conv(xs, w[:, :, kd], stride[1:], pad[1:], dilate[1:],
+                         groups)
+        out = part if out is None else out + part
+    return out.reshape((N, Do) + out.shape[1:]).permute(0, 2, 1, 3, 4) \
+        .contiguous()
+
+
 @register("_contrib_quantized_conv", num_inputs=6, num_outputs=3,
           differentiable=False)
 def _quantized_conv(data, weight, min_data, max_data, min_w, max_w,
                     kernel=None, stride=None, dilate=None, pad=None,
                     num_filter=None, num_group=1, layout=None, **kw):
-    """int8 x int8 -> int32 2-D convolution, symmetric padding."""
+    """int8 x int8 -> int32 convolution of any rank, symmetric padding,
+    NC(D)(H)W in and out: 2-D on the ``int8_conv`` op, 1-D as 2-D with a
+    height of 1, 3-D as ``_int8_conv3d``'s sum of 2-D launches."""
     kernel = ptuple(kernel)
     nd = len(kernel)
-    if nd != 2:
-        raise NotImplementedError("quantized_conv: 2-D kernels only, got %s"
-                                  % (kernel,))
+    if nd not in (1, 2, 3):
+        raise ValueError("quantized_conv: 1-, 2- or 3-D kernels, got %s"
+                         % (kernel,))
     stride = ptuple(stride, ndim=nd, default=(1,) * nd)
     dilate = ptuple(dilate, ndim=nd, default=(1,) * nd)
     pad = ptuple(pad, ndim=nd, default=(0,) * nd)
-    out = int8_conv(data, weight, stride, pad, dilate, pint(num_group, 1))
+    groups = pint(num_group, 1)
+    if nd == 1:
+        out = int8_conv(data.unsqueeze(2), weight.unsqueeze(2),
+                        (1,) + stride, (0,) + pad, (1,) + dilate,
+                        groups).squeeze(2)
+    elif nd == 3:
+        out = _int8_conv3d(data.to(torch.int8), weight.to(torch.int8),
+                           stride, pad, dilate, groups)
+    else:
+        out = int8_conv(data, weight, stride, pad, dilate, groups)
     lo, hi = _product_range(min_data, max_data, min_w, max_w)
     return out, lo, hi
 

@@ -3,7 +3,10 @@ src/operator/random/sample_op.cc, multisample_op.cc, shuffle_op.cc).
 
 Each draws from the generator of the device it writes to
 (``random.generator``), never from torch's global one, so
-``mx.random.seed`` makes a run repeat.  Draws are held to their
+``mx.random.seed`` makes a run repeat.  In a compiled (hybridized)
+graph, which cannot take an explicit generator, they draw from torch's
+default generator of the device, which ``mx.random.seed`` seeds too (as
+Dropout does, ``ops/nn.py``).  Draws are held to their
 distributions, not to the JAX package's bits.  The negative binomials
 are gamma-Poisson mixtures, as there.
 """
@@ -22,6 +25,8 @@ def _shape(shape):
 
 
 def _gen(device):
+    if torch.compiler.is_compiling():
+        return None
     return _random.generator(device)
 
 

@@ -67,8 +67,8 @@ def _nms_op(boxes: torch.Tensor, ids: torch.Tensor, alive: torch.Tensor,
             thresh: float, class_aware: bool, inclusive: bool,
             plus_one: bool) -> torch.Tensor:
     """The keep mask (B, N) of greedy suppression over sorted candidates
-    (``nms_plain``'s arguments): one launch of ``kernels/nms.cu`` on the
-    card, ``nms_plain`` on the CPU."""
+    (``nms_plain``'s arguments): one call of ``kernels/nms.cu`` (its mask
+    and walk kernels) on the card, ``nms_plain`` on the CPU."""
     if boxes.is_cuda:
         from .. import kernels
 

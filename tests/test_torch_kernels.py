@@ -492,6 +492,25 @@ def test_cuda_int8_conv_matches_plain_version(case):
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_int8_conv_takes_an_unaligned_view(offset):
+    """Data at a storage offset that is not a multiple of 4 (H W a
+    multiple of 4): the layout pass reads it byte by byte, bit-equal to the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    rng = np.random.RandomState(offset)
+    x, w = _int8((2, 16, 8, 8), rng), _int8((8, 16, 3, 3), rng)
+    buf = torch.zeros(x.numel() + offset, dtype=torch.int8, device="cuda")
+    xv = buf[offset:].view(x.shape)
+    xv.copy_(x.cuda())
+    assert xv.is_contiguous() and xv.data_ptr() % 4
+    got = kernels.int8_conv(xv, w.cuda(), (1, 1), (1, 1), (1, 1), 1)
+    want = quant.int8_conv_plain(x, w, (1, 1), (1, 1), (1, 1), 1)
+    assert torch.equal(got.cpu(), want)
+
+
 def _nms_boxes(B, N, rng):
     xy = rng.rand(B, N, 2) * 0.8
     wh = rng.rand(B, N, 2) * 0.3 + 0.02
@@ -523,4 +542,23 @@ def test_cuda_nms_matches_plain_version(opts):
     assert kernels.launch_counts["nms"] == before + 1
     want = ssd.nms_plain(boxes, ids, alive, thresh, class_aware, inclusive,
                          plus_one)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_in_passes_matches_plain_version(monkeypatch):
+    """A workspace cap below the mask's size: the call runs in passes
+    over row ranges, with the same keep mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels)")
+    rng = np.random.RandomState(4)
+    B, N = 2, 700
+    boxes = _nms_boxes(B, N, rng)
+    ids = torch.zeros((B, N))
+    alive = torch.from_numpy(rng.rand(B, N) < 0.8)
+    monkeypatch.setattr(kernels, "NMS_WORKSPACE_BYTES", 2 * 128 * 11 * 8)
+    assert kernels.nms_rows_per_pass(B, N) == 128
+    got = kernels.nms(boxes.cuda(), ids.cuda(), alive.cuda(), 0.4, False,
+                      False, False)
+    want = ssd.nms_plain(boxes, ids, alive, 0.4, False, False, False)
     assert torch.equal(got.cpu(), want)

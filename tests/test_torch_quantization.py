@@ -2,7 +2,8 @@
 CPU, on the same seeded numpy inputs: the quantize ops (quantize,
 quantize_v2 with and without a calibrated range, dequantize, requantize)
 bit for bit; quantized_conv and quantized_fully_connected int32 bit for
-bit (groups, stride, pad, dilation, a flattened and an unflattened FC,
+bit (groups, stride, pad, dilation, 1-D and 3-D kernels, a flattened
+and an unflattened FC,
 and the int32 accumulator case of tests/test_quantization.py:52); the 5
 pass-through ops; quantize_model's rewritten symbol (tojson) and int8
 params equal to JAX's, with and without excluded_sym_names;
@@ -100,6 +101,32 @@ def test_quantized_conv_bit_equal(case):
                                                     seed=4),
                       -R, R, -R * 0.5, R * 0.5], attrs)[0]
     assert out.dtype == np.int32
+
+
+@pytest.mark.parametrize("case", [
+    dict(shape=(2, 4, 11), F=6, k=(3,)),
+    dict(shape=(2, 4, 11), F=6, k=(3,), stride=(2,), pad=(2,), dilate=(2,),
+         num_group=2),
+    dict(shape=(2, 4, 7, 6, 9), F=6, k=(3, 2, 3)),
+    dict(shape=(2, 4, 7, 6, 9), F=6, k=(3, 2, 3), stride=(2, 1, 2),
+         pad=(2, 1, 2), dilate=(2, 2, 1), num_group=2),
+    dict(shape=(1, 32, 5, 5, 5), F=8, k=(1, 1, 1))])
+def test_quantized_conv_any_rank_bit_equal(case):
+    """1-D (a 2-D convolution of height 1) and 3-D (one 2-D convolution a
+    kernel depth, summed in int32) against the JAX op's any-rank
+    lax.conv_general_dilated."""
+    k = case["k"]
+    g = case.get("num_group", 1)
+    attrs = {"kernel": k, "num_filter": case["F"], "num_group": g}
+    for key in ("stride", "pad", "dilate"):
+        if key in case:
+            attrs[key] = case[key]
+    C = case["shape"][1]
+    out = exact_both("_contrib_quantized_conv",
+                     [_i8(*case["shape"], seed=8),
+                      _i8(case["F"], C // g, *k, seed=9),
+                      -R, R, -R * 0.5, R * 0.5], attrs)[0]
+    assert out.dtype == np.int32 and out.ndim == len(case["shape"])
 
 
 @pytest.mark.parametrize("flatten", [True, False])

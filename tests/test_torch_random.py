@@ -7,7 +7,9 @@ variance within 6 standard errors of the analytic ones (the variance's
 standard error from the sample's fourth moment); a reseed repeats the
 draws bit for bit; torch's global generator plays no part.  Each of the
 29 names of ops/random_ops.py is its own case, giving the JAX op's shape
-and dtype.
+and dtype.  A hybridized block that samples compiles and runs (upstream
+MXNet runs it; the JAX package cannot trace its key), drawing from
+torch's default generator, which ``mx.random.seed`` seeds.
 """
 import math
 
@@ -191,3 +193,36 @@ def test_random_op_shape_and_dtype_match_jax(name):
     jouts = jout if isinstance(jout, list) else [jout]
     assert [(o.shape, o.dtype) for o in touts] == \
         [(o.shape, o.dtype) for o in jouts]
+
+
+def test_hybridized_block_samples(monkeypatch):
+    """F.random_uniform inside hybrid_forward: the compiled call runs and
+    gives the eager call's shape and dtype; mx.random.seed makes the eager
+    draws repeat and reseeds the compiled graph's generator too.  No bits
+    are held to the JAX package, whose generator differs and which cannot
+    compile the block."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    monkeypatch.setattr(tmx.jit, "_BACKEND", "aot_eager")
+
+    class Noisy(HybridBlock):
+        def hybrid_forward(self, F, x):
+            return x + F.random_uniform(low=-1.0, high=1.0, shape=(2, 3))
+
+    with CPU:
+        net = Noisy()
+        net.initialize()
+        x = tmx.nd.zeros((2, 3))
+        tmx.random.seed(7)
+        eager = net(x).asnumpy()
+        tmx.random.seed(7)
+        assert np.array_equal(net(x).asnumpy(), eager)
+        net.hybridize()
+        tmx.random.seed(7)
+        first = net(x)
+        tmx.random.seed(7)
+        again = net(x).asnumpy()
+    got = first.asnumpy()
+    assert got.shape == eager.shape == (2, 3) and got.dtype == eager.dtype
+    assert np.isfinite(got).all() and (np.abs(got) <= 1.0).all()
+    assert np.array_equal(got, again)
