@@ -195,9 +195,11 @@ non-zero, printing no result, without them.  Phases, one line each:
    losses.
    resnet50_v1 cut in depth to one bottleneck unit a stage (its widths
    64-256-512-1024-2048 and its biased 1x1 convolutions; whole before
-   phases 14-15 came, cut for the script's time) and squeezenet1.1 at
-   full width (classes 1000, batch 32, 3x224x224 from a seed, sgd lr 0.01
-   momentum 0.9), eager against
+   phases 14-15 came, cut for the script's time) and squeezenet1.1 cut
+   in depth to one fire module of each of its four widths (4 of 8; its
+   stem, pools, Dropout and head; cut for the script's time), both at
+   full width (classes 1000, batch 32, 3x224x224 from a seed, sgd lr
+   0.01 momentum 0.9), eager against
    hybridize(): compile seconds, graph breaks (0), the step median over
    5 steps and img/s, kernels a step and the idle share over one
    profiled step each way, step 1's logits and gradients (squeezenet1.1
@@ -206,12 +208,16 @@ non-zero, printing no result, without them.  Phases, one line each:
    hybridized net's weights before each) within 1e-4 + 1e-4 |ref|; each
    of these within its bound or within 4x the same measure between the
    eager net and an eager run with cuDNN off.
-   that ResNet exported, loaded with SymbolBlock.imports (logits within
+   A ResNet of the same cut (Xavier from seed 0, 3 eager sgd steps on
+   that batch) exported, loaded with SymbolBlock.imports (logits within
    1e-5 + 1e-5 |ref| of the source's) and bound in a Module under a
    SoftmaxOutput head, MXNET_FUSION unset (add_act fired at each
    residual join and nothing else; one forward_backward's gradients
    against the gluon path's, as above), each also against an eager run
-   with cuDNN off; no hand-written kernel launched;
+   with cuDNN off; no hand-written kernel launched.  squeezenet1.1 and
+   the export check run in a side process (this script with --side)
+   beside phases 14-15, which measure on; their lines print once phase
+   15 has ended, and a failure there ends the script non-zero;
 14. recurrent: f32 with TF32 off.  The RNN op (cuDNN's RNN a layer:
    torch._VF eagerly; compiled with inductor, fullgraph, the rnn_layer
    custom op over _cudnn_rnn and _cudnn_rnn_backward) against its plain
@@ -234,8 +240,9 @@ non-zero, printing no result, without them.  Phases, one line each:
    gradients (1e-3 of each norm) hybridized against eager with dropout
    0.  rnn_bucketing --cells at upstream
    lstm_bucketing.py's width (2 x mx.rnn.LSTMCell(200), embed 200,
-   vocabulary 10000, batch 32) over BucketSentenceIter with buckets 10
-   and 20, one epoch of a seeded corpus: compile seconds per bucket,
+   vocabulary 10000, batch 32) over BucketSentenceIter with buckets 4
+   and 8 (cut in depth from upstream's 10-60 for inductor's compile
+   time), one epoch of a seeded corpus: compile seconds per bucket,
    batches/s, perplexity finite and falling; no hand-written kernel
    launched;
 15. fusion: each of the five patterns' microbench on the card, fused
@@ -277,16 +284,49 @@ non-zero, printing no result, without them.  Phases, one line each:
    Proposal's pre_n 6000 and a tie at the threshold, each timed, and in
    passes over row ranges (a workspace cap below the mask's size) on
    box_nms's and Proposal's boxes with a fifth of the rows dead; the
-   small case (width 8, image 64, batch 2, 4 objects) on the card against the port on the CPU (MultiBoxTarget,
-   the fp32 and the int8 detections, the int8 codes that differ); both
-   quantize_calibrate modes passing their gate;
-17. flash times: each kernel, the plain version and
+   small case (width 8, image 64, batch 2, 4 objects) on the card
+   against the port on the CPU, both through the aot_eager backend
+   (MultiBoxTarget, the fp32 and the int8 detections, the int8 codes
+   that differ); both quantize_calibrate modes passing their gate;
+17. dist: BASELINE config 4's parameter-server path, two worker
+   processes on the card started by the port's launcher
+   (`python -m mxnet_tpu_torch.tools.launch -n 2 --launcher local`, each
+   worker this script with --dist-worker, one JSON line each; the server
+   a host process that sees no card), after the card's cache is emptied.
+   Leg A: examples/train_imagenet.py --kv-store dist_device_sync
+   --benchmark 1, resnet50_v1 at full width (classes 1000, 3x224x224,
+   Xavier from seed 0), batch 32 a worker, f32 with TF32 off, eager, sgd
+   lr 0.01 momentum 0.9 on the server, 1 warm-up + 5 steps: every loss
+   finite and the last below the first, both workers' trainable
+   parameters bit-equal (SHA-1), parameters and gradients on the card; a
+   'dist' line with images/s per worker and summed, the step median, the
+   push and pull host ms a step, bytes a push, the server's ms per op
+   over one more step (its profiler through send_command_to_servers),
+   each worker's kernel ms over that step under torch.profiler and the
+   card's idle share with both, peak memory, each worker's start-up and
+   run seconds.  Leg B: a gluon Trainer at the same width with
+   compression_params 2bit (t 0.5) and update_on_kvstore=False, each
+   worker on a batch of its own, 1 warm-up + 3 steps: each worker
+   launching quantize_2bit and dequantize_2bit exactly once a push, rank
+   0's first push of the 193 keys bit-exact with the batched plain
+   version (codes' dequantized values and the residual arena), every
+   element of every pulled sum in {-2t, -t, 0, t, 2t}, the pulls
+   bit-equal on both workers.  The small case: an MLP 192-64-10 on 2
+   workers, 2 steps through a dist_device_sync Trainer, on the card and
+   on the CPU, parameters within 1e-5 x max|ref|.  The four launches
+   start together once phase 16's timed work is done (their imports
+   overlap its small case and calibration); each worker waits, once
+   imported, for a go file: leg A's when this phase starts, the others'
+   when leg A has ended.  A worker or launcher that fails, or any check,
+   ends the script non-zero, and every process of the phase is stopped;
+18. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-18. the whole script's wall time, then a {"kernels": [...]} line;
-19. last line: {"ok": true, "device": {...}}.
+19. the whole script's wall time, then a {"kernels": [...]} line (the
+   compression rows' launches: phase 4's and each phase-17 worker's);
+20. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -299,6 +339,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -466,8 +507,9 @@ DATA_NORM_REL = 1e-6
 # idx-ubyte files of 2048 seeded digits (a class's prototype plus noise)
 # the phase writes: Module.fit 2 epochs, its first 3 updates again on
 # the CPU; LeNet 1 warm-up + 10 steps.  Then resnet50_v1 and
-# squeezenet1.1 at full width (classes 1000, batch 32, 3x224x224 from a
-# seed, sgd lr 0.01 momentum 0.9), eager against hybridize(): 3 steps
+# squeezenet1.1 at full width, cut in depth (classes 1000, batch 32,
+# 3x224x224 from a seed, sgd lr 0.01 momentum 0.9), eager against
+# hybridize(): 3 steps
 # compared, 5 timed, 1 profiled each way; resnet50_v1 exported and
 # loaded back.  f32 with TF32 off.  Bounds: parameters card vs CPU
 # within 1e-5 x |ref| + 1e-6 x max|ref|; logits within 1e-4 + 1e-4 |ref|;
@@ -486,19 +528,74 @@ SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 10
 # (64-256-512-1024-2048, the biased 1x1 convolutions) and head, one
 # unit a stage in place of 3-4-6-3
 SYM_RESNET = "resnet50_v1 1-1-1-1"
-SYM_NETS = (SYM_RESNET, "squeezenet1.1")
+# squeezenet1.1 cut in depth only, for the same reason: its stem, pools,
+# Dropout and head, and one fire module of each of its four widths
+# (squeeze-expand 16-64, 32-128, 48-192, 64-256) in place of its eight
+SYM_SQUEEZE = "squeezenet1.1 1-1-2"
+SQUEEZE_CUT = ["P", (16, 64), "P", (32, 128), "P", (48, 192), (64, 256)]
+SYM_NETS = (SYM_RESNET, SYM_SQUEEZE)
+
+
+def squeezenet_cut():
+    """squeezenet1.1's layers (model_zoo SqueezeNet) with SQUEEZE_CUT's
+    fire modules."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import squeezenet as sq
+
+    net = sq.Classifier(prefix="squeezenet_cut_")
+    with net.name_scope():
+        f = nn.HybridSequential(prefix="")
+        f.add(nn.Conv2D(64, kernel_size=3, strides=2, activation="relu"))
+        for item in SQUEEZE_CUT:
+            f.add(nn.MaxPool2D(pool_size=3, strides=2, ceil_mode=True)
+                  if item == "P" else sq._Fire(*item))
+        f.add(nn.Dropout(0.5))
+        net.features = f
+        out = nn.HybridSequential(prefix="")
+        out.add(nn.Conv2D(1000, kernel_size=1, activation="relu"))
+        out.add(nn.GlobalAvgPool2D())
+        out.add(nn.Flatten())
+        net.output = out
+    return net
 
 
 def sym_build(name):
     if name == SYM_RESNET:
         return vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
                                [64, 256, 512, 1024, 2048], classes=1000)
+    if name == SYM_SQUEEZE:
+        return squeezenet_cut()
     return vision.get_model(name, classes=1000)
 SYM_NET_BATCH, SYM_NET_LR, SYM_COMPARE_STEPS, SYM_TIMED_STEPS = \
     32, 0.01, 3, 5
 SYM_PARAM_RTOL, SYM_LOGIT_TOL, SYM_GRAD_REL, SYM_STAT_TOL, SYM_EXPORT_TOL = \
     1e-5, 1e-4, 1e-3, 1e-4, 1e-5
 SYM_YARD = 4.0
+# the dist phase, BASELINE config 4 (example/distributed_training's
+# dist_device_sync) on the one card: 2 worker processes started by the
+# port's launcher (tools/launch.py), each chip_smoke.py itself with
+# --dist-worker, the parameter server a host process.  Leg A: the port's
+# examples/train_imagenet.py --kv-store dist_device_sync --benchmark 1 at
+# resnet50_v1's full width (classes 1000, 3x224x224, Xavier from seed 0),
+# batch 32 a worker, f32 with TF32 off, eager, sgd momentum 0.9 on the
+# server at phase 10's lr 0.01 (the server steps on the sum of the two
+# workers' batch means; at lr 0.1 and 0.05 the loss on the one fixed
+# batch rises from step 2: PERF.md, section 6), 1 warm-up + 5 steps,
+# then one more under torch.profiler with the server's profiler on.
+# Leg B: a
+# gluon Trainer at the same width, sgd lr 0.1 momentum 0.9, kvstore
+# dist_device_sync, 2-bit compression (threshold T) on the workers and
+# update_on_kvstore=False, each worker on a batch of its own, 1 warm-up +
+# 3 steps.  The small case: an MLP 192-64-10 (weights from
+# seed 0), 2 workers with batches of their own, sgd lr 0.1 momentum 0.9
+# on the server, 2 steps on the card and on the CPU, parameters within
+# 1e-5 x max|ref|
+DIST_WORKERS, DIST_STEPS, DIST_B_STEPS, DIST_LR, DIST_B_LR = \
+    2, 5, 3, 0.01, 0.1
+DIST_SMALL_REL, DIST_TIMEOUT_S = 1e-5, 420
+SIDE_TIMEOUT_S = 900    # phase 15's end waits this long for the side process
+DIST_WORKER_SCRIPT = os.path.abspath(__file__)
+DIST_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond, msg):
@@ -3600,7 +3697,7 @@ def sym_network(name, card, problems):
     # step 1 compared without an update: squeezenet1.1's Dropout draws
     # its masks from two different generators (eager: the framework's;
     # compiled: inductor's), so it is compared in predict mode
-    train_mode = name != "squeezenet1.1"
+    train_mode = name != SYM_SQUEEZE
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits_h = fwd_bwd(hyb, x, y, loss_fn, train_mode)
@@ -3746,10 +3843,54 @@ def sym_export(card, root, hyb, x, y, problems):
           flush=True)
 
 
-def phase_symbolic(card):
+def export_source(card):
+    """A resnet50_v1 1-1-1-1 (SYM_RESNET, Xavier from seed 0) after
+    SYM_COMPARE_STEPS eager sgd steps on sym_network's batch (weights
+    and moving stats off their start), hybridized, with that batch."""
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SYM_NET_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SYM_NET_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    mx.random.seed(0)
+    net = sym_build(SYM_RESNET)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": SYM_NET_LR, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(SYM_COMPARE_STEPS):
+        sym_step(net, trainer, x, y, loss_fn)
+    net.hybridize()
+    return net, x, y
+
+
+def symbolic_aside(card):
+    """Phase 13's part that measures least: SYM_NETS[1:] eager against
+    hybridized and the export check on export_source's net.  In the
+    whole script it runs in the side process (SideChecks) beside phases
+    14-15; its lines print when phase 15 has ended."""
+    before = dict(kernels.launch_counts)
+    problems = []
+    root = tempfile.mkdtemp(prefix="symbolic_aside_")
+    try:
+        for name in SYM_NETS[1:]:
+            torch.cuda.empty_cache()
+            sym_network(name, card, problems)
+        torch.cuda.empty_cache()
+        sym_export(card, root, *export_source(card), problems)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not problems, "; ".join(problems))
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the symbolic path (%s and the "
+          "export) launched %s" % (", ".join(SYM_NETS[1:]), launched))
+
+
+def phase_symbolic(card, aside=False):
     """The symbolic API and hybridize(): both paths of train_mnist,
-    SYM_NETS eager against hybridized, and the first one's export (see
-    the module doc, phase 13)."""
+    SYM_NETS eager against hybridized, and the export check (see the
+    module doc, phase 13); with ``aside``, SYM_NETS[0] alone, and
+    symbolic_aside's part is left to the side process."""
     from mxnet_tpu_torch.examples import train_mnist as ex
 
     t_phase = time.perf_counter()
@@ -3759,25 +3900,78 @@ def phase_symbolic(card):
         write_mnist(root, SYM_IMAGES)
         module_img_s = sym_module(card, root, ex)
         sym_gluon(card, root, ex)
-        rows, problems = [], []
-        for name in SYM_NETS:
-            torch.cuda.empty_cache()
-            row, held = sym_network(name, card, problems)
-            rows.append(row)
-            if name == SYM_NETS[0]:
-                sym_export(card, root, *held, problems)
-            del held
+        problems = []
+        torch.cuda.empty_cache()
+        row, held = sym_network(SYM_NETS[0], card, problems)
+        del held
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check(not problems, "; ".join(problems))
+    if not aside:
+        symbolic_aside(card)
     launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
     check(not any(launched.values()), "the symbolic path launched %s"
           % launched)
     print("symbolic: hand-written kernels launched on the symbolic path: %s "
-          "(none is on it) | Module img/s %.1f | phase %.1f s | %s"
-          % (launched, module_img_s, time.perf_counter() - t_phase, card),
-          flush=True)
-    return rows
+          "(none is on it) | Module img/s %.1f | phase %.1f s%s | %s"
+          % (launched, module_img_s, time.perf_counter() - t_phase,
+             " (%s and the export in the side process)"
+             % ", ".join(SYM_NETS[1:]) if aside else "", card), flush=True)
+    return row
+
+
+class SideChecks:
+    """symbolic_aside in a process of its own (``chip_smoke.py --side``),
+    beside the main process's phases 14-15: its lines and errors go to
+    files, printed by finish(), which fails if the process failed."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="side_")
+        self.proc = None
+
+    def start(self, card):
+        self.card = card
+        self.started = time.perf_counter()
+        self.out = open(os.path.join(self.dir, "out"), "w+")
+        self.err = open(os.path.join(self.dir, "err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, DIST_WORKER_SCRIPT, "--side", card],
+            cwd=DIST_ROOT, stdout=self.out, stderr=self.err, text=True)
+
+    def finish(self):
+        wait_start = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=SIDE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.out.seek(0)
+        self.err.seek(0)
+        sys.stdout.write(self.out.read())
+        check(rc == 0, "the side process (symbolic_aside) %s:\n%s"
+              % ("exited %d" % rc if rc is not None else "did not finish",
+                 self.err.read()[-6000:]))
+        print("side: symbolic_aside ended %.1f s after it started; phase "
+              "15's end waited %.1f s for it | %s"
+              % (time.perf_counter() - self.started,
+                 time.perf_counter() - wait_start, self.card), flush=True)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in (getattr(self, "out", None), getattr(self, "err", None)):
+            if f is not None:
+                f.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def side_main(card):
+    """Entry of the side process: phase_device's settings, then
+    symbolic_aside."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    symbolic_aside(card)
 
 
 # phase 14 (recurrent): the RNN op at the word LM's width, each mode on
@@ -3797,13 +3991,15 @@ LM_ARGS = ["--model", "lstm", "--vocab", "33278", "--emsize", "650",
 LM_STEPS = 31                    # 1 warm-up + 30 timed
 LM_LOGIT_TOL, LM_GRAD_REL = 1e-4, 1e-3
 # upstream example/rnn/bucketing/lstm_bucketing.py's width (2 x
-# LSTMCell(200), embed 200, vocabulary 10000, batch 32); buckets 10 and
-# 20 of its 10-60 (compile time, PERF.md section 4); upstream's lr
+# LSTMCell(200), embed 200, vocabulary 10000, batch 32), cut in depth
+# to buckets 4 and 8 (unrolled steps) in place of its 10-60: inductor
+# takes about 6 s a step to compile a bucket (buckets 10 and 20: 62.7
+# and 117.5 s, PERF.md section 4); upstream's lr
 # 0.01, with the example's momentum 0.9 (the example's own lr 0.2
 # diverges at this vocabulary)
 BUCKET_ARGS = ["--cells", "--vocab", "10000", "--num-embed", "200",
                "--num-hidden", "200", "--batch-size", "32", "--buckets",
-               "10,20", "--epochs", "1", "--lr", "0.01"]
+               "4,8", "--epochs", "1", "--lr", "0.01"]
 
 
 def rec_inputs(mode, bidir, T, N, C, H, device, seed=0):
@@ -4046,7 +4242,7 @@ def rec_lm(card):
 
 def rec_bucketing(card):
     """rnn_bucketing --cells: two mx.rnn.LSTMCell(200) in a
-    BucketingModule over BucketSentenceIter, buckets 10 and 20."""
+    BucketingModule over BucketSentenceIter, BUCKET_ARGS' buckets."""
     from mxnet_tpu_torch.examples import rnn_bucketing as rb
 
     args = rb.parse_args(BUCKET_ARGS)
@@ -4064,11 +4260,12 @@ def rec_bucketing(card):
     first, last = ppl[:fifth].mean(), ppl[-fifth:].mean()
     print("recurrent bucketing: rnn_bucketing --cells, 2 x mx.rnn.LSTMCell"
           "(200), embed 200, vocabulary 10000, batch 32, sgd lr %g "
-          "momentum 0.9, buckets 10 and 20 | %d batches (%s) | compile %s "
+          "momentum 0.9, buckets %s | %d batches (%s) | compile %s "
           "| %.2f batches/s after the compiles | graph breaks %d | "
           "perplexity %.1f (first fifth of the batches) -> %.1f (last "
           "fifth), epoch %.1f | %s"
-          % (args.lr, len(res["batch_s"]),
+          % (args.lr, " and ".join(args.buckets.split(",")),
+             len(res["batch_s"]),
              ", ".join("bucket %d: %d" % (k, len(v))
                        for k, v in sorted(per.items())),
              ", ".join("bucket %d %.1f s" % kv
@@ -4931,12 +5128,12 @@ def det_op_both(op, ins, **attrs):
 
 
 def det_small(card):
-    """The small case on the card against the port on the CPU: the SSD's
-    heads (1e-4 + 1e-4 |ref|), the fp32 and int8 detections end to end
-    (det_scores_close), and MultiBoxTarget and MultiBoxDetection on the
-    same inputs (the CPU's heads) on both devices: class targets, masks
-    and ids exact, loc targets within 1e-5, scores and boxes within
-    1e-4."""
+    """The small case on the card against the port on the CPU, both
+    through the aot_eager backend: the SSD's heads (1e-4 + 1e-4 |ref|),
+    the fp32 and int8 detections end to end (det_scores_close), and
+    MultiBoxTarget and MultiBoxDetection on the same inputs (the CPU's
+    heads) on both devices: class targets, masks and ids exact, loc
+    targets within 1e-5, scores and boxes within 1e-4."""
     from mxnet_tpu_torch.contrib import quantization as qmod
     from mxnet_tpu_torch.examples import ssd_detect_quant as ex
 
@@ -4951,11 +5148,13 @@ def det_small(card):
     vals = det_small_values(dsym, {"data": data.shape})
     outs = {}
     prev_backend = mx.jit._BACKEND
+    # both devices on aot_eager (the CPU has no inductor codegen here):
+    # the port's ops card against CPU, the graphs captured alike; the
+    # example above runs these graphs through inductor on the card
+    mx.jit._BACKEND = "aot_eager"
     try:
         for dev in ("gpu", "cpu"):
             ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
-            if dev == "cpu":
-                mx.jit._BACKEND = "aot_eager"   # inductor's CPU codegen
             args = {k: mx.nd.array(v, ctx=ctx) for k, v in vals.items()}
             feed = dict(args, data=mx.nd.array(data, ctx=ctx))
             with ctx:
@@ -5040,8 +5239,10 @@ def det_calibrate(card):
               % (mode, time.perf_counter() - t0, card), flush=True)
 
 
-def phase_detection(card):
-    """Phase 16 (see the module doc): returns the two kernels' rows."""
+def phase_detection(card, after_timed=None):
+    """Phase 16 (see the module doc): returns the two kernels' rows.
+    ``after_timed()`` runs once the phase's timed work is done, before
+    its small case and calibration."""
     t_phase = time.perf_counter()
     laps = []
 
@@ -5058,6 +5259,8 @@ def phase_detection(card):
     nms_rows = det_nms_kernel(card)
     lap("nms")
     torch.cuda.empty_cache()
+    if after_timed:
+        after_timed()
     det_small(card)
     lap("small case")
     det_calibrate(card)
@@ -5080,6 +5283,460 @@ def phase_detection(card):
          "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
          "library_ms": None, "shape": first["shape"],
          "times": nms_rows[1:], "card": card}]
+
+
+def dist_sha(tensors):
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_timed_store():
+    """KVStoreDist's push and pull with each call's host seconds recorded,
+    the card synchronized first (so a push's time leaves out the backward
+    still running on the card)."""
+    times = {"push": [], "pull": []}
+    for name, out in times.items():
+        orig = getattr(mx.kv.KVStoreDist, name)
+
+        def timed(self, *a, _orig=orig, _out=out, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _orig(self, *a, **k)
+            _out.append(time.perf_counter() - t0)
+            return res
+        setattr(mx.kv.KVStoreDist, name, timed)
+    return times
+
+
+def dist_leg_a(rank, out_dir):
+    """Leg A in a worker: train_imagenet's entry with --kv-store
+    dist_device_sync, then one profiled step."""
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    times = dist_timed_store()
+    mx.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    res = train_imagenet.train(
+        ["--kv-store", "dist_device_sync", "--benchmark", "1", "--network",
+         "resnet50_v1", "--batch-size", str(BATCH), "--steps",
+         str(DIST_STEPS), "--lr", str(DIST_LR), "--image-shape",
+         "3,%d,%d" % (IMAGE, IMAGE)], ctx=mx.gpu(0), hybridize=False)
+    net, trainer = res["net"], res["trainer"]
+    kv = trainer._kvstore
+    check(isinstance(kv, mx.kv.KVStoreDist) and kv.type == "dist_device_sync"
+          and trainer._update_on_kvstore and kv.num_workers == DIST_WORKERS,
+          "leg A: the trainer's store is %r (update_on_kvstore %s)"
+          % (kv, trainer._update_on_kvstore))
+    params = list(net.collect_params().values())
+    trainable = [p for p in params if p.grad_req != "null"]
+    check(len(trainable) == 193, "leg A: %d trainable parameters"
+          % len(trainable))
+    check(all(p.data()._data.is_cuda and p.grad()._data.is_cuda
+              for p in trainable), "leg A: parameters or gradients are not "
+          "on the card")
+    # one push a step; one pull at the first step's init and one a step
+    check(len(times["push"]) == 1 + DIST_STEPS
+          and len(times["pull"]) == 2 + DIST_STEPS,
+          "leg A: %d pushes and %d pulls" % (len(times["push"]),
+                                             len(times["pull"])))
+    losses = [float(v) for v in res["losses"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "leg A: losses %s" % losses)
+    # one more step with the server's profiler on, under torch.profiler
+    prof_path = os.path.join(out_dir, "server_profile.json")
+    if rank == 0:
+        kv.send_command_to_servers("profiler_set_config", prof_path)
+        kv.send_command_to_servers("profiler_state", "1")
+    kv.barrier()
+    rng = np.random.RandomState(0)      # train()'s synthetic batch
+    x = mx.nd.array(rng.rand(BATCH, 3, IMAGE, IMAGE).astype(np.float32),
+                    ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(BATCH)
+
+    prof_s, prof = timed_s(lambda: device_kernels(step))
+    kv.barrier()
+    server = None
+    if rank == 0:
+        kv.send_command_to_servers("profiler_dump", "")
+        with open(prof_path) as f:
+            server = json.load(f)
+    out = {"losses": losses, "step_s": res["step_s"],
+           "ips": res["images_per_sec"],
+           "push_s": times["push"][1:1 + DIST_STEPS],
+           "pull_s": times["pull"][2:2 + DIST_STEPS],
+           "push_bytes": sum(p.data()._data.numel() * 4 for p in trainable),
+           "kernels": prof[:2] if isinstance(prof, tuple) else prof,
+           "profiled_step_s": prof_s, "server": server,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "sha": dist_sha([p.data()._data for p in trainable]),
+           "aux_sha": dist_sha([p.data()._data for p in params
+                                if p.grad_req == "null"])}
+    kv.close()
+    return out
+
+
+def dist_leg_b(rank, out_dir):
+    """Leg B in a worker: 2-bit compression on each push, the sum pulled
+    back into the gradients, the updates local."""
+    captured = {}
+    orig = comp.GradientCompression.compress_dequantize_batch
+
+    def capture(self, keys, grads_nd):
+        first = not captured
+        if first:
+            captured["grads"] = [g._data.detach().reshape(-1).clone()
+                                 for g in grads_nd]
+        res = orig(self, keys, grads_nd)
+        if first:
+            captured["deq"] = [o._data.reshape(-1).clone() for o in res]
+            captured["arena"] = self._arena[2].clone()
+        return res
+    comp.GradientCompression.compress_dequantize_batch = capture
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rng = np.random.RandomState(1 + rank)     # a batch of its own
+    x = mx.nd.array(rng.rand(BATCH, 3, IMAGE, IMAGE).astype(np.float32),
+                    ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.predict_mode():
+        net(x)                                  # shapes
+    trainer = mx.gluon.Trainer(
+        net.collect_params(), "sgd",
+        {"learning_rate": DIST_B_LR, "momentum": 0.9},
+        kvstore="dist_device_sync",
+        compression_params={"type": "2bit", "threshold": T},
+        update_on_kvstore=False)
+    trainable = [p for p in net.collect_params().values()
+                 if p.grad_req != "null"]
+    losses, step_s, agg_sha, nonzero = [], [], [], []
+    kernels.reset_launch_counts()
+    for _ in range(1 + DIST_B_STEPS):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(BATCH)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.mean().asscalar()))
+        flat = torch.cat([p.grad()._data.reshape(-1) for p in trainable])
+        mag = flat.abs()
+        check(bool(((mag == 0) | (mag == T) | (mag == 2 * T)).all()),
+              "leg B: a pulled sum lies outside {-2t, -t, 0, t, 2t}")
+        nonzero.append(float((mag > 0).float().mean()))
+        agg_sha.append(dist_sha([flat]))
+    launches = dict(kernels.launch_counts)
+    kv = trainer._kvstore
+    check(isinstance(kv, mx.kv.KVStoreDist) and not trainer._update_on_kvstore,
+          "leg B: the trainer's store is %r" % (kv,))
+    check(launches["quantize_2bit"] == launches["dequantize_2bit"]
+          == 1 + DIST_B_STEPS, "leg B: launches %s over %d pushes"
+          % (launches, 1 + DIST_B_STEPS))
+    check(all(p.data()._data.is_cuda and p.grad()._data.is_cuda
+              for p in trainable), "leg B: state is not on the card")
+    worst = None
+    if rank == 0:
+        # the first push's compression of the 193 keys against the batched
+        # plain version on the same gradients, from zero residuals
+        grads = captured["grads"]
+        check(len(grads) == 193, "leg B: %d keys a push" % len(grads))
+        dev = grads[0].device
+        layout = comp.batch_layout(tuple(g.numel() for g in grads))
+        ref_arena = torch.zeros(layout.n_values, device=dev)
+        rcodes = torch.empty(layout.n_code_words, dtype=torch.int32,
+                             device=dev)
+        comp.quantize_batch_ref(layout, grads, ref_arena, ref_arena, rcodes,
+                                T)
+        rdeq = torch.empty(layout.n_values, device=dev)
+        comp.dequantize_batch_ref(layout, rcodes, rdeq, T)
+        check(same_bits(captured["arena"], ref_arena),
+              "leg B: step-1 residuals differ from the plain version")
+        worst = float((captured["arena"] - ref_arena).abs().max())
+        for e, got in enumerate(captured["deq"]):
+            want = layout.values(rdeq, e)
+            check(same_bits(got, want), "leg B: step-1 dequantized values "
+                  "of key %d differ from the plain version" % e)
+            worst = max(worst, float((got - want).abs().max()))
+    out = {"losses": losses, "step_s": step_s, "agg_sha": agg_sha,
+           "nonzero": nonzero, "launches": launches, "worst": worst,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    kv.close()
+    return out
+
+
+def dist_small(rank, out_dir, ctx, tag):
+    """The small case in a worker: an MLP through a dist_device_sync
+    Trainer on ``ctx``; its parameters saved to out_dir under ``tag``."""
+    rng = np.random.RandomState(0)
+    w = [rng.randn(64, 192) * 0.1, rng.randn(64) * 0.1,
+         rng.randn(10, 64) * 0.1, rng.randn(10) * 0.1]
+    net = mx.gluon.nn.Sequential()
+    net.add(mx.gluon.nn.Dense(64, activation="relu", in_units=192),
+            mx.gluon.nn.Dense(10, in_units=64))
+    net.initialize(ctx=ctx)
+    params = list(net.collect_params().values())
+    for p, v in zip(params, w):
+        p.set_data(mx.nd.array(v.astype(np.float32), ctx=ctx))
+    data = np.random.RandomState(10 + rank)
+    x = mx.nd.array(data.randn(8, 192).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(data.randint(0, 10, 8).astype(np.float32), ctx=ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore="dist_device_sync")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(2):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(8)
+    np.savez(os.path.join(out_dir, "small_%s_%d.npz" % (tag, rank)),
+             *[p.data().asnumpy() for p in params])
+    out = {"sha": dist_sha([p.data()._data for p in params]),
+           "on_card": all(p.data()._data.is_cuda for p in params)}
+    trainer._kvstore.close()
+    return out
+
+
+def dist_worker(mode, out_dir):
+    """Entry of a worker process (``chip_smoke.py --dist-worker MODE DIR``
+    under the launcher): waits, once imported, for the file DIST_WAIT_FOR
+    names where it is set (exiting if the launching script has gone),
+    then runs its leg and prints one DIST_WORKER line."""
+    start_s = time.time() - float(os.environ["DIST_LAUNCH_TIME"])
+    go = os.environ.get("DIST_WAIT_FOR")
+    parent = int(os.environ["DIST_PARENT_PID"])
+    while go and not os.path.exists(go):
+        try:        # the script that launched it is gone: give up
+            os.kill(parent, 0)
+        except ProcessLookupError:
+            sys.exit(3)
+        time.sleep(0.1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["DMLC_WORKER_RANK"])
+    t0 = time.perf_counter()
+    if mode == "a":
+        out = dist_leg_a(rank, out_dir)
+    elif mode == "b":
+        out = dist_leg_b(rank, out_dir)
+    elif mode == "small":
+        out = dist_small(rank, out_dir, mx.gpu(0), "gpu")
+    else:
+        out = dist_small(rank, out_dir, mx.cpu(), "cpu")
+    out.update(rank=rank, start_s=start_s, leg_s=time.perf_counter() - t0)
+    print("DIST_WORKER " + json.dumps(out), flush=True)
+
+
+def dist_launch(mode, out_dir, cpu=False, wait_for=None):
+    """The port's launcher over DIST_WORKERS copies of this script in
+    worker ``mode``, in a process group of its own; its workers start
+    their leg once the file ``wait_for`` exists."""
+    env = dict(os.environ, DIST_LAUNCH_TIME=repr(time.time()),
+               DIST_PARENT_PID=str(os.getpid()))
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    if wait_for:
+        env["DIST_WAIT_FOR"] = wait_for
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+         str(DIST_WORKERS), "--launcher", "local", sys.executable,
+         DIST_WORKER_SCRIPT, "--dist-worker", mode, out_dir],
+        cwd=DIST_ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def dist_results(proc, mode, deadline):
+    """Each worker's DIST_WORKER line, by rank; fails if the launcher did
+    not exit 0 before ``deadline``."""
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, "dist %s: the launcher did not finish in time" % mode)
+    check(proc.returncode == 0, "dist %s: the launcher exited %d:\n%s"
+          % (mode, proc.returncode, err[-6000:]))
+    res = {}
+    # each DIST_WORKER line is one write of under PIPE_BUF bytes, but a
+    # library's own output to stdout may share its line
+    for chunk in out.split("DIST_WORKER ")[1:]:
+        r, _end = json.JSONDecoder().raw_decode(chunk)
+        res[r["rank"]] = r
+    check(sorted(res) == list(range(DIST_WORKERS)),
+          "dist %s: results from ranks %s" % (mode, sorted(res)))
+    return [res[r] for r in range(DIST_WORKERS)]
+
+
+def dist_small_check(out_dir, small, small_cpu):
+    """The small case: each context's workers bit-equal, the card's
+    parameters within DIST_SMALL_REL x max|ref| of the CPU's, and moved
+    from their start by more than that."""
+    check(len({r["sha"] for r in small}) == 1
+          and len({r["sha"] for r in small_cpu}) == 1,
+          "dist small: the workers of one context differ")
+    check(all(r["on_card"] for r in small) and
+          not any(r["on_card"] for r in small_cpu),
+          "dist small: parameters not where they were asked for")
+    card = np.load(os.path.join(out_dir, "small_gpu_0.npz"))
+    ref = np.load(os.path.join(out_dir, "small_cpu_0.npz"))
+    rng = np.random.RandomState(0)
+    start = [rng.randn(64, 192) * 0.1, rng.randn(64) * 0.1,
+             rng.randn(10, 64) * 0.1, rng.randn(10) * 0.1]
+    worst = 0.0
+    for i, w0 in enumerate(start):
+        a, b = card["arr_%d" % i], ref["arr_%d" % i]
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max()) / scale
+        moved = float(np.abs(b - w0.astype(np.float32)).max()) / scale
+        check(err <= DIST_SMALL_REL < moved, "dist small: parameter %d card "
+              "vs CPU %g of max|ref|, moved %g" % (i, err, moved))
+        worst = max(worst, err)
+    return worst
+
+
+def dist_idle(a):
+    """Each worker's kernel ms over one profiled step against its step
+    median, and the card's idle share with both workers' kernels."""
+    med = [1e3 * statistics.median(r["step_s"]) for r in a]
+    ks = [r["kernels"] for r in a]
+    if not all(isinstance(k, list) for k in ks):
+        return "not measured (%s)" % ks
+    return ("kernels a step %s ms (%s kernels) against step medians %s ms; "
+            "card idle %.1f%% with both workers' kernels"
+            % (["%.2f" % k[1] for k in ks], [k[0] for k in ks],
+               ["%.1f" % m for m in med],
+               100 * max(0.0, 1 - sum(k[1] for k in ks) / max(med))))
+
+
+def dist_server_text(server):
+    return "; ".join("%s %d x %.2f ms" % (op, n, 1e3 * s / n)
+                     for op, (n, s) in sorted(server.items()))
+
+
+class DistJobs:
+    """Phase 17's four launches.  start() may come before the phase (main
+    calls it once phase 16's timed work is done, so the workers' imports
+    overlap its small case and calibration); each worker waits, once
+    imported, for its go file: leg A's for the phase, the others' for
+    leg A's end.  stop() ends every process of the launches."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="dist_")
+        self.go_a = os.path.join(self.dir, "go_leg_a")
+        self.go_rest = os.path.join(self.dir, "leg_a_done")
+        self.procs = []
+        self.started = None
+
+    def start(self):
+        self.started = time.perf_counter()
+        self.procs.append(dist_launch("a", self.dir, wait_for=self.go_a))
+        self.procs += [dist_launch("b", self.dir, wait_for=self.go_rest),
+                       dist_launch("small", self.dir, wait_for=self.go_rest),
+                       dist_launch("small-cpu", self.dir, cpu=True,
+                                   wait_for=self.go_rest)]
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def touch(path):
+    with open(path, "w"):
+        pass
+
+
+def phase_dist(card, jobs=None):
+    """BASELINE config 4 on two workers of the card (see the module doc,
+    phase 17), over ``jobs`` (a DistJobs, started here if it was not
+    before).  Returns the compression kernels' launches on each worker
+    of leg B and the largest difference from the plain version."""
+    own = jobs is None
+    jobs = jobs or DistJobs()
+    try:
+        if not jobs.procs:
+            jobs.start()
+        head_start = time.perf_counter() - jobs.started
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        # leg A has the card to itself: leg B and the small cases start
+        # once it has ended
+        touch(jobs.go_a)
+        a = dist_results(jobs.procs[0], "leg A", deadline)
+        a_s = time.perf_counter() - t0
+        touch(jobs.go_rest)
+        b, small, small_cpu = [
+            dist_results(p, m, deadline) for p, m in
+            zip(jobs.procs[1:], ("leg B", "small", "small on the CPU"))]
+        small_err = dist_small_check(jobs.dir, small, small_cpu)
+    finally:
+        if own:
+            jobs.stop()
+    check(a[0]["sha"] == a[1]["sha"], "leg A: the workers' parameters differ")
+    check(b[0]["agg_sha"] == b[1]["agg_sha"],
+          "leg B: the workers pulled different sums")
+    ips = [r["ips"] for r in a]
+    server = a[0]["server"]
+    print("dist: resnet50_v1 f32 batch %d x %d workers on one card, "
+          "train_imagenet --kv-store dist_device_sync (the port's launcher, "
+          "the server on the host), sgd lr %g momentum 0.9 on the server, "
+          "eager | losses %s | img/s per worker %s, summed %.1f | step s "
+          "median %s | push / pull host ms a step (median) %s / %s | %d "
+          "bytes a push | server, one profiled step: %s | %s | peak memory "
+          "GB %s | trainable parameters bit-equal (SHA-1 %s), running stats "
+          "%s | worker start-up s %s, worker run s %s, leg %.1f s | %s"
+          % (BATCH, DIST_WORKERS, DIST_LR,
+             [["%.4f" % v for v in r["losses"]] for r in a],
+             ["%.1f" % v for v in ips], sum(ips),
+             ["%.4f" % statistics.median(r["step_s"]) for r in a],
+             ["%.1f" % (1e3 * statistics.median(r["push_s"])) for r in a],
+             ["%.1f" % (1e3 * statistics.median(r["pull_s"])) for r in a],
+             a[0]["push_bytes"], dist_server_text(server), dist_idle(a),
+             ["%.2f" % r["peak_gb"] for r in a], a[0]["sha"][:12],
+             "bit-equal" if a[0]["aux_sha"] == a[1]["aux_sha"]
+             else "differ", ["%.1f" % r["start_s"] for r in a],
+             ["%.1f" % r["leg_s"] for r in a], a_s, card), flush=True)
+    print("dist compression: resnet50_v1 batch %d x %d workers, Trainer "
+          "dist_device_sync + 2bit (t %g), update_on_kvstore=False (sgd lr "
+          "%g momentum 0.9 on each worker), %d pushes | launches "
+          "(quantize, dequantize) per worker %s | step-1 push of the 193 "
+          "keys bit-exact with the batched plain version | every pulled sum in "
+          "{-2t, -t, 0, t, 2t}, nonzero share %s, bit-equal on both "
+          "workers | losses %s | step s %s | worker start-up s %s, run s "
+          "%s | %s"
+          % (BATCH, DIST_WORKERS, T, DIST_B_LR, 1 + DIST_B_STEPS,
+             [[r["launches"][k] for k in ("quantize_2bit", "dequantize_2bit")]
+              for r in b], ["%.4f" % v for v in b[0]["nonzero"]],
+             [["%.4f" % v for v in r["losses"]] for r in b],
+             [["%.3f" % v for v in r["step_s"]] for r in b],
+             ["%.1f" % r["start_s"] for r in b],
+             ["%.1f" % r["leg_s"] for r in b], card), flush=True)
+    print("dist small: MLP 192-64-10, %d workers, 2 steps: card vs CPU "
+          "parameters within %.3g of max|ref| (bound %g), workers bit-equal "
+          "| dist phase %.1f s (the launches started %.1f s before it) | %s"
+          % (DIST_WORKERS, small_err, DIST_SMALL_REL,
+             time.perf_counter() - t0, head_start, card), flush=True)
+    return ({name: [r["launches"][name] for r in b]
+             for name in ("quantize_2bit", "dequantize_2bit")},
+            b[0]["worst"])
 
 
 def time_flash(shape, dtype, causal, card):
@@ -5150,21 +5807,36 @@ def main():
     torch.cuda.empty_cache()
     phase_data(card)
     torch.cuda.empty_cache()
-    phase_symbolic(card)
+    phase_symbolic(card, aside=True)
     torch.cuda.empty_cache()
-    phase_recurrent(card)
-    torch.cuda.empty_cache()
-    phase_fusion(card)
-    torch.cuda.empty_cache()
-    det_rows = phase_detection(card)
-    torch.cuda.empty_cache()
+    side, jobs = SideChecks(), DistJobs()
+    try:
+        # phase 13's squeezenet and export check (inductor's compiles,
+        # the least measurement) run beside phases 14-15
+        side.start(card)
+        phase_recurrent(card)
+        torch.cuda.empty_cache()
+        phase_fusion(card)
+        torch.cuda.empty_cache()
+        side.finish()
+        # phase 17's workers import during phase 16's small case
+        det_rows = phase_detection(card, after_timed=jobs.start)
+        torch.cuda.empty_cache()
+        dist_launches, dist_worst = phase_dist(card, jobs)
+    finally:
+        side.stop()
+        jobs.stop()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]
         rows.append(dict({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(worst3, worst4), "ms": t["ms"],
+            # phase 4's one-process pushes and phase 17's, each worker's
+            "replaces": REPLACES[name],
+            "launches": launches[name] + sum(dist_launches[name]),
+            "slice_launches": launches[name],
+            "dist_launches": dist_launches[name],
+            "max_abs_err": max(worst3, worst4, dist_worst), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "call_ms": t["call_ms"], "launches_per_step": 1,
@@ -5213,6 +5885,12 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--side"]:
+        side_main(sys.argv[2])
+        sys.exit(0)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)

@@ -143,6 +143,25 @@ FLAGS = {
         "0.02", _pfloat,
         "largest tolerated top-k accuracy delta (1 - agreement) of the "
         "int8 gate; a larger measured delta refuses the artifact"),
+    "MXNET_UPDATE_ON_KVSTORE": (
+        "1", _pbool,
+        "a Module over a dist* kvstore runs the optimizer on the "
+        "parameter server (0: the server sums, each worker updates)"),
+    "MXTPU_PS_ASYNC": (
+        "0", _pbool,
+        "run_server in async mode: each push applies at once instead of "
+        "after NumWorkers pushes of its key"),
+    "MXTPU_PS_LISTEN_FD": (
+        "-1", _pint,
+        "a listening socket the launcher opened for run_server (-1: bind "
+        "DMLC_PS_ROOT_PORT)"),
+    "DMLC_ROLE": ("worker", str, "dist kvstore role"),
+    "DMLC_PS_ROOT_URI": ("", str, "dist kvstore server host"),
+    "DMLC_PS_ROOT_PORT": ("9091", _pint, "dist kvstore server port"),
+    "DMLC_WORKER_RANK": ("0", _pint, "dist worker rank"),
+    "DMLC_RANK": ("0", _pint, "dist rank (fallback name)"),
+    "DMLC_NUM_WORKER": ("1", _pint, "dist worker count"),
+    "DMLC_NUM_SERVER": ("1", _pint, "dist server count"),
 }
 
 _warned = set()

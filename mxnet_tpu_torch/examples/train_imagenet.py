@@ -21,11 +21,17 @@ rand_crop, rand_mirror), a gluon ``Trainer`` (sgd, momentum 0.9, wd
 1e-4, ``--kv-store``), ``metric.Accuracy``, ``--num-epochs`` epochs,
 each after ``reset()``; each step ends in a device synchronize.
 
+``--kv-store dist_sync`` / ``dist_device_sync`` / ``dist_async`` trains
+data-parallel through the parameter server, each worker started by the
+port's launcher (examples/train_imagenet.py:5):
+
+    python -m mxnet_tpu_torch.tools.launch -n 2 --launcher local \
+        python -m mxnet_tpu_torch.examples.train_imagenet --benchmark 1 \
+        --kv-store dist_device_sync --network resnet50_v1 --batch-size 32
+
 ``train(argv)`` is the loop itself: it returns the losses and step times
 (and, for ``--data-train``, each epoch's images/s and accuracy).  It runs
-on ``gpu(0)`` unless the caller passes ``ctx=mx.cpu()``.  ``--kv-store
-dist*`` (tools/launch.py's parameter server) is not ported yet and
-raises.
+on ``gpu(0)`` unless the caller passes ``ctx=mx.cpu()``.
 """
 from __future__ import annotations
 
@@ -87,10 +93,6 @@ def train(argv=None, ctx=None, arg_params=None, step_hook=None,
     hybridized (compiled) as in the example unless ``hybridize`` is
     False, which keeps the eager gluon loop."""
     args = parse_args(argv)
-    if args.kv_store.startswith("dist"):
-        raise MXNetError("--kv-store %s is not ported yet: it needs "
-                         "tools/launch.py's parameter server"
-                         % args.kv_store)
     if not args.benchmark and not args.data_train:
         raise MXNetError("provide --data-train .rec or use --benchmark 1")
     ctx = ctx or mx.gpu(0)

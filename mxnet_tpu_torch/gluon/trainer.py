@@ -3,15 +3,26 @@ python/mxnet/gluon/trainer.py — kvstore setup :169, step :298,
 allreduce_grads :327, update :359).
 
 Store rules as in the JAX package (trainer.py:71-91): a string store on a
-single context is bypassed (local updates); a ``KVStore`` object is used.
-With ``update_on_kvstore`` the store runs the optimizer and ``step``
-pulls the new weights back.  The local update of a plain ``SGD`` (not
-``multi_precision``) with no store on one context is one multi-tensor
-program over all the parameters (``_try_fused_update``, the counterpart
-of the JAX package's one jitted update, trainer.py:177-257); any other
-optimizer loops over the parameters through the ``Updater``.
+single context is bypassed (local updates) unless it is ``dist*``; a
+``KVStore`` object is used.  With ``update_on_kvstore`` (the default for a
+``dist*`` store) the store runs the optimizer and ``step`` pulls the new
+weights back; without it, ``step`` pushes the gradients, pulls their sum
+back into them and updates locally.  A ``dist*`` store gets every key in
+one ``init`` call and the trainer pulls them back, so each worker starts
+from rank 0's weights (upstream's ``_init_params``).  ``step`` sets the
+optimizer's ``rescale_grad`` before it creates the store, as upstream
+1.5's ``_check_and_rescale_grad`` does, so the optimizer a parameter
+server unpickles holds 1 / batch_size; the JAX package creates the store
+first and the server's copy keeps the unscaled factor
+(mxnet_tpu/gluon/trainer.py:117-121).  The local update of a plain
+``SGD`` (not ``multi_precision``) with no store on one context is one
+multi-tensor program over all the parameters (``_try_fused_update``, the
+counterpart of the JAX package's one jitted update, trainer.py:177-257);
+any other optimizer loops over the parameters through the ``Updater``.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -102,10 +113,12 @@ class Trainer:
         self._kv_initialized = True
 
     def _init_params(self):
-        if self._kvstore is not None:
-            for param in self._params_to_init:
-                self._kvstore.init(self._param2idx[param.name],
-                                   param.list_data()[0])
+        store = self._kvstore
+        if store is not None and self._params_to_init:
+            keys = [self._param2idx[p.name] for p in self._params_to_init]
+            store.init(keys, [p.list_data()[0] for p in self._params_to_init])
+            if store.type.startswith("dist"):
+                store.pull(keys, [p.list_data() for p in self._params_to_init])
         self._params_to_init = []
 
     def _prepare_states(self):
@@ -128,10 +141,20 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _rescale(self, batch_size):
+        scale = self._scale / batch_size
+        if self._update_on_kvstore and self._kvstore is not None and \
+                self._kvstore.type.startswith("dist") and \
+                self._optimizer.rescale_grad != scale:
+            warnings.warn("the batch size changed after the first step: the "
+                          "parameter server's optimizer keeps rescale_grad "
+                          "%g, not %g" % (self._optimizer.rescale_grad, scale))
+        self._optimizer.rescale_grad = scale
+
     def step(self, batch_size, ignore_stale_grad=False):
         """Reduce gradients and update, rescaling by 1 / batch_size."""
+        self._rescale(batch_size)
         self._prepare_states()
-        self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update()
 
@@ -159,7 +182,7 @@ class Trainer:
             raise ValueError("update() when parameters are updated on "
                              "kvstore is not supported. Try setting "
                              "`update_on_kvstore` to False.")
-        self._optimizer.rescale_grad = self._scale / batch_size
+        self._rescale(batch_size)
         self._update()
 
     def _update(self):

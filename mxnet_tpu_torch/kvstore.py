@@ -1,6 +1,6 @@
-"""KVStore 'local'/'device'/'nccl' (parity: mxnet_tpu/kvstore.py KVStore;
-reference include/mxnet/kvstore.h, src/kvstore/kvstore_local.h,
-python/mxnet/kvstore.py).
+"""KVStore 'local'/'device'/'nccl' and 'dist*' (parity: mxnet_tpu/kvstore.py
+KVStore and KVStoreDist; reference include/mxnet/kvstore.h,
+src/kvstore/kvstore_local.h, kvstore_dist.h, python/mxnet/kvstore.py).
 
 Single process: ``push`` reduces the list of per-worker values for a key
 (after 2-bit compression, when set, with one error-feedback residual per
@@ -10,21 +10,34 @@ KVStoreLocal does (``local = merged``).  With compression, a push of a
 list compresses every (key, worker) entry of the list in one batched call
 (one launch of each kernel on the card), split only where a key repeats,
 so that its second occurrence sees the residual the first one left.
-``pull`` copies the stored value into each output.  The ``dist*`` types
-run as a single-process store of that type unless ``DMLC_PS_ROOT_URI``
-names a parameter server, which is not ported yet.
+``pull`` copies the stored value into each output.
+
+``dist*`` with ``DMLC_PS_ROOT_URI`` set is ``KVStoreDist``, a worker of the
+parameter server in ``kvstore_server.py``; without it, a single-process
+store of that type.  ``KVStoreDist.push`` sends a push list as one message
+(the values reduced per key, compressed first when set, in one batched
+call) after one device-to-host copy of the whole list; the wire carries
+the dequantized f32 values, as the JAX package's does.  ``pull`` writes
+the server's values into each output in place, so parameters keep their
+device and storage.  Rank 0 sends the initial values and every worker
+waits at a barrier, as upstream's ``InitImpl``; the ``Trainer`` and
+``Module`` then pull them, so every worker starts from rank 0's weights.
 """
 from __future__ import annotations
 
+import io
 import os
+import pickle
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .checkpoint import atomic_write
+from .ndarray.ndarray import NDArray
 from . import optimizer as opt
 
-__all__ = ["KVStore", "create"]
+__all__ = ["KVStore", "KVStoreDist", "create"]
 
 
 def _key_value_lists(keys, vals):
@@ -45,6 +58,40 @@ def _runs(keys):
         runs[-1].append(i)
         seen.add(k)
     return runs
+
+
+def _row_masked(value, row_ids):
+    """``value`` with every row outside ``row_ids`` zeroed (by a 0/1
+    multiply, as the JAX package's ``_rsp_pull_into``)."""
+    rows = torch.unique(row_ids._data.reshape(-1).to(torch.int64).cpu())
+    mask = torch.zeros(value.shape[0], dtype=value.dtype)
+    mask[rows] = 1
+    return value * mask.to(value.device).reshape(
+        (-1,) + (1,) * (value.dim() - 1))
+
+
+def _to_host(arrays):
+    """numpy copies of NDArrays: one device-to-host copy of them all where
+    they lie on one card in one dtype."""
+    ts = [a._data.detach() for a in arrays]
+    if not ts or not ts[0].is_cuda or any(
+            t.device != ts[0].device or t.dtype != ts[0].dtype for t in ts):
+        return [t.cpu().numpy() for t in ts]
+    flat = torch.cat([t.reshape(-1) for t in ts]).cpu().numpy()
+    out, off = [], 0
+    for t in ts:
+        out.append(flat[off:off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return out
+
+
+def _write(outs, vals):
+    """Each output of each key gets its key's value (numpy), in place."""
+    with torch.no_grad():
+        for val, olist in zip(vals, outs):
+            src = torch.from_numpy(np.ascontiguousarray(val))
+            for o in olist:
+                o._data.copy_(src.reshape(o._data.shape))
 
 
 class KVStore:
@@ -116,19 +163,47 @@ class KVStore:
                 else:
                     self._store[k] = agg
 
+    def _value(self, k):
+        if k not in self._store:
+            raise MXNetError("key %s not initialized" % k)
+        return self._store[k]._data
+
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         keys, outs = _key_value_lists(key, out)
         for k, olist in zip(keys, outs):
-            k = str(k)
-            if k not in self._store:
-                raise MXNetError("key %s not initialized" % k)
-            src = self._store[k]._data
+            src = self._value(str(k))
             for o in olist:
                 with torch.no_grad():
                     o._data.copy_(src)
 
+    def pushpull(self, key, value, out=None, priority=0):
+        self.push(key, value, priority)
+        if out is not None:
+            self.pull(key, out=out, priority=priority)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the rows in ``row_ids`` (parity: kvstore.py:155): a
+        dense ``out`` gets the stored value with every other row zero.  (A
+        ``RowSparseNDArray`` out waits for the port's ndarray.sparse.)"""
+        keys, outs = _key_value_lists(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(outs[0])
+        for k, olist in zip(keys, outs):
+            src = self._value(str(k))
+            for o, rid in zip(olist, row_ids):
+                with torch.no_grad():
+                    o._data.copy_(_row_masked(src, rid))
+
+    def barrier(self):
+        pass
+
+    def send_command_to_servers(self, head, body):
+        pass
+
     def set_updater(self, updater):
         self._updater = updater
+
+    _set_updater = set_updater
 
     def set_optimizer(self, optimizer):
         self._optimizer = optimizer
@@ -155,6 +230,104 @@ class KVStore:
         self._gc = GradientCompression(**dict(compression_params))
 
 
+class _HostPickler(pickle.Pickler):
+    """Refuses a tensor off the CPU: the server would need the card."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            raise MXNetError("the optimizer holds a tensor on %s; the "
+                             "parameter server runs on the host" % obj.device)
+        return NotImplemented
+
+
+class KVStoreDist(KVStore):
+    """A worker of the parameter server (parity: mxnet_tpu/kvstore.py
+    KVStoreDist; reference kvstore_dist.h).  ``client`` is a connected
+    ``kvstore_server.WorkerClient``; by default one from the DMLC_*
+    variables.  A worker process holds one such store: the server takes
+    NumWorkers connections."""
+
+    def __init__(self, kv_type, client=None):
+        super().__init__(kv_type)
+        from .kvstore_server import WorkerClient
+
+        self._sync = "async" not in kv_type
+        self._client = client if client is not None \
+            else WorkerClient.from_env()
+
+    @property
+    def rank(self):
+        return self._client.rank
+
+    @property
+    def num_workers(self):
+        return self._client.num_workers
+
+    def init(self, key, value):
+        keys, vals = _key_value_lists(key, value)
+        if self.rank == 0:
+            for k, v in zip(keys, _to_host([vl[0] for vl in vals])):
+                self._client.init(str(k), v)
+        self._client.barrier()
+
+    def push(self, key, value, priority=0):
+        keys, vals = _key_value_lists(key, value)
+        keys = [str(k) for k in keys]
+        aggs = []
+        for run in _runs(keys):
+            run_vals = [vals[i] for i in run]
+            if self._gc is not None:
+                run_vals = self._compress([keys[i] for i in run], run_vals)
+            aggs += [vl[0] if len(vl) == 1
+                     else self._reduce(vl, fresh=self._gc is not None)
+                     for vl in run_vals]
+        items = list(zip(keys, _to_host(aggs)))
+        if len(items) == 1:
+            self._client.push(items[0][0], items[0][1], sync=self._sync)
+        else:
+            self._client.push_batch(items, sync=self._sync)
+
+    def _value(self, k):
+        return torch.from_numpy(np.ascontiguousarray(self._client.pull(k)))
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        keys, outs = _key_value_lists(key, out)
+        keys = [str(k) for k in keys]
+        vals = [self._client.pull(keys[0])] if len(keys) == 1 \
+            else self._client.pull_batch(keys)
+        _write(outs, vals)
+
+    def set_optimizer(self, optimizer):
+        """Send the optimizer to the server, which runs it on every sum
+        (``Optimizer.__getstate__`` leaves the Trainer's parameters out)."""
+        buf = io.BytesIO()
+        _HostPickler(buf, protocol=4).dump(optimizer)
+        self._client.set_optimizer(buf.getvalue())
+        self._optimizer = optimizer
+
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        raise MXNetError("the optimizer states of a dist kvstore live on "
+                         "the parameter server")
+
+    def load_optimizer_states(self, fname):
+        raise MXNetError("the optimizer states of a dist kvstore live on "
+                         "the parameter server")
+
+    def barrier(self):
+        self._client.barrier()
+
+    def send_command_to_servers(self, head, body):
+        self._client.command(head, body)
+
+    def close(self):
+        """End this worker cleanly: a barrier, then rank 0 stops the
+        server (upstream's kStopServer at exit)."""
+        self._client.barrier()
+        if self.rank == 0:
+            self._client.shutdown()
+        self._client.close()
+
+
 def create(name="local"):
     """Factory (parity: mxnet_tpu/kvstore.py create; kvstore.cc:40-72)."""
     if not isinstance(name, str):
@@ -166,6 +339,5 @@ def create(name="local"):
         if os.environ.get("DMLC_PS_ROOT_URI") is None:
             # no parameter server: a single-process store (one worker)
             return KVStore(name)
-        raise MXNetError("kvstore type %r with a parameter server is not "
-                         "ported yet" % name)
+        return KVStoreDist(name)
     raise MXNetError("unknown kvstore type %r" % name)

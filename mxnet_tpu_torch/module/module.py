@@ -3,8 +3,14 @@ module.py; python/mxnet/module/module.py:40 — bind:364,
 init_optimizer:474, forward:575, backward:629, update:646).  Each
 executor runs its symbol as one compiled function (``executor``).
 
-``init_optimizer`` works over the port's ``kvstore`` and ``optimizer``;
-a ``dist*`` kvstore raises, as the distributed store is not ported.
+``init_optimizer`` works over the port's ``kvstore`` and ``optimizer``
+(mxnet_tpu/module/module.py:277-330): over a ``dist*`` store the
+optimizer's ``rescale_grad`` is 1 / (batch size x workers) in sync mode,
+and with ``MXNET_UPDATE_ON_KVSTORE`` (default on) the parameter server
+runs it.  Every key goes to the store in one ``init`` call and, on a
+``dist*`` store, comes back into each executor's arrays, so every worker
+starts from rank 0's weights; ``update`` pushes and pulls all the keys
+in one call each.
 """
 from __future__ import annotations
 
@@ -289,9 +295,8 @@ class Module(BaseModule):
         if self._params_dirty:
             self._sync_params_from_devices()
 
-        if isinstance(kvstore, str) and "dist" in kvstore:
-            raise MXNetError("kvstore %r: the distributed kvstore is not "
-                             "ported yet" % kvstore)
+        from .. import config as _config
+
         if isinstance(kvstore, str):
             # reference _create_kvstore: a local store with one device
             # is skipped entirely — the store's accumulate semantics are
@@ -302,7 +307,8 @@ class Module(BaseModule):
                 store = kvs.create(kvstore)
         else:
             store = kvstore
-        update_on_kvstore = False   # only a dist store updates on itself
+        update_on_kvstore = bool(store) and store.type.startswith("dist") \
+            and _config.get("MXNET_UPDATE_ON_KVSTORE")
         rescale = 1.0 / self._effective_batch_size(store)
         self._optimizer = self._build_optimizer(optimizer, optimizer_params,
                                                 rescale)
@@ -313,9 +319,14 @@ class Module(BaseModule):
         if store:
             if self._compression_params:
                 store.set_gradient_compression(self._compression_params)
-            for idx, name in enumerate(self._param_names):
-                if name in self._arg_params:
-                    store.init(idx, self._arg_params[name])
+            idxs = [i for i, name in enumerate(self._param_names)
+                    if name in self._arg_params]
+            store.init(idxs, [self._arg_params[self._param_names[i]]
+                              for i in idxs])
+            if store.type.startswith("dist"):
+                store.pull(idxs, [[e.arg_dict[self._param_names[i]]
+                                   for e in self._exec_group.execs]
+                                  for i in idxs])
             if update_on_kvstore:
                 store.set_optimizer(self._optimizer)
         if not update_on_kvstore:
@@ -372,16 +383,18 @@ class Module(BaseModule):
         self._require()
         assert self.optimizer_initialized, "optimizer not initialized"
         self._params_dirty = True
-        if self._update_on_kvstore:
-            for idx, _, grads, args in self._grad_walk():
-                self._kvstore.push(idx, grads)
-                self._kvstore.pull(idx, args)
-            return
         if self._kvstore:
-            # Reduce across devices through the store, then update locally.
-            for idx, _, grads, _ in self._grad_walk():
-                self._kvstore.push(idx, grads)
-                self._kvstore.pull(idx, grads)
+            walk = list(self._grad_walk())
+            if walk:
+                self._kvstore.push([w[0] for w in walk],
+                                   [w[2] for w in walk])
+                # the store's new weights, or the gradients reduced across
+                # devices and workers for the local update
+                self._kvstore.pull([w[0] for w in walk],
+                                   [w[3] if self._update_on_kvstore else w[2]
+                                    for w in walk])
+            if self._update_on_kvstore:
+                return
         for idx, _, grads, args in self._grad_walk():
             for g, a in zip(grads, args):
                 self._updater(idx, g, a)
@@ -414,9 +427,10 @@ class Module(BaseModule):
     def _sync_params_from_devices(self):
         self._exec_group.get_params(self._arg_params, self._aux_params)
         if self._kvstore and self._update_on_kvstore:
-            for idx, name in enumerate(self._param_names):
-                if name in self._arg_params:
-                    self._kvstore.pull(idx, [self._arg_params[name]])
+            idxs = [i for i, name in enumerate(self._param_names)
+                    if name in self._arg_params]
+            self._kvstore.pull(idxs, [self._arg_params[self._param_names[i]]
+                                      for i in idxs])
         self._params_dirty = False
 
     # ------------------------------------------------------------------

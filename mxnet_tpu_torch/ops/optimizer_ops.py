@@ -162,17 +162,20 @@ def rmspropalex_update(weight, grad, n, g, delta, lr=None, gamma1=0.95,
           differentiable=False)
 def ftrl_update(weight, grad, z, n, lr=None, lamda1=0.01, beta=1.0, wd=0.0,
                 rescale_grad=1.0, clip_gradient=-1.0, **kw):
-    lr = pfloat(lr)
+    # a product with 1 / lr, not a quotient: CUDA divides a tensor by a
+    # scalar as that product, the CPU does not, and the L1 step's
+    # cancellation (|z| - lamda1) magnifies their last-bit difference
+    inv_lr = 1.0 / pfloat(lr)
     l1 = pfloat(lamda1, 0.01)
     b = pfloat(beta, 1.0)
     g = _clip(grad * pfloat(rescale_grad, 1.0), clip_gradient)
     new_n = n + torch.square(g)
-    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) * inv_lr
     new_z = z + g - sigma * weight
     w = torch.where(
         torch.abs(new_z) <= l1, torch.zeros_like(weight),
         -(new_z - torch.sign(new_z) * l1)
-        / ((b + torch.sqrt(new_n)) / lr + pfloat(wd, 0.0)))
+        / ((b + torch.sqrt(new_n)) * inv_lr + pfloat(wd, 0.0)))
     return _write([weight, z, n], [w, new_z, new_n])
 
 

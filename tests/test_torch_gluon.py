@@ -208,7 +208,12 @@ def test_sgd_updates_match_jax(momentum, clip):
 def test_kvstore_types(monkeypatch):
     """The factory takes what the JAX package's takes, with the same
     result: the local types, and a ``dist*`` type without a parameter
-    server, are single-process stores of that type (rank 0 of 1)."""
+    server, are single-process stores of that type (rank 0 of 1); with
+    DMLC_PS_ROOT_URI naming a server, a worker of it (KVStoreDist)."""
+    import threading
+
+    from mxnet_tpu_torch.kvstore_server import KVServer
+
     monkeypatch.delenv("DMLC_PS_ROOT_URI", raising=False)
     for name in ("local", "device", "nccl", "local_allreduce_cpu",
                  "local_allreduce_device", "dist_sync", "dist_async",
@@ -216,9 +221,17 @@ def test_kvstore_types(monkeypatch):
         t, j = tmx.kv.create(name), jmx.kv.create(name)
         assert (t.type, t.rank, t.num_workers) == \
             (j.type, j.rank, j.num_workers) == (name, 0, 1)
-    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
-    with pytest.raises(MXNetError, match="not ported"):
-        tmx.kv.create("dist_sync")
+    srv = KVServer("127.0.0.1", 0, 1)
+    threading.Thread(target=srv.serve, daemon=True).start()
+    for key, value in (("DMLC_PS_ROOT_URI", "127.0.0.1"),
+                       ("DMLC_PS_ROOT_PORT", str(srv.port)),
+                       ("DMLC_NUM_WORKER", "1"), ("DMLC_WORKER_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    kv = tmx.kv.create("dist_sync")
+    assert type(kv) is tmx.kv.KVStoreDist
+    assert (kv.type, kv.rank, kv.num_workers) == ("dist_sync", 0, 1)
+    kv.close()
+    srv.close()
     for mx in (tmx, jmx):
         with pytest.raises(mx.base.MXNetError, match="unknown"):
             mx.kv.create("nope")

@@ -337,6 +337,24 @@ def native_built():
                     % tnative.load_error())
 
 
+def _jax_native_loaded(wait_s=120.0):
+    """Load the JAX package's runtime, waiting while another test process
+    may be building cpp/libmxtpu_runtime.so: mxnet_tpu/native.py runs
+    ``make`` under a lock of its own process only, so a load beside a
+    build elsewhere can fail once and, as it remembers the failure,
+    never try again."""
+    import time
+
+    from mxnet_tpu import native as jnative
+
+    deadline = time.monotonic() + wait_s
+    while not jnative.available() and time.monotonic() < deadline:
+        time.sleep(1.0)
+        with jnative._lock:
+            jnative._tried = False
+    return jnative.available()
+
+
 def test_native_decoder_against_jax_and_pil(native_built, rec):
     kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=5,
               dtype="uint8")
@@ -344,6 +362,7 @@ def test_native_decoder_against_jax_and_pil(native_built, rec):
     assert tit._native_ok
     got = _batches(tit, epochs=2)
     assert tit._decoded["native"] >= 10 and tit._decoded["python"] == 0
+    assert _jax_native_loaded()
     jit = jmx.io.ImageRecordIter(**kw)
     assert jit._native_ok
     _same_batches(got, _batches(jit, epochs=2))

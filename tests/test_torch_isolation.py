@@ -19,8 +19,11 @@ two examples: one LSTM step with its backward, one unrolled mx.rnn
 stack and one apply_fusion), and the detection and int8 slice (the
 contrib, ssd, deformable and quantization ops, contrib.quantization and
 the ssd_detect_quant and quantize_calibrate examples: one int8
-detection forward of quantize_model's graph) loads neither jax nor
-mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
+detection forward of quantize_model's graph), and the parameter-server
+path (mx.kvstore_server, mx.tools.launch and KVStoreDist: a sync round of
+two workers through the port's server with 2-bit compression and its
+optimizer) loads neither jax nor mxnet_tpu, and chip_smoke.py imports
+neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -184,6 +187,29 @@ qargs["data"] = mx.nd.array(rng.rand(1, 3, 16, 16).astype(np.float32),
                             ctx=mx.cpu())
 det = qsym.bind(ctx=mx.cpu(), args=qargs).forward()[0]
 assert det.shape == (1, 80, 6)
+import threading
+import mxnet_tpu_torch.kvstore_server as ps
+import mxnet_tpu_torch.tools.launch
+srv = ps.KVServer("127.0.0.1", 0, 2)
+threading.Thread(target=srv.serve, daemon=True).start()
+stores = [mx.kv.KVStoreDist("dist_sync", client=ps.WorkerClient(
+    "127.0.0.1", srv.port, rank=r, num_workers=2)) for r in range(2)]
+pulled = [None, None]
+def dist_worker(kv):
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=1.0))
+    kv.init(["0"], [mx.nd.zeros((4,), ctx=mx.cpu())])
+    kv.push(["0"], [mx.nd.ones((4,), ctx=mx.cpu())])
+    out = mx.nd.zeros((4,), ctx=mx.cpu())
+    kv.pull(["0"], out=[out])
+    pulled[kv.rank] = out.asnumpy()
+    kv.close()
+ts = [threading.Thread(target=dist_worker, args=(kv,)) for kv in stores]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join(timeout=60)
+assert all((p == -1.0).all() for p in pulled), pulled
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

@@ -291,12 +291,25 @@ def test_feedforward_and_dist_kvstore():
                                learning_rate=0.1)
     ff.fit(_iter(tmx, x, y))
     assert ff.predict(_iter(tmx, x, y)).shape == (40, 4)
-    mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
-    mod.bind(data_shapes=[("data", (8, 6))],
-             label_shapes=[("softmax_label", (8,))])
-    mod.init_params()
-    with pytest.raises(MXNetError, match="not ported"):
-        mod.init_optimizer(kvstore="dist_sync")
+    # a dist kvstore with no parameter server named is a single-process
+    # store of that type that runs the optimizer (update_on_kvstore), as
+    # in the JAX package: the same update as the local path's
+    params = {}
+    for kvstore in ("local", "dist_sync"):
+        mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
+        mod.bind(data_shapes=[("data", (8, 6))],
+                 label_shapes=[("softmax_label", (8,))])
+        w = _weights(_mlp(tmx), {"data": (8, 6), "softmax_label": (8,)})
+        mod.init_params(arg_params={k: _nd(tmx, v) for k, v in w.items()},
+                        force_init=True)
+        mod.init_optimizer(kvstore=kvstore, optimizer_params=SGD)
+        assert mod._update_on_kvstore is (kvstore == "dist_sync")
+        mod.forward_backward(tmx.io.DataBatch([_nd(tmx, x[:8])],
+                                              [_nd(tmx, y[:8])]))
+        mod.update()
+        params[kvstore] = _np(mod.get_params()[0])
+    assert mod._kvstore.type == "dist_sync"
+    _assert_dicts(params["dist_sync"], params["local"])
     with pytest.raises(MXNetError, match="not ported"):
         tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), aot="auto")
 

@@ -185,11 +185,31 @@ def test_data_train_three_batches_an_epoch(tmp_path):
     assert hooked == list(range(EPOCHS * 3))
 
 
-def test_data_train_keeps_the_dist_guard(tmp_path):
+def test_data_train_keeps_the_dist_guard(tmp_path, monkeypatch):
+    """The loop's --kv-store dist_sync, once a guard, now trains through
+    the port's parameter server (one worker; the server runs the sgd):
+    its losses and accuracy match the JAX example's loop on kvstore
+    'device', as the local run's do."""
+    import threading
+
+    from mxnet_tpu_torch.kvstore_server import KVServer
+
     rec = write_rec(tmp_path, BATCH)
-    with pytest.raises(MXNetError, match="not ported yet"):
-        train_imagenet.train(_argv(rec) + ["--kv-store", "dist_sync"],
-                             ctx=tmx.cpu())
+    want, want_acc, w0 = _jax_loop(rec)
+    srv = KVServer("127.0.0.1", 0, 1)
+    threading.Thread(target=srv.serve, daemon=True).start()
+    for key, value in (("DMLC_PS_ROOT_URI", "127.0.0.1"),
+                       ("DMLC_PS_ROOT_PORT", str(srv.port)),
+                       ("DMLC_NUM_WORKER", "1"), ("DMLC_WORKER_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    with tmx.name.NameManager():
+        res = train_imagenet.train(_argv(rec) + ["--kv-store", "dist_sync"],
+                                   ctx=tmx.cpu(), arg_params=w0)
+    assert type(res["trainer"]._kvstore) is tmx.kv.KVStoreDist
+    assert srv._optimizer.rescale_grad == 1.0 / BATCH
+    _check(res, want, want_acc, BATCH)
+    res["trainer"]._kvstore.close()
+    srv.close()
 
 
 def test_data_train_runs_on_the_card_by_default(tmp_path):
