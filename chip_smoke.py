@@ -42,11 +42,14 @@ non-zero, printing no result, without them.  Phases, one line each:
    within 1e-4; dq/dk/dv through the autograd Function within 5e-4 of
    plain autograd;
 6. sp: the sequence-parallel path on a one-card mesh make_mesh({"sp": 1}):
-   ulysses_attention_sharded(use_flash=True) and shard_map(ring_attention,
-   use_flash=True) at the long context in f32 and in bf16, each within
-   the kernel's bound of local_attention on the same values in f32 (5e-5
-   in f32, the elementwise bf16 bound in bf16) and each call launching
-   its type's kernel exactly once;
+   ulysses_attention_sharded(use_flash=True) and
+   ring_attention_sharded(use_flash=True) at the long context in f32 and
+   in bf16, each within the kernel's bound of local_attention on the same
+   values in f32 (5e-5 in f32, the elementwise bf16 bound in bf16) and
+   each call launching its type's kernel exactly once; with telemetry on
+   for those calls, COLLECTIVE_BYTES{sp} equal to the engines' counts
+   (4 x q's bytes an all_to_all call, K + V a ppermute call) and
+   MESH_DEVICES{sp} 1;
 7. sharded: the benchmark of record's training path (bench.py:40-99):
    resnet50_v1 (full width, classes 1000, Xavier), SoftmaxCrossEntropyLoss,
    sgd lr 0.1 momentum 0.9, batch 256 of 3x224x224 synthetic data from
@@ -64,7 +67,18 @@ non-zero, printing no result, without them.  Phases, one line each:
    the small ResNet's f32 ShardedTrainer losses on
    the card against the CPU (rtol 1e-5), the non-finite guard on a NaN
    batch, and step_many(3) bit for bit equal to 3 steps with
-   deterministic cuDNN;
+   deterministic cuDNN.  Then the same trainer with the observability
+   layer: 4 sync steps with it off, then telemetry, tracing, events and
+   a goodput ledger on (the MFU peak set to the data sheet's dense bf16
+   989 TFLOP/s), one step (which also counts the step's FLOPs), 4 sync
+   steps and one step_many(4) under the sync-debug mode: TRAIN_STEPS
+   equal to the steps run, step_breakdown()'s five buckets within 1% of
+   span + gap, TRAIN_STEP_FLOPS and TRAIN_MFU set, one train_step event
+   a dispatch, the goodput report's steps; then one step between
+   profiler.start() and stop() and dump(): profile.json holds the
+   ShardedTrainer.step span and the <filename>_trace/ device trace
+   cuDNN/cuBLAS kernel events; an 'observed' line with the step median
+   off and on;
 8. decode: the LM serving path at tools/bench_decode.py's accelerator
    width (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff 2048,
    max_len 256; Xavier from a seed): GenerationEngine(slots=16,
@@ -79,7 +93,10 @@ non-zero, printing no result, without them.  Phases, one line each:
    within 0.12 + 0.05 |ref| of the policy's prefill of the same
    sequences.  A TokenServer over the bf16 engine answers 16 requests of
    max_new_tokens 32, all finishing by 'length' with the engine's own
-   tokens; tests/test_generate.py's small LM gives the same f32 logits
+   tokens, with telemetry, tracing and events on: 16 'ok' token_request
+   wide events with queue, prefill and decode stages, and DECODE_TOKENS
+   the tokens served less each request's first (its prefill's);
+   tests/test_generate.py's small LM gives the same f32 logits
    (within 1e-5 of the largest) and greedy tokens on the card as on the
    CPU; the path launches no hand-written kernel.  A 'decode' line per
    policy: prefill ms per admit (median), step ms (median), tokens/s
@@ -317,16 +334,25 @@ non-zero, printing no result, without them.  Phases, one line each:
    start together once phase 16's timed work is done (their imports
    overlap its small case and calibration); each worker waits, once
    imported, for a go file: leg A's when this phase starts, the others'
-   when leg A has ended.  A worker or launcher that fails, or any check,
+   when leg A has ended.  Leg B's workers meet in one MXNET_FLEET_SPOOL
+   (FleetPublisher.attach), report their loop's steps (TRAIN_STEPS and
+   TRAIN_STEP_SECONDS under loop "gluon": no producer sits in a gluon
+   Trainer loop) and publish; the parent's fleet.fleetz() sees 2 ranks,
+   none stale, and the merged counters equal to the sum over the ranks.
+   A worker or launcher that fails, or any check,
    ends the script non-zero, and every process of the phase is stopped;
 18. flash times: each kernel, the plain version and
    scaled_dot_product_attention (timed only, as the yardstick) beside the
    bound, at the long context and the LM shape, and the wide head dim
    (1, 4096, 4, 512) in both types on flash_attention.cu; kernel and SDPA
    also per call in runs of 10 calls, which leaves out the host's time;
-19. the whole script's wall time, then a {"kernels": [...]} line (the
+19. observe: telemetry.serve_scrape(host "127.0.0.1", port 0) answers
+   /metrics and /statusz through urllib, and an exception forced in a
+   small ShardedTrainer's step writes one flight-recorder bundle
+   (trace.json, telemetry.json, stacks.txt, info.json);
+20. the whole script's wall time, then a {"kernels": [...]} line (the
    compression rows' launches: phase 4's and each phase-17 worker's);
-20. last line: {"ok": true, "device": {...}}.
+21. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -352,7 +378,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import generate, kernels, parallel
+from mxnet_tpu_torch import (events, fleet, generate, goodput, kernels,
+                             parallel, profiler, telemetry, tracing)
 from mxnet_tpu_torch.contrib import compression as comp
 from mxnet_tpu_torch.examples.transformer_lm import TransformerLM
 from mxnet_tpu_torch.gluon import utils as gutils
@@ -414,6 +441,9 @@ SYNC_STEPS = 8
 ASYNC_CALLS = 2
 # tests/test_torch_sharded_trainer.py's sgd settings for the small ResNet
 SMALL_SGD = {"learning_rate": 3e-5, "momentum": 0.9, "wd": 1e-4}
+OBS_STEPS = 4                    # sync steps with the layer off, then on
+H100_BF16_PEAK = 989e12          # data sheet, SXM, dense bf16 (700 W)
+BREAKDOWN_TOL = 0.01             # buckets against span + gap, relative
 # the decode phase: tools/bench_decode.py's LM on an accelerator
 # (:182-200, d_ff 4 x d_model), 16 slots x 256 positions, 16 prompts of 16
 # tokens (:248), 48 steps (:87); then 8 steps under the profiler
@@ -1186,8 +1216,139 @@ def phase_sharded(card):
              peak / 1e9, ["%.4f" % v for v in losses],
              ["%.4f" % v for v in async_losses], scale,
              trainer.skipped_steps, profile, card), flush=True)
+    sharded_observed(trainer, x, y, card)
     trainer.close()
     return {"sync_ips": sync_ips, "async_ips": async_ips}
+
+
+def _trace_kernels(path):
+    """(kernel events, their names) of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in evs
+             if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    return len(names), names
+
+
+def sharded_observed(trainer, x, y, card):
+    """Phase 7 with the observability layer on (see the module doc): the
+    sync step median with the layer off and on, then step_many(4) under
+    the sync-debug mode with it on (one metric flush a step); the
+    counters, the step breakdown,
+    the MFU gauge, the wide events and the goodput ledger checked; then
+    one step under profiler.start/stop/dump and both trace files read."""
+    obs = tempfile.mkdtemp(prefix="obs_")
+    batches = [([x], y)] * trainer.steps_per_call
+    rec = None
+
+    def sync_steps(n):
+        out = []
+        for _ in range(n):
+            dt, _ = timed_s(lambda: trainer.step([x], y))
+            out.append(dt)
+        return out
+
+    try:
+        # sync steps: each reads its loss (a flush a step)
+        trainer.configure_overlap(async_metrics=False, metrics_every=1)
+        off_s = sync_steps(OBS_STEPS)
+        telemetry.reset()
+        tracing.reset()
+        events.reset()
+        telemetry.set_peak_flops(H100_BF16_PEAK)
+        telemetry.enable()
+        tracing.enable()
+        events.enable(path="", sample=1.0)
+        # the ledger's wall starts here, not at the process's start
+        rec = goodput.GoodputRecorder(os.path.join(obs, "goodput"), rank=0,
+                                      n_procs=1).begin(start_reason="fresh",
+                                                       started_at=time.time())
+        # the first step with the layer on also counts the step's FLOPs
+        # (FlopCounterMode over a throwaway step, after its window)
+        warm_s, _ = timed_s(lambda: trainer.step([x], y))
+        on_s = sync_steps(OBS_STEPS)
+        trainer.configure_overlap(async_metrics=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.step_many(batches)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        bd = trainer.step_breakdown()
+        run = 1 + OBS_STEPS + trainer.steps_per_call
+        steps = telemetry.TRAIN_STEPS.value(loop="sharded")
+        check(steps == run, "TRAIN_STEPS %s after %d steps" % (steps, run))
+        total = sum(bd.buckets().values())
+        wall = bd.span_s + bd.gap_s
+        check(bd.steps == run and abs(total - wall) <= BREAKDOWN_TOL * wall,
+              "step_breakdown: %d steps, buckets %.6f s vs span + gap %.6f s"
+              % (bd.steps, total, wall))
+        flops = telemetry.TRAIN_STEP_FLOPS.value()
+        mfu = telemetry.TRAIN_MFU.value()
+        check(flops > 0 and mfu > 0, "TRAIN_STEP_FLOPS %s, TRAIN_MFU %s"
+              % (flops, mfu))
+        kinds = [e["kind"] for e in events.recent()]
+        check(kinds == ["train_step"] * (2 + OBS_STEPS),
+              "wide events %s" % kinds)
+        loss = telemetry.TRAIN_LOSS.value()
+        check(np.isfinite(loss) and loss > 0, "TRAIN_LOSS %s" % loss)
+        rec.end("clean", step=trainer.global_step)
+        gp = goodput.goodputz(dir=rec.dir)
+        check(gp["active"] and gp["steps"] == run and gp["kills"] == 0,
+              "goodput report: %s" % {k: gp.get(k) for k in
+                                      ("active", "steps", "kills")})
+        # profiler window: one step, both trace files
+        profiler.set_config(filename=os.path.join(obs, "profile.json"))
+        trainer.configure_overlap(async_metrics=False)
+        torch.cuda.synchronize()
+        profiler.start()
+        check(profiler.last_error() is None, "profiler.start failed: %r"
+              % (profiler.last_error(),))
+        prof_s, _ = timed_s(lambda: trainer.step([x], y))
+        profiler.stop()
+        host_path = profiler.dump()
+        with open(host_path) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "span"]
+        check(any(e["name"] == "ShardedTrainer.step" for e in spans),
+              "profile.json holds no ShardedTrainer.step span")
+        n_kern, names = _trace_kernels(profiler.device_trace_path())
+        lib = [n for n in names if any(k in n.lower() for k in (
+            "cudnn", "conv", "gemm", "sm90", "xmma", "cutlass", "nchw"))]
+        check(n_kern > 0 and lib, "the device trace holds %d kernel events, "
+              "%d of cuDNN/cuBLAS" % (n_kern, len(lib)))
+        heartbeat = mx.monitor.TelemetryHeartbeat().line()
+    finally:
+        if rec is not None:
+            rec.end("clean")
+        goodput.set_dir(None)
+        telemetry.disable()
+        tracing.disable()
+        events.disable()
+        telemetry.set_peak_flops(None)
+        profiler.set_config(filename="profile.json")
+        shutil.rmtree(obs, ignore_errors=True)
+    b = bd.as_dict()
+    print("sharded observed: the same trainer, sync steps with the layer off "
+          "%s s (median %.4f) and with telemetry, tracing, events and a "
+          "goodput ledger on %s s (median %.4f; the first on-step %.4f s "
+          "also counts the FLOPs) | step_many(4) under sync-debug 'error' "
+          "with the layer on | TRAIN_STEPS %d = steps run | step breakdown "
+          "ms a step %s, buckets sum %.4f vs span + gap %.4f | "
+          "TRAIN_STEP_FLOPS %.4g (FlopCounterMode), TRAIN_MFU %.4f against "
+          "%.0f TFLOP/s (data sheet, dense bf16, 700 W) | %d train_step "
+          "events | goodput %.2f%% of %.2f s | heartbeat: %s | profiler "
+          "window of one step %.4f s: profile.json %d spans, device trace "
+          "%d kernel events, %d cuDNN/cuBLAS | %s"
+          % (["%.4f" % v for v in off_s], statistics.median(off_s),
+             ["%.4f" % v for v in on_s], statistics.median(on_s), warm_s,
+             steps, b["buckets_ms_per_step"], 1e3 * total, 1e3 * wall,
+             flops, mfu, H100_BF16_PEAK / 1e12, len(kinds),
+             gp["goodput_pct"] or 0.0, gp["wall_s"], heartbeat, prof_s,
+             len(spans), n_kern, len(lib), card), flush=True)
+    return {"off_median_s": statistics.median(off_s),
+            "on_median_s": statistics.median(on_s)}
 
 
 def small_trainer(ctx, weights, **kw):
@@ -1383,27 +1544,43 @@ def phase_sp(card):
     in f32 and in bf16: returns the launch counts of this run, and per
     type the worst |difference| from local_attention, the worst share of
     the bf16 bound and the engines' times."""
-    mesh = parallel.make_mesh({"sp": 1})
-    spec = parallel.P(None, "sp", None, None)
-    ring = parallel.shard_map(
-        functools.partial(parallel.ring_attention, axis_name="sp",
-                          use_flash=True),
-        mesh, (spec, spec, spec), spec)
-    inputs = {dtype: flash_inputs(LONG_SHAPE, dtype, 7)
-              for dtype in (torch.float32, torch.bfloat16)}
-    engines = (("ulysses", functools.partial(
-                    parallel.ulysses_attention_sharded, mesh, use_flash=True)),
-               ("ring", ring))
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    outs, per_call = {}, {}
-    for dtype, qkv in inputs.items():
-        for name, fn in engines:
-            before = dict(kernels.launch_counts)
-            outs[dtype, name] = fn(*qkv)
-            per_call[dtype, name] = {n: c - before[n] for n, c
-                                     in kernels.launch_counts.items()}
-    torch.cuda.synchronize()
+    telemetry.reset()
+    telemetry.enable()      # the mesh gauge and the engines' bytes
+    try:
+        mesh = parallel.make_mesh({"sp": 1})
+        inputs = {dtype: flash_inputs(LONG_SHAPE, dtype, 7)
+                  for dtype in (torch.float32, torch.bfloat16)}
+        engines = (("ulysses", functools.partial(
+                        parallel.ulysses_attention_sharded, mesh,
+                        use_flash=True)),
+                   ("ring", functools.partial(
+                        parallel.ring_attention_sharded, mesh,
+                        use_flash=True)))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs, per_call = {}, {}
+        for dtype, qkv in inputs.items():
+            for name, fn in engines:
+                before = dict(kernels.launch_counts)
+                outs[dtype, name] = fn(*qkv)
+                per_call[dtype, name] = {n: c - before[n] for n, c
+                                         in kernels.launch_counts.items()}
+        torch.cuda.synchronize()
+        coll = {op: telemetry.COLLECTIVE_BYTES.value(axis="sp", op=op)
+                for op in ("all_to_all", "ppermute")}
+        mesh_sp = telemetry.MESH_DEVICES.value(axis="sp")
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    # each ulysses call counts q, k, v and the output (4 x q's bytes
+    # here); each ring call its K and V
+    want_coll = {"all_to_all": sum(4 * q.nbytes for q, _, _
+                                   in inputs.values()),
+                 "ppermute": sum(k.nbytes + v.nbytes for _, k, v
+                                 in inputs.values())}
+    check(coll == want_coll and mesh_sp == 1,
+          "sp: COLLECTIVE_BYTES %s, expected %s; MESH_DEVICES{sp} %s"
+          % (coll, want_coll, mesh_sp))
     launches = dict(kernels.launch_counts)
     errs, shares, times = {}, {}, {}
     for dtype, (q, k, v) in inputs.items():
@@ -1445,8 +1622,11 @@ def phase_sp(card):
                      ", %.3g of the bf16 bound (limit 1)" % shares[n],
                      times[dtype][n]) for n, _ in engines), card),
               flush=True)
-    print("sp: launches %s (one per engine call per type) | %s"
-          % (launches, card), flush=True)
+    print("sp: launches %s (one per engine call per type) | telemetry on "
+          "for the checked calls: COLLECTIVE_BYTES{sp} %s (the engines' "
+          "calls, as counted), MESH_DEVICES{sp} %d | %s"
+          % (launches, {k: int(v) for k, v in coll.items()}, mesh_sp, card),
+          flush=True)
     worst = {dtype: max(e for (d, _), e in errs.items() if d == dtype)
              for dtype in inputs}
     return launches, worst, max(shares.values()), times
@@ -1701,11 +1881,43 @@ def phase_decode(card):
     # slots 0, 1, ... as the engine's own run did
     for s in reversed(eng.active_slots()):
         eng.evict(s, "length")
-    t0 = time.perf_counter()
-    with generate.TokenServer(eng, queue_depth=DECODE_SLOTS) as srv:
-        futs = [srv.submit(p, max_new_tokens=SERVER_NEW) for p in prompts]
-        results = [f.result(timeout=120) for f in futs]
-    server_s = time.perf_counter() - t0
+    telemetry.reset()
+    events.reset()
+    telemetry.enable()
+    tracing.enable()
+    events.enable(path="", sample=1.0)
+    try:
+        t0 = time.perf_counter()
+        with generate.TokenServer(eng, queue_depth=DECODE_SLOTS) as srv:
+            futs = [srv.submit(p, max_new_tokens=SERVER_NEW)
+                    for p in prompts]
+            results = [f.result(timeout=120) for f in futs]
+        server_s = time.perf_counter() - t0
+        evs = [e for e in events.recent() if e["kind"] == "token_request"]
+        decode_tokens = telemetry.DECODE_TOKENS.value()
+        finished = telemetry.DECODE_REQUESTS_FINISHED.value(reason="length")
+    finally:
+        telemetry.disable()
+        tracing.disable()
+        events.disable()
+        telemetry.reset()
+        events.reset()
+    served = sum(len(r.tokens) for r in results)
+    check(len(evs) == len(results)
+          and all(e["outcome"] == "ok" and e.get("reason") == "length"
+                  and set(e["stages_s"]) == {"queue", "prefill", "decode"}
+                  for e in evs)
+          and sorted(e["tokens"] for e in evs)
+          == sorted(len(r.tokens) for r in results),
+          "decode server wide events: %s" % [(e["outcome"], e.get("reason"),
+                                              sorted(e.get("stages_s", {})))
+                                             for e in evs])
+    # each request's first token comes from its prefill, the rest from
+    # decode steps (DECODE_TOKENS counts those)
+    check(decode_tokens == served - len(results)
+          and finished == len(results),
+          "DECODE_TOKENS %s for %d tokens served to %d requests; finished %s"
+          % (decode_tokens, served, len(results), finished))
     for i, r in enumerate(results):
         check(r.finish_reason == "length" and len(r.tokens) == SERVER_NEW,
               "request %d finished %s with %d tokens"
@@ -1714,10 +1926,14 @@ def phase_decode(card):
               "differ from the engine's alone" % i)
     print("decode server: TokenServer over the bf16_mixed engine, %d "
           "requests of max_new_tokens %d: all 'length', tokens equal to the "
-          "engine's alone | %.3f s, %.1f tokens/s, ttft s median %.4f | %s"
+          "engine's alone | %.3f s, %.1f tokens/s, ttft s median %.4f "
+          "(telemetry, tracing and events on) | %d 'ok' token_request "
+          "events with queue/prefill/decode stages, DECODE_TOKENS %d = %d "
+          "served less %d first tokens from the prefills | %s"
           % (len(results), SERVER_NEW, server_s,
              len(results) * SERVER_NEW / server_s,
-             statistics.median(r.ttft_s for r in results), card), flush=True)
+             statistics.median(r.ttft_s for r in results), len(evs),
+             decode_tokens, served, len(results), card), flush=True)
     del eng
 
     rel = check_small_lm_against_cpu()
@@ -5402,6 +5618,13 @@ def dist_leg_b(rank, out_dir):
             captured["arena"] = self._arena[2].clone()
         return res
     comp.GradientCompression.compress_dequantize_batch = capture
+    # the fleet observatory: this worker reports its loop's steps (no
+    # producer sits in a gluon Trainer loop, in either package) and
+    # publishes to the spool the parent reads
+    telemetry.enable()
+    pub = fleet.FleetPublisher(os.path.join(out_dir, "spool"), rank=rank,
+                               n_procs=DIST_WORKERS, loop="gluon")
+    pub.attach(timeout=120)
     mx.random.seed(0)
     net = vision.resnet50_v1(classes=1000)
     net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
@@ -5431,6 +5654,8 @@ def dist_leg_b(rank, out_dir):
         trainer.step(BATCH)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        telemetry.TRAIN_STEP_SECONDS.observe(step_s[-1], loop="gluon")
+        telemetry.TRAIN_STEPS.inc(loop="gluon")
         losses.append(float(loss.mean().asscalar()))
         flat = torch.cat([p.grad()._data.reshape(-1) for p in trainable])
         mag = flat.abs()
@@ -5470,9 +5695,12 @@ def dist_leg_b(rank, out_dir):
             check(same_bits(got, want), "leg B: step-1 dequantized values "
                   "of key %d differ from the plain version" % e)
             worst = max(worst, float((got - want).abs().max()))
+    check(pub.publish_once() is not None, "leg B: fleet publish failed")
     out = {"losses": losses, "step_s": step_s, "agg_sha": agg_sha,
            "nonzero": nonzero, "launches": launches, "worst": worst,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "train_steps": telemetry.TRAIN_STEPS.value(loop="gluon"),
+           "step_count": telemetry.TRAIN_STEP_SECONDS.count(loop="gluon")}
     kv.close()
     return out
 
@@ -5687,9 +5915,29 @@ def phase_dist(card, jobs=None):
             dist_results(p, m, deadline) for p, m in
             zip(jobs.procs[1:], ("leg B", "small", "small on the CPU"))]
         small_err = dist_small_check(jobs.dir, small, small_cpu)
+        fz = fleet.fleetz(spool=os.path.join(jobs.dir, "spool"),
+                          stale_after=DIST_TIMEOUT_S)
     finally:
         if own:
             jobs.stop()
+    merged = {name: fz.get("merged_metrics", {}).get(name, {}).get(
+                  "series", []) for name in ("mxnet_tpu_train_steps_total",
+                                             "mxnet_tpu_train_step_seconds")}
+    m_steps = sum(s["value"] for s in merged["mxnet_tpu_train_steps_total"]
+                  if s["labels"] == {"loop": "gluon"})
+    m_count = sum(s["count"] for s in merged["mxnet_tpu_train_step_seconds"]
+                  if s["labels"] == {"loop": "gluon"})
+    ranks = fz.get("ranks", {})
+    check(fz.get("active") and sorted(ranks) == ["0", "1"]
+          and not any(r["stale"] for r in ranks.values())
+          and m_steps == sum(r["train_steps"] for r in b)
+          == DIST_WORKERS * (1 + DIST_B_STEPS)
+          and m_count == sum(r["step_count"] for r in b),
+          "fleetz: ranks %s, stale %s, merged TRAIN_STEPS %s and step count "
+          "%s against the workers' %s, %s"
+          % (sorted(ranks), [r["stale"] for r in ranks.values()], m_steps,
+             m_count, [r["train_steps"] for r in b],
+             [r["step_count"] for r in b]))
     check(a[0]["sha"] == a[1]["sha"], "leg A: the workers' parameters differ")
     check(b[0]["agg_sha"] == b[1]["agg_sha"],
           "leg B: the workers pulled different sums")
@@ -5734,9 +5982,72 @@ def phase_dist(card, jobs=None):
           "| dist phase %.1f s (the launches started %.1f s before it) | %s"
           % (DIST_WORKERS, small_err, DIST_SMALL_REL,
              time.perf_counter() - t0, head_start, card), flush=True)
+    strag = fz["straggler"]
+    print("dist fleet: leg B's %d workers published to one MXNET_FLEET_SPOOL "
+          "after its rendezvous | fleetz: ranks %s, stale 0, torn %d, clock "
+          "offsets s %s | merged TRAIN_STEPS{gluon} %d = %s summed over the "
+          "ranks, step-seconds count %d | skew %s (straggler rank %s) | %s"
+          % (DIST_WORKERS, sorted(ranks), fz["torn_snapshots"],
+             fz["clock_offsets_s"], m_steps,
+             [r["train_steps"] for r in b], m_count, strag.get("skew"),
+             strag.get("straggler"), card), flush=True)
     return ({name: [r["launches"][name] for r in b]
              for name in ("quantize_2bit", "dequantize_2bit")},
             b[0]["worst"])
+
+
+def phase_observe(card):
+    """The closing leg: the scrape endpoint answers /metrics and /statusz
+    over HTTP, and an exception in a small trainer's step writes one
+    flight-recorder bundle."""
+    import urllib.request
+
+    telemetry.enable()
+    srv = telemetry.serve_scrape(port=0, host="127.0.0.1")
+    try:
+        base = "http://127.0.0.1:%d" % srv.port
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(base + "/statusz", timeout=30) as r:
+            status = json.loads(r.read())
+    finally:
+        telemetry.stop_scrape()
+        telemetry.disable()
+    check("# TYPE mxnet_tpu_train_steps_total counter" in metrics
+          and status.get("ready") is True
+          and "decode" in status.get("subsystems", {}),
+          "scrape endpoint: /metrics %d bytes, /statusz %s"
+          % (len(metrics), sorted(status)))
+    root = tempfile.mkdtemp(prefix="flight_")
+    try:
+        tracing.enable()
+        tracing.enable_flight_recorder(root)
+        tracing.rearm_flight_recorder()
+        _, tr = small_trainer(mx.gpu(0), None)
+        bad = mx.nd.array(np.zeros((2, 3, 8), np.float32), ctx=mx.gpu(0))
+        raised = None
+        try:
+            tr.step([bad], mx.nd.array(np.zeros(2, np.float32),
+                                       ctx=mx.gpu(0)))
+        except Exception as e:  # noqa: BLE001 - the forced fault
+            raised = e
+        bundles = tracing.bundles(root)
+        files = sorted(os.listdir(bundles[0])) if len(bundles) == 1 else []
+    finally:
+        tracing.disable_flight_recorder()
+        tracing.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    check(raised is not None and len(bundles) == 1
+          and {"trace.json", "telemetry.json", "stacks.txt",
+               "info.json"} <= set(files),
+          "flight recorder: raised %r, bundles %s, files %s"
+          % (raised, bundles, files))
+    print("observe: serve_scrape(127.0.0.1, port 0) answered /metrics "
+          "(%d bytes) and /statusz (ready, %d subsystems) | a forced "
+          "exception in a small ShardedTrainer step (%s) wrote 1 "
+          "flight-recorder bundle: %s | %s"
+          % (len(metrics), len(status["subsystems"]),
+             type(raised).__name__, files, card), flush=True)
 
 
 def time_flash(shape, dtype, causal, card):
@@ -5876,6 +6187,7 @@ def main():
             row["bf16_bound_share"] = flash_share[kernel, torch.bfloat16]
         rows.append(row)
     rows += det_rows
+    phase_observe(card)
     print("wall: the whole script %.1f s | %s"
           % (time.perf_counter() - t_start, card), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -46,7 +46,12 @@ flow (``mx.nd.contrib``/``mx.sym.contrib`` foreach, while_loop, cond),
 ``gluon.rnn``, ``gluon.contrib``, ``mx.rnn``, the fused ops, the
 fusion passes (``mx.sym.fusion``) and their cost table
 (``fusion_cost``), behind ``examples.word_language_model`` and
-``examples.rnn_bucketing``.
+``examples.rnn_bucketing``; and the observability layer: ``telemetry``
+(the metric registry, its scrape endpoint and ``/statusz``), ``tracing``
+(spans, the Chrome trace and the flight recorder), ``profiler`` (over
+``torch.profiler``), ``events`` (wide events), ``perf_ledger``,
+``goodput`` and ``fleet``, fed by the trainers, the engines and
+``TokenServer``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, current_context  # noqa: F401
@@ -91,3 +96,10 @@ from . import visualization  # noqa: F401
 from . import fusion_cost  # noqa: F401
 from . import rnn  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
+from . import profiler  # noqa: F401
+from . import telemetry  # noqa: F401  (MXNET_TELEMETRY enables at import)
+from . import tracing  # noqa: F401  (MXNET_TRACE / MXNET_FLIGHT_RECORDER)
+from . import events  # noqa: F401  (MXNET_EVENTS wide-event layer)
+
+if config.get("MXNET_PROFILER_AUTOSTART"):
+    profiler.start()

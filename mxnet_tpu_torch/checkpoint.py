@@ -21,9 +21,12 @@ __all__ = ["NonfiniteError", "NONFINITE_POLICIES", "nonfinite_policy",
 
 
 def atomic_write(fname, data):
-    """Write ``data`` (bytes) to ``fname`` through a temporary file in its
-    directory and a rename: a reader sees the old file or the whole new
-    one, never a torn one."""
+    """Write ``data`` (bytes, or str as UTF-8) to ``fname`` through a
+    temporary file in its directory and a rename: a reader sees the old
+    file or the whole new one, never a torn one."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    fname = os.fspath(fname)
     dirname = os.path.dirname(os.path.abspath(fname))
     fd, tmp = tempfile.mkstemp(dir=dirname, prefix=".tmp_")
     try:
@@ -81,8 +84,21 @@ def check_finite(values, policy, what="loss", logger=None):
     if finite:
         return True
     msg = ("non-finite %s detected (policy=%s)" % (what, policy))
+    from . import tracing as _tracing
+
+    # black-box dump before the policy acts (a no-op unless armed); under
+    # "raise" it is taken inside the except block, so the bundle's
+    # exception carries a traceback and the step's own exception hook
+    # files no second bundle
     if policy == "raise":
-        raise NonfiniteError(msg)
+        try:
+            raise NonfiniteError(msg)
+        except NonfiniteError as err:
+            _tracing.record_crash("nonfinite", err,
+                                  extra={"what": what, "policy": policy})
+            raise
+    _tracing.record_crash("nonfinite",
+                          extra={"what": what, "policy": policy})
     if policy == "skip":
         (logger or logging).warning("%s: discarding this update, keeping "
                                     "previous params/optimizer state", msg)

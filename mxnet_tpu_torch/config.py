@@ -1,14 +1,17 @@
 """Environment knobs of the port (parity: mxnet_tpu/config.py).
 
 Only the knobs the ported modules read are here, with the JAX package's
-names, defaults and parsing; the rest arrive with their users.
+names, defaults and parsing; the rest arrive with their users.  The
+``enable_*`` helpers switch the observability layer after import, as
+the JAX package's do.
 """
 from __future__ import annotations
 
 import os
 import warnings
 
-__all__ = ["get", "FLAGS", "fusion_cost_table"]
+__all__ = ["get", "FLAGS", "fusion_cost_table", "enable_telemetry",
+           "enable_events", "enable_tracing", "enable_flight_recorder"]
 
 
 def _pint(v):
@@ -155,6 +158,104 @@ FLAGS = {
         "-1", _pint,
         "a listening socket the launcher opened for run_server (-1: bind "
         "DMLC_PS_ROOT_PORT)"),
+    "MXNET_PROFILER_AUTOSTART": (
+        "0", _pbool, "start the torch.profiler trace at import"),
+    "MXNET_PROFILER_MODE": (
+        "0", _pint, "recognized; the facade is configured through "
+        "profiler.set_config"),
+    "MXNET_TRACE": (
+        "0", _pbool,
+        "hierarchical span tracing (tracing.py): step/request spans with "
+        "trace/span/parent IDs into a bounded ring buffer, exportable as "
+        "one Chrome/Perfetto trace.json; off = one branch per call site"),
+    "MXNET_TRACE_BUFFER": (
+        "4096", _pint,
+        "span ring-buffer capacity (oldest spans evicted first; evictions "
+        "counted in mxnet_tpu_trace_spans_dropped_total)"),
+    "MXNET_FLIGHT_RECORDER": (
+        "0", _pbool,
+        "black-box postmortem bundles (trace + telemetry + thread stacks "
+        "+ env/device info) on unhandled step/fit exceptions "
+        "(tracing.record_crash)"),
+    "MXNET_FLIGHT_RECORDER_DIR": (
+        "", str, "flight-recorder bundle directory ('' = ./flight_recorder)"),
+    "MXNET_TELEMETRY": (
+        "0", _pbool,
+        "runtime metrics registry (telemetry.py): step/decode/compile "
+        "series, Prometheus scrape() + JSON dump(); off = one flag-check "
+        "per call site"),
+    "MXNET_TELEMETRY_INTERVAL": (
+        "30", _pfloat,
+        "TelemetryReporter default snapshot interval in seconds"),
+    "MXNET_TELEMETRY_PORT": (
+        "0", _pint,
+        "Prometheus HTTP scrape endpoint: serve telemetry.scrape() at "
+        "http://0.0.0.0:PORT/metrics with /healthz, /statusz, /requestz, "
+        "/varz, /fleetz and /goodputz for the process lifetime "
+        "(telemetry.serve_scrape; 0 = off)"),
+    "MXNET_EVENTS": (
+        "0", _pbool,
+        "wide-event observability (events.py): one structured JSONL "
+        "record per unit of work (TokenServer generation, train-step "
+        "window) with typed outcome, stage latency split, trace id and "
+        "perf_ledger provenance; off = one branch per call site"),
+    "MXNET_EVENTS_PATH": (
+        "", str,
+        "JSONL file the bounded background event writer appends kept "
+        "wide events to ('' = in-memory ring only)"),
+    "MXNET_EVENTS_SAMPLE": (
+        "1.0", _pfloat,
+        "keep probability for ok-outcome wide events below the tail "
+        "threshold (head sampling); non-ok outcomes and the slow tail "
+        "are always kept"),
+    "MXNET_PERF_LEDGER": (
+        "", str,
+        "append-only JSONL run ledger perf_ledger.emit appends its "
+        "schema-versioned BENCH records to ('' = records print but "
+        "nothing persists)"),
+    "MXNET_PEAK_TFLOPS": (
+        "", str,
+        "accelerator peak TFLOP/s for the MFU gauge ('' = no MFU unless "
+        "telemetry.set_peak_flops is given one)"),
+    "MXNET_FLEET_SPOOL": (
+        "", str,
+        "fleet-observatory spool directory (fleet.py): each rank "
+        "publishes atomic metric/breakdown/trace snapshots here and "
+        "fleet.fleetz merges them into a pod view with straggler "
+        "attribution; '' = observatory off"),
+    "MXNET_FLEET_INTERVAL": (
+        "5", _pfloat,
+        "seconds between background fleet snapshot publishes"),
+    "MXNET_FLEET_STALE": (
+        "30", _pfloat,
+        "fleet collector staleness cut in seconds: an older rank is "
+        "marked stale and left out of straggler scoring"),
+    "MXNET_FLEET_CLOCK_OFFSET": (
+        "0", _pfloat,
+        "wall-clock offset in seconds added to every timestamp this "
+        "rank's FleetPublisher records (skew injection for drills; keep "
+        "0 in production)"),
+    "MXNET_GOODPUT_DIR": (
+        "", str,
+        "goodput-ledger job directory (goodput.py): each process "
+        "incarnation appends typed wall-clock segments here and "
+        "goodput.goodputz merges every incarnation of every rank into "
+        "one job-lifetime report; '' = ledger off"),
+    "MXNET_GOODPUT_FLUSH_EVERY": (
+        "16", _pint,
+        "goodput-ledger sidecar cadence: records appended between "
+        "prefix-digest sidecar commits"),
+    "MXNET_DIST_PROC_ID": (
+        "-1", _pint,
+        "this process's rank for the fleet spool, the goodput ledger and "
+        "wide events (-1 = unset: rank 0)"),
+    "MXNET_DIST_NUM_PROCS": (
+        "0", _pint,
+        "process count for the same rank identity (<=1: single-process)"),
+    "MXNET_DIST_BARRIER_TIMEOUT": (
+        "120", _pfloat,
+        "seconds FleetPublisher.attach's spool rendezvous waits for every "
+        "rank"),
     "DMLC_ROLE": ("worker", str, "dist kvstore role"),
     "DMLC_PS_ROOT_URI": ("", str, "dist kvstore server host"),
     "DMLC_PS_ROOT_PORT": ("9091", _pint, "dist kvstore server port"),
@@ -188,3 +289,49 @@ def fusion_cost_table(table):
     from . import fusion_cost
 
     fusion_cost.set_cost_table(table)
+
+
+def enable_telemetry(on=True):
+    """Toggle the runtime metrics registry (same switch as the
+    ``MXNET_TELEMETRY`` env flag, callable after import)."""
+    from . import telemetry
+
+    if on:
+        telemetry.enable()
+    else:
+        telemetry.disable()
+
+
+def enable_events(on=True, path=None, sample=None):
+    """Toggle wide-event emission (same switch as ``MXNET_EVENTS``;
+    ``path``/``sample`` override ``MXNET_EVENTS_PATH`` /
+    ``MXNET_EVENTS_SAMPLE``)."""
+    from . import events
+
+    if on:
+        events.enable(path=path, sample=sample)
+    else:
+        events.disable()
+
+
+def enable_tracing(on=True):
+    """Toggle hierarchical span tracing (same switch as ``MXNET_TRACE``,
+    callable after import)."""
+    from . import tracing
+
+    if on:
+        tracing.enable()
+    else:
+        tracing.disable()
+
+
+def enable_flight_recorder(on=True, directory=None):
+    """Toggle the crash flight recorder (same switch as
+    ``MXNET_FLIGHT_RECORDER``; ``directory`` overrides
+    ``MXNET_FLIGHT_RECORDER_DIR``)."""
+    from . import tracing
+
+    if on:
+        tracing.enable_flight_recorder(directory)
+    else:
+        tracing.disable_flight_recorder()

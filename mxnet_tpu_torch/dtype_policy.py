@@ -37,7 +37,7 @@ import torch
 from .base import MXNetError, torch_dtype
 from . import config as _config
 
-__all__ = ["CastRule", "DtypePolicy", "LossScaleConfig",
+__all__ = ["note_policy", "CastRule", "DtypePolicy", "LossScaleConfig",
            "register_policy", "get_policy", "list_policies",
            "resolve_policy", "policy_tag", "scope", "current_policy",
            "harmonize", "loss_scale_update", "init_loss_scale"]
@@ -280,6 +280,15 @@ class _ScopeState(threading.local):
 
 
 _scope_state = _ScopeState()
+
+
+def note_policy(policy, where):
+    """Telemetry info gauge for the active policy at a build site."""
+    from . import telemetry as _telemetry
+
+    if _telemetry.enabled():
+        _telemetry.DTYPE_POLICY_INFO.set(1, policy=policy_tag(policy),
+                                         where=where)
 
 
 @contextlib.contextmanager

@@ -60,6 +60,7 @@ class Executor:
         self._fusion = fusion
         self._dtype_policy = dtype_policy
         policy = _dtp.resolve_policy(dtype_policy)
+        _dtp.note_policy(policy, "executor")
         self._symbol = symbol
         self._ctx = ctx or current_context()
         self.arg_dict = dict(args)

@@ -24,8 +24,10 @@ mxnet_tpu/fusion_cost.py).
   thread-local that exists from each thread's start, as a compiled graph
   guards on what it reads.
 
-``note_fired`` keeps its signature; the JAX package's telemetry counter
-and trace span for a fired rewrite are not ported yet.
+``note_fired`` counts a fired rewrite in telemetry (``FUSION_REWRITES``)
+and marks it with a ``fusion:<pattern>`` span, as the JAX package's does
+at trace time.  Inside a ``torch.compile`` trace it records nothing: a
+lock or a clock read there would break the graph (``fullgraph=True``).
 """
 from __future__ import annotations
 
@@ -445,10 +447,23 @@ def current_plan():
 
 
 def note_fired(pattern, site, key=None):
-    """One fired rewrite of ``pattern`` at ``site`` (cost-table ``key``).
-    The JAX package counts it in telemetry and marks it in the trace;
-    neither is ported yet, so this records nothing."""
-    return None
+    """Telemetry counter + trace annotation for one fired rewrite of
+    ``pattern`` at ``site`` (cost-table ``key``), so wins are
+    attributable in the exports.  Silent while dynamo traces."""
+    import torch
+
+    if torch.compiler.is_compiling():
+        return
+    from . import telemetry as _telemetry
+
+    if _telemetry.enabled():
+        _telemetry.FUSION_REWRITES.inc(pattern=pattern)
+    from . import tracing as _tracing
+
+    if _tracing.enabled():
+        sp = _tracing.begin("fusion:%s" % pattern,
+                            args={"site": site, "key": key})
+        sp.end()
 
 
 def runtime_decision(pattern, shape, dtype, default_on=False, axis=None,

@@ -32,8 +32,13 @@ PagedGenerationEngine :651-1376, GenerationResult / TokenServer
 Where the JAX engines compile their programs, these run them eagerly
 under ``torch.inference_mode()`` on one device (by default the current
 context, so the card), with the parameters committed and cast once at
-construction.  Not ported yet: meshes and layouts, AOT, SLO shedding and
-the telemetry, tracing and event hooks.
+construction.  Not ported yet: meshes and layouts, AOT and SLO shedding.
+
+Observability is the JAX package's: the ``DECODE_*`` series of both
+engines, ``TokenServer``'s ``decode.request`` spans and one
+``token_request`` wide event a request, the ``decode`` ``/statusz``
+subsystem and its readiness check (a server stops being ready when its
+drained ``close()`` starts).
 
 Model protocols: ``prefill_forward(tokens)`` / ``decode_forward(tokens,
 caches, pos)`` (ring) and ``chunk_forward(tokens, caches, start)``
@@ -49,12 +54,16 @@ import hashlib
 import logging
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from . import config as _config
 from . import dtype_policy as _dtp
+from . import events as _events
+from . import telemetry as _telemetry
+from . import tracing as _tracing
 from . import random as _random
 from .base import MXNetError
 from .context import Context, current_context
@@ -71,6 +80,37 @@ __all__ = ["SamplingConfig", "GenerationEngine", "PagedGenerationEngine",
 _logger = logging.getLogger("mxnet_tpu_torch.generate")
 
 _UNSET = object()
+
+# live TokenServers (weak), feeding the /statusz decode subsystem and the
+# /healthz readiness contract — a decode process stops being ready the
+# moment a drained close() starts
+_live_servers = weakref.WeakSet()
+_live_lock = threading.Lock()
+
+
+def _live_snapshot():
+    with _live_lock:
+        return list(_live_servers)
+
+
+def _decode_statusz():
+    out = {"servers": []}
+    for s in _live_snapshot():
+        st = s.stats()
+        st["occupancy"] = s._engine.occupancy()
+        out["servers"].append(st)
+    return out
+
+
+def _decode_ready():
+    servers = _live_snapshot()
+    if not servers:
+        return True
+    return any(not s._closed and s._running for s in servers)
+
+
+_telemetry.register_status_provider("decode", _decode_statusz)
+_telemetry.register_readiness("decode", _decode_ready)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +277,7 @@ class _Engine:
         JAX engines cast inside every compiled call, which gives the same
         values."""
         policy = _dtp.resolve_policy(dtype_policy)
+        _dtp.note_policy(policy, "generate")
         self._dtype_policy = policy
         self._cache_dtype = policy.compute_dtype if policy is not None \
             else torch.float32
@@ -389,6 +430,13 @@ class GenerationEngine(_Engine):
                 "cache_tokens": tokens, "cache_capacity": cap,
                 "occupancy": tokens / cap if cap else 0.0}
 
+    def _note_occupancy(self):
+        if not _telemetry.enabled():
+            return
+        occ = self.occupancy()
+        _telemetry.DECODE_ACTIVE_SLOTS.set(occ["active_slots"])
+        _telemetry.DECODE_CACHE_TOKENS.set(occ["cache_tokens"])
+
     def bucket_for(self, length):
         """Smallest prefill bucket >= ``length`` (raises when the prompt
         exceeds every bucket)."""
@@ -434,6 +482,7 @@ class GenerationEngine(_Engine):
         self._pos[slot] = n
         self._cur_tok[slot] = tok
         self._active[slot] = True
+        self._note_occupancy()
         return slot, tok
 
     def _prefill(self, padded, n, slot):
@@ -459,6 +508,7 @@ class GenerationEngine(_Engine):
         to the host once per step."""
         if not self._active.any():
             return {}
+        t0 = time.perf_counter()
         host = torch.from_numpy(np.stack([self._cur_tok, self._pos]))
         tok_pos = host.to(self._device)
         with self._dispatch():
@@ -469,6 +519,7 @@ class GenerationEngine(_Engine):
             logits, next_tok = self._sample(logits_nd._data)
         self._last_logits = logits
         toks = next_tok.cpu().numpy()
+        _telemetry.DECODE_STEP_SECONDS.observe(time.perf_counter() - t0)
         out = {}
         for slot in np.nonzero(self._active)[0]:
             slot = int(slot)
@@ -476,6 +527,9 @@ class GenerationEngine(_Engine):
             out[slot] = tok
             self._cur_tok[slot] = tok
             self._pos[slot] += 1
+        _telemetry.DECODE_TOKENS.inc(len(out))
+        _telemetry.DECODE_BATCH_TOKENS.observe(len(out))
+        self._note_occupancy()
         return out
 
     def evict(self, slot, reason):
@@ -490,6 +544,8 @@ class GenerationEngine(_Engine):
         # run after run, which keeps sampled generation reproducible
         # under mx.random.seed
         self._free.appendleft(int(slot))
+        _telemetry.DECODE_EVICTIONS.inc(reason=reason)
+        self._note_occupancy()
 
     def at_capacity(self, slot):
         """True when ``slot`` exhausted the model's positions (the
@@ -801,6 +857,14 @@ class PagedGenerationEngine(_Engine):
                 self.spec_accepted_per_step(), 4)
         return out
 
+    def _note_occupancy(self):
+        if not _telemetry.enabled():
+            return
+        occ = self.occupancy()
+        _telemetry.DECODE_ACTIVE_SLOTS.set(occ["active_slots"])
+        _telemetry.DECODE_CACHE_TOKENS.set(occ["cache_tokens"])
+        _telemetry.DECODE_PAGES_IN_USE.set(occ["pages_in_use"])
+
     def bucket_for(self, length):
         """Admissibility check of the ring engine's API: raises when
         ``length`` exceeds a slot's capacity, else returns the
@@ -955,6 +1019,10 @@ class PagedGenerationEngine(_Engine):
                 attached.append(pg)
             self._prefix_lookup_tokens += limit * self._page_size
             self._prefix_hit_tokens += len(attached) * self._page_size
+            _telemetry.DECODE_PREFIX_LOOKUP_TOKENS.inc(
+                limit * self._page_size)
+            _telemetry.DECODE_PREFIX_HIT_TOKENS.inc(
+                len(attached) * self._page_size)
         self.last_prefix_hit_tokens = len(attached) * self._page_size
         # count before taking: an attached page parked in the reclaim LRU
         # is not free, and _take_page must never hand it out again (the
@@ -1010,6 +1078,7 @@ class PagedGenerationEngine(_Engine):
             self._page_table[slot:slot + 1], chunk,
             np.asarray([filled], np.int64), wpage, woff,
             self._lane_seeds[slot:slot + 1])
+        _telemetry.DECODE_PREFILL_CHUNKS.inc()
         if filled + count < n:
             st["filled"] = filled + count
             return None
@@ -1021,6 +1090,7 @@ class PagedGenerationEngine(_Engine):
         self._history[slot].append(tok)
         if self._prefix_share:
             self._register_prefix(slot, toks, n)
+        self._note_occupancy()
         return slot, tok
 
     def admit(self, token_ids, slot=None):
@@ -1072,9 +1142,12 @@ class PagedGenerationEngine(_Engine):
                                                   axis=1), 0)
         woff = np.where(live, pos % self._page_size, 0)
         self._check_writes(wpage, live)
+        t0 = time.perf_counter()
         sampled = self._chunk_dispatch(self._page_table, tokens, self._pos,
                                        wpage, woff, self._lane_seeds)
+        _telemetry.DECODE_STEP_SECONDS.observe(time.perf_counter() - t0)
         out = {}
+        emitted_total = 0
         for b in active:
             d = drafts[b]
             acc = 0
@@ -1085,10 +1158,16 @@ class PagedGenerationEngine(_Engine):
                 self._spec_drafted += len(d)
                 self._spec_accepted += acc
                 self._spec_steps += 1
+                _telemetry.DECODE_SPEC_DRAFTED.inc(len(d))
+                _telemetry.DECODE_SPEC_ACCEPTED.inc(acc)
             out[b] = emitted
+            emitted_total += len(emitted)
             self._cur_tok[b] = emitted[-1]
             self._pos[b] += len(emitted)
             self._history[b].extend(emitted)
+        _telemetry.DECODE_TOKENS.inc(emitted_total)
+        _telemetry.DECODE_BATCH_TOKENS.observe(len(out))
+        self._note_occupancy()
         return out
 
     def evict(self, slot, reason):
@@ -1104,6 +1183,8 @@ class PagedGenerationEngine(_Engine):
         self._release_slot_pages(slot)
         # LIFO slot reuse, for the ring engine's reproducibility reason
         self._free.appendleft(int(slot))
+        _telemetry.DECODE_EVICTIONS.inc(reason=reason)
+        self._note_occupancy()
 
 
 # ---------------------------------------------------------------------------
@@ -1130,9 +1211,11 @@ class GenerationResult(dict):
 
 class _GenRequest:
     __slots__ = ("tokens", "future", "deadline", "t_submit", "max_new",
-                 "out", "slot", "ttft", "prefix_hit", "on_token")
+                 "out", "slot", "ttft", "span", "t_pickup", "prefix_hit",
+                 "on_token")
 
-    def __init__(self, tokens, deadline, max_new, on_token=None):
+    def __init__(self, tokens, deadline, max_new, span=None,
+                 on_token=None):
         self.tokens = tokens
         self.future = None
         self.deadline = deadline
@@ -1141,6 +1224,8 @@ class _GenRequest:
         self.out = []
         self.slot = None
         self.ttft = None
+        self.span = span           # detached root span (tracing on)
+        self.t_pickup = None       # queue -> prefill pickup time
         self.prefix_hit = None     # prompt tokens served by prefix pages
         self.on_token = on_token   # streaming observer
 
@@ -1173,8 +1258,9 @@ class TokenServer:
                  shed_burn_threshold=2.0, shed_window_s=30.0,
                  shed_hist=None):
         if slo_ms or shed_hist is not None:
-            raise MXNetError("TokenServer(slo_ms=...) shedding needs the "
-                             "TTFT histogram, which is not ported yet")
+            raise MXNetError("TokenServer(slo_ms=...) shedding needs "
+                             "serving_async.BurnRateShedder, which is not "
+                             "ported yet")
         self._engine = engine
         # paged engines admit incrementally: the loop streams one prefill
         # chunk a tick between decode steps instead of running the whole
@@ -1201,6 +1287,8 @@ class TokenServer:
         self._worker = threading.Thread(target=self._loop,
                                         name="decode-server", daemon=True)
         self._worker.start()
+        with _live_lock:
+            _live_servers.add(self)
 
     # -- admission -------------------------------------------------------
 
@@ -1234,6 +1322,27 @@ class TokenServer:
         deadline = now + deadline_s if deadline_s is not None else None
         max_new = int(max_new_tokens) if max_new_tokens else self._max_new
         wait_until = now + timeout if timeout is not None else None
+        span = _tracing.begin("decode.request", activate=False,
+                              args={"prompt_tokens": int(token_ids.size)}) \
+            if _tracing.enabled() else None
+
+        def _rejected(err):
+            """Typed admission failure: count it, close the span, and
+            file the request's one wide event."""
+            if isinstance(err, Overloaded):
+                _telemetry.SERVING_SHED.inc(reason=err.reason)
+                outcome = {"outcome": "shed", "reason": err.reason}
+            else:
+                _telemetry.SERVING_DEADLINE_EXCEEDED.inc(stage="prefill")
+                outcome = {"outcome": "deadline", "stage": "prefill"}
+            if span is not None:
+                span.set(error=type(err).__name__).end(error=True)
+            if _events.enabled():
+                _events.emit("token_request",
+                             span_id=span.span_id if span is not None
+                             else None,
+                             prompt_tokens=int(token_ids.size), **outcome)
+
         with self._cond:
             while True:
                 err = self._admission_error_locked(deadline,
@@ -1243,18 +1352,21 @@ class TokenServer:
                 blockable = isinstance(err, Overloaded) and \
                     err.reason == "queue"
                 if not block or not blockable:
+                    _rejected(err)
                     raise err
                 remaining = None
                 if wait_until is not None:
                     remaining = wait_until - time.monotonic()
                     if remaining <= 0:
+                        _rejected(err)
                         raise err
                 self._cond.wait(remaining if remaining is not None
                                 else 0.1)
-            req = _GenRequest(token_ids, deadline, max_new,
+            req = _GenRequest(token_ids, deadline, max_new, span=span,
                               on_token=on_token)
             req.future = ServingFuture(owner=self, req=req)
             self._queue.append(req)
+            _telemetry.DECODE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()
         return req.future
 
@@ -1275,19 +1387,77 @@ class TokenServer:
         with self._cond:
             resolved = req.future._resolve(
                 exc=Cancelled("request cancelled"))
+            if resolved:
+                self._emit_event(req, outcome="evicted",
+                                 reason="cancelled",
+                                 evicted=req.slot is not None)
             if resolved and req.slot is None and req in self._queue:
                 self._queue.remove(req)
+                _telemetry.DECODE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()
             return resolved
 
     # -- the decode loop -------------------------------------------------
 
+    def _emit_event(self, req, evicted=False, **kw):
+        """The request's one wide event, filed at resolution (callers
+        guard on the future's first-writer-wins _resolve, so a deadline
+        racing a finish files exactly one).  Stage split: ``queue``
+        (submit -> prefill pickup), ``prefill`` (pickup -> first token),
+        ``decode`` (first token -> resolution)."""
+        if req.span is not None:
+            err = kw.get("outcome", "ok") != "ok"
+            req.span.set(tokens=len(req.out), **{k: v
+                         for k, v in kw.items() if v is not None})
+            req.span.end(error=err)
+        if not _events.enabled():
+            return
+        now = time.monotonic()
+        stages = {}
+        if req.t_pickup is not None:
+            stages["queue"] = req.t_pickup - req.t_submit
+            if req.ttft is not None:
+                stages["prefill"] = \
+                    (req.t_submit + req.ttft) - req.t_pickup
+                stages["decode"] = now - (req.t_submit + req.ttft)
+            else:
+                # picked up but no first token: the time went into the
+                # failed or expired prefill
+                stages["prefill"] = now - req.t_pickup
+        else:
+            stages["queue"] = now - req.t_submit
+        _events.emit(
+            "token_request", dur_s=now - req.t_submit, stages_s=stages,
+            tokens=len(req.out), prompt_tokens=int(req.tokens.size),
+            ttft_s=req.ttft, slot=req.slot,
+            prefix_hit_tokens=req.prefix_hit,
+            evicted=True if evicted else None,
+            span_id=req.span.span_id if req.span is not None else None,
+            **kw)
+
     def _finish(self, req, reason):
-        req.future._resolve(result=GenerationResult(
-            tokens=list(req.out), finish_reason=reason, ttft_s=req.ttft))
+        _telemetry.DECODE_REQUESTS_FINISHED.inc(reason=reason)
+        if req.future._resolve(result=GenerationResult(
+                tokens=list(req.out), finish_reason=reason,
+                ttft_s=req.ttft)):
+            self._emit_event(req, outcome="ok", reason=reason)
 
     def _fail(self, req, exc):
-        req.future._resolve(exc=exc)
+        if isinstance(exc, DeadlineExceeded):
+            _telemetry.SERVING_DEADLINE_EXCEEDED.inc(stage=exc.stage)
+        if not req.future._resolve(exc=exc):
+            return
+        if isinstance(exc, DeadlineExceeded):
+            self._emit_event(req, outcome="deadline", stage=exc.stage,
+                             evicted=req.slot is not None)
+        elif isinstance(exc, Overloaded):
+            self._emit_event(req, outcome="shed", reason=exc.reason)
+        elif isinstance(exc, Cancelled):
+            self._emit_event(req, outcome="evicted", reason="cancelled",
+                             evicted=req.slot is not None)
+        else:
+            self._emit_event(req, outcome="error",
+                             error_kind=type(exc).__name__)
 
     def _admit_locked_pop(self):
         """Pop the next admissible queued request (failing expired ones,
@@ -1295,6 +1465,7 @@ class TokenServer:
         now = time.monotonic()
         while self._queue:
             req = self._queue.popleft()
+            _telemetry.DECODE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()    # queue space freed: wake any
                                        # block=True submitter
             if req.future.done():      # cancelled while queued
@@ -1320,6 +1491,7 @@ class TokenServer:
             self._queue = collections.deque(
                 r for r in self._queue
                 if r not in expired and not r.future.done())
+            _telemetry.DECODE_QUEUE_DEPTH.set(len(self._queue))
             self._cond.notify_all()
         for req in expired:
             self._fail(req, DeadlineExceeded(
@@ -1332,6 +1504,13 @@ class TokenServer:
                 req = self._admit_locked_pop()
             if req is None:
                 return
+            t_pick = time.monotonic()
+            req.t_pickup = t_pick
+            ex = {"trace_id": _tracing.TRACE_ID,
+                  "span_id": req.span.span_id} \
+                if req.span is not None else None
+            _telemetry.DECODE_QUEUE_WAIT_SECONDS.observe(
+                t_pick - req.t_submit, exemplar=ex)
             if self._incremental:
                 # claim the slot and pages only; the time to first token
                 # runs on until the chunk that completes the prompt
@@ -1360,6 +1539,7 @@ class TokenServer:
                 continue
             req.slot = slot
             req.ttft = time.monotonic() - req.t_submit
+            _telemetry.DECODE_TTFT_SECONDS.observe(req.ttft, exemplar=ex)
             with self._cond:
                 self._by_slot[slot] = req
             self._deliver(req, slot, tok)
@@ -1435,6 +1615,10 @@ class TokenServer:
             eng.evict(slot, "cancelled")
             return
         req.ttft = time.monotonic() - req.t_submit
+        ex = {"trace_id": _tracing.TRACE_ID,
+              "span_id": req.span.span_id} \
+            if req.span is not None else None
+        _telemetry.DECODE_TTFT_SECONDS.observe(req.ttft, exemplar=ex)
         self._deliver(req, slot, tok)
 
     def _loop(self):
@@ -1476,6 +1660,7 @@ class TokenServer:
                         + list(self._queue)
                     self._by_slot.clear()
                     self._queue.clear()
+                    _telemetry.DECODE_QUEUE_DEPTH.set(0)
                 for req in victims:
                     self._fail(req, ReplicaFailed(
                         "decode loop failed: %s" % (e,), cause=e))
@@ -1523,15 +1708,23 @@ class TokenServer:
             victims = list(self._by_slot.values()) + list(self._queue)
             self._by_slot.clear()
             self._queue.clear()
+            _telemetry.DECODE_QUEUE_DEPTH.set(0)
             self._cond.notify_all()
         for req in victims:
             if not req.future.done():
-                req.future._resolve(exc=Cancelled(
-                    "token server shut down before completion"))
+                if req.future._resolve(exc=Cancelled(
+                        "token server shut down before completion")):
+                    self._emit_event(req, outcome="evicted",
+                                     reason="drain",
+                                     evicted=req.slot is not None)
             if req.slot is not None and worker_gone:
                 # a worker stuck in a device call could still race the
                 # lane; leave it active then rather than double-free it
                 self._engine.evict(req.slot, "drain")
+        # readiness: not ready while close() drains, then this server
+        # stops counting
+        with _live_lock:
+            _live_servers.discard(self)
 
     def __enter__(self):
         return self

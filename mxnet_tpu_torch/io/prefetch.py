@@ -24,14 +24,23 @@ yielding the device tensors as the JAX package yields device arrays.
 Depth comes from ``MXNET_DEVICE_PREFETCH``; 0 makes the wrapper a
 passthrough that stages inline.  Batches flow through unchanged in
 order and count: only their placement moves earlier.
+
+A handoff that finds nothing staged is a stall: ``PREFETCH_STALLS``, a
+``prefetch:stall`` trace instant, and the blocked wall time into
+``PREFETCH_WAIT_SECONDS`` (the step breakdown's data_wait bucket) and
+the goodput ledger's ``data_wait`` segment.
 """
 from __future__ import annotations
 
 import queue as _queue
+import sys as _sys
 import threading as _threading
+import time as _time
 
 import torch
 
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
 
@@ -148,7 +157,26 @@ class DevicePrefetcher:
         if self._done:
             # the producer has ended (its end or error was delivered)
             raise StopIteration
-        kind, item = self._q.get()
+        try:
+            kind, item = self._q.get_nowait()
+        except _queue.Empty:
+            # the train loop beat the pipeline to the handoff: the input
+            # path, not the card, bounds this step.  The blocked wall
+            # time is the data_wait attribution bucket.
+            tel = _telemetry.enabled()
+            if tel:
+                _telemetry.PREFETCH_STALLS.inc()
+            _tracing.instant("prefetch:stall")
+            gp = _sys.modules.get("mxnet_tpu_torch.goodput")
+            gp_on = gp is not None and gp.active()
+            t0 = _time.perf_counter() if (tel or gp_on) else None
+            kind, item = self._q.get()
+            if tel or gp_on:
+                wait_s = _time.perf_counter() - t0
+                if tel:
+                    _telemetry.PREFETCH_WAIT_SECONDS.observe(wait_s)
+                if gp_on:
+                    gp.record_segment("data_wait", wait_s)
         if kind == "err":
             self._done = True
             raise item

@@ -12,6 +12,11 @@ to eager Python.  ``dynamic=False``: a new shape is a new key.
 
 The backend is inductor unless ``_BACKEND`` names another (the CPU tests
 set ``"aot_eager"``, which skips inductor's code generation).
+
+The first call of each key is the compile feed of the observability
+layer (the JAX package's jax.monitoring bridge): its wall time goes to
+``telemetry.note_compile`` (``COMPILES``, ``COMPILE_SECONDS`` and the
+goodput ledger's compile bucket).
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import time
 import types
 
 import torch
+
+from . import telemetry as _telemetry
 
 __all__ = ["Compiled", "signature"]
 
@@ -63,6 +70,8 @@ class Compiled:
                           or "inductor", fullgraph=True, dynamic=False)
         t0 = time.perf_counter()
         out = c(*args)
-        self.compile_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.compile_seconds += dt
         self._compiled[key] = c
+        _telemetry.note_compile(dt)
         return out

@@ -4,8 +4,11 @@ mxnet_tpu/module/base_module.py; python/mxnet/module/base_module.py, the
 bookkeeping, ``_fit_epoch`` one pass over the iterator.  This layer is
 host-side orchestration: the subclasses run compiled executors.
 
-The JAX package's ``checkpoint_manager`` (auto-resume, preemption
-flush) and its telemetry and tracing spans are not ported.
+``fit`` reports as the JAX package's does: ``Module.fit.epoch`` and
+``Module.fit.batch`` spans, the ``TRAIN_*`` and ``HOST_GAP_SECONDS``
+series under ``loop="module"``, ``TRAIN_EPOCHS``, and a flight-recorder
+bundle (``tracing.record_crash``) when it raises.  The JAX package's
+``checkpoint_manager`` (auto-resume, preemption flush) is not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import numpy as np
 
 from .. import checkpoint as _ckpt
 from .. import metric as _metric
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from .. import ndarray
 from ..context import cpu
 
@@ -187,7 +192,19 @@ class BaseModule:
         except StopIteration:
             return final_pairs
         nbatch = 0
+        tel = _telemetry.enabled()
+        tr_on = _tracing.enabled()
+        prev_dispatch_end = None
         while batch is not None:
+            sp = _tracing.begin("Module.fit.batch",
+                                args={"epoch": epoch, "batch": nbatch}) \
+                if tr_on else None
+            t_batch0 = time.perf_counter() if tel else None
+            if tel and prev_dispatch_end is not None:
+                # dispatch-to-dispatch idle: host time this loop spent
+                # outside forward/backward/update
+                _telemetry.HOST_GAP_SECONDS.observe(
+                    max(0.0, t_batch0 - prev_dispatch_end), loop="module")
             if monitor is not None:
                 monitor.tic()
             self.forward_backward(batch)
@@ -206,6 +223,10 @@ class BaseModule:
                     logger=self.logger)
             if apply_update:
                 self.update()
+            else:
+                _telemetry.TRAIN_SKIPPED_STEPS.inc(loop="module")
+            if tel:
+                prev_dispatch_end = time.perf_counter()
             try:
                 upcoming = next(it)
                 self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
@@ -220,6 +241,18 @@ class BaseModule:
             _fire(batch_end_callback,
                   BatchEndParam(epoch=epoch, nbatch=nbatch,
                                 eval_metric=eval_metric, locals=locals()))
+            if sp is not None:
+                sp.end()
+            if tel:
+                dt = time.perf_counter() - t_batch0
+                _telemetry.TRAIN_STEP_SECONDS.observe(dt, loop="module")
+                _telemetry.TRAIN_STEPS.inc(loop="module")
+                data = getattr(batch, "data", None)
+                if data and dt > 0:
+                    shp = getattr(data[0], "shape", None)
+                    if shp:
+                        _telemetry.TRAIN_SAMPLES_PER_SEC.set(
+                            int(shp[0]) / dt)
             batch = upcoming
             nbatch += 1
         return final_pairs
@@ -257,33 +290,53 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
 
-        for epoch in range(begin_epoch, num_epoch):
-            start = time.time()
-            eval_metric.reset()
-            train_pairs = self._fit_epoch(
-                train_data, epoch, eval_metric, batch_end_callback,
-                monitor, sparse_row_id_fn, on_nonfinite=on_nonfinite)
-            for name, val in train_pairs:
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - start)
+        outer_span = _tracing.current_span()
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                start = time.time()
+                sp = _tracing.begin("Module.fit.epoch",
+                                    args={"epoch": epoch}) \
+                    if _tracing.enabled() else None
+                eval_metric.reset()
+                train_pairs = self._fit_epoch(
+                    train_data, epoch, eval_metric, batch_end_callback,
+                    monitor, sparse_row_id_fn, on_nonfinite=on_nonfinite)
+                for name, val in train_pairs:
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - start)
+                _telemetry.TRAIN_EPOCHS.inc()
 
-            arg_params, aux_params = self.get_params()
-            self.set_params(arg_params, aux_params)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_params, aux_params)
+                arg_params, aux_params = self.get_params()
+                self.set_params(arg_params, aux_params)
+                if epoch_end_callback is not None:
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, arg_params, aux_params)
 
-            if eval_data is not None:
-                pairs = self.score(
-                    eval_data, validation_metric,
-                    score_end_callback=eval_end_callback,
-                    batch_end_callback=eval_batch_end_callback,
-                    epoch=epoch)
-                for name, val in pairs:
-                    self.logger.info("Epoch[%d] Validation-%s=%f",
-                                     epoch, name, val)
-            train_data.reset()
+                if eval_data is not None:
+                    pairs = self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch)
+                    for name, val in pairs:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                train_data.reset()
+                if sp is not None:
+                    sp.end()
+        except Exception as e:
+            # postmortem bundle for a crashed fit (a no-op unless the
+            # flight recorder is armed), taken before the unwind so the
+            # failing step's epoch and batch spans are still open in it
+            _tracing.record_crash("exception-fit", e,
+                                  extra={"layer": "Module.fit"})
+            # then close the orphaned spans: a dead span left as the
+            # contextvar parent would corrupt the parentage of every
+            # span recorded after a caught-and-retried fit
+            _tracing.unwind_to(outer_span)
+            raise
 
     # ------------------------------------------------------------------
     # Parameter persistence

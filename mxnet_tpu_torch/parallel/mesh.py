@@ -182,6 +182,12 @@ def make_mesh(axes=None, devices=None):
     if n != world:
         raise ValueError("mesh needs %d devices, the process group has %d "
                          "ranks (the mesh covers every rank)" % (n, world))
+    from .. import telemetry as _telemetry
+
+    # topology gauge: one series per axis of the most recent mesh (a
+    # no-op with telemetry off)
+    for a, s in zip(order, sizes):
+        _telemetry.MESH_DEVICES.set(int(s), axis=a)
     return DeviceMesh(kind, torch.arange(n).reshape(sizes),
                       mesh_dim_names=tuple(order))
 

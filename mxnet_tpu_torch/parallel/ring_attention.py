@@ -135,14 +135,23 @@ def local_attention(q, k, v, causal=False, scale=None):
 
 
 def ring_attention_sharded(mesh, q, k, v, axis_name="sp", causal=False,
-                           batch_axis=None):
+                           batch_axis=None, use_flash=False):
     """Convenience wrapper: shard_map ring_attention over `mesh` with the
     sequence dim of q/k/v sharded along `axis_name`; ``batch_axis='dp'``
-    also shards the batch dim over the mesh's data axis."""
+    also shards the batch dim over the mesh's data axis; ``use_flash``
+    is ring_attention's.  Counts ``COLLECTIVE_BYTES`` (telemetry on):
+    every K/V block visits every ring position once, so the traffic of
+    a full rotation is the global K+V payload."""
+    from .. import telemetry as _telemetry
+
     axes = (axis_name,) if batch_axis is None else (axis_name, batch_axis)
     require_axes(mesh, axes, who="ring_attention_sharded")
+    if _telemetry.enabled():
+        _telemetry.COLLECTIVE_BYTES.inc(
+            int(k.nbytes) + int(v.nbytes), axis=axis_name, op="ppermute")
     spec = P(batch_axis, axis_name, None, None)
     fn = shard_map(
-        functools.partial(ring_attention, axis_name=axis_name, causal=causal),
+        functools.partial(ring_attention, axis_name=axis_name, causal=causal,
+                          use_flash=use_flash),
         mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)
     return fn(q, k, v)

@@ -33,10 +33,25 @@ step code, so it is bit for bit equal to as many ``step`` calls where the
 kernels are deterministic (the CPU; cuDNN's default backward algorithms
 on the card need not be).  The mesh, layouts, rematerialisation, AOT and
 checkpoint arguments of the JAX trainer are not ported yet.
+
+The observability producers are the JAX trainer's: the spans
+``ShardedTrainer.step`` / ``.step_many`` / ``step:dispatch`` /
+``step:fetch``, ``tracing.record_crash`` on an exception, the ``TRAIN_*``,
+``HOST_GAP_SECONDS``, ``LOSS_SCALE`` and memory series, one
+``train_step`` wide event a dispatch window, the goodput ledger's
+``productive_step`` segments (a recorder begins at the first step when
+``MXNET_GOODPUT_DIR`` is set) and :meth:`ShardedTrainer.step_breakdown`.
+``TRAIN_LOSS`` comes from the flushed accumulator (under async metrics
+the last completed background fetch), never from a device read on the
+dispatch path.  The step's FLOPs (``TRAIN_STEP_FLOPS``, ``TRAIN_MFU``)
+are counted once, by ``torch.utils.flop_counter.FlopCounterMode`` over a
+throwaway step after the first telemetry-on step's window has been
+measured.
 """
 from __future__ import annotations
 
 import queue as _queue
+import sys as _sys
 import threading as _threading
 import time as _time
 
@@ -47,7 +62,10 @@ from ..ndarray.ndarray import NDArray
 from .. import autograd
 from .. import config as _config
 from .. import dtype_policy as _dtp
+from .. import events as _events
 from .. import fusion_cost as _fc
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..checkpoint import check_finite, nonfinite_policy
 from ..gluon import block as _block_mod
 from ..gluon.parameter import DeferredInitializationError
@@ -98,6 +116,8 @@ class _MetricFetcher:
         else:
             host, ready = acc, None
         self._q.put((step, n_steps, host, ready))
+        if _telemetry.enabled():
+            _telemetry.ASYNC_FETCH_INFLIGHT.set(self._q.qsize())
 
     def wait(self):
         """Block until every submitted fetch has completed AND been
@@ -115,6 +135,9 @@ class _MetricFetcher:
                 if item is None:
                     return
                 step, n_steps, host, ready = item
+                sp = _tracing.begin(
+                    "step:fetch", args={"step": step, "steps": n_steps}) \
+                    if _tracing.enabled() else None
                 try:
                     if ready is not None:
                         while not ready.query():
@@ -127,8 +150,19 @@ class _MetricFetcher:
                     # error is kept for the next drain boundary.
                     if self.error is None:
                         self.error = e
+                    if sp is not None:
+                        sp.end(error=True)
+                        sp = None
+                finally:
+                    if sp is not None:
+                        sp.end()
             finally:
                 self._q.task_done()
+                if _telemetry.enabled():
+                    _telemetry.ASYNC_FETCH_INFLIGHT.set(
+                        max(0, self._q.qsize()))
+                    if item is not None:
+                        _telemetry.ASYNC_METRIC_FETCHES.inc()
 
 
 # ---- optimizers over lists of tensors (all parameters at once) ---------
@@ -298,6 +332,7 @@ class ShardedTrainer:
             if (self._dtype_policy is not None
                 and self._dtype_policy.loss_scaling) else None
         self._ls_active = self._ls_cfg is not None
+        _dtp.note_policy(self._dtype_policy, "trainer")
         # loss scaling reuses the non-finite select: an overflowed scaled
         # step is always discarded, whatever the host-side policy says
         self._guard = self._on_nonfinite == "skip" or self._ls_active
@@ -318,6 +353,10 @@ class ShardedTrainer:
         self._metrics_pending = 0
         self.global_step = 0
         self.skipped_steps = 0
+        self._last_dispatch_end = None
+        self._step_flops = None  # one-time FlopCounterMode count
+        self._cast_bytes = 0
+        self._gp_compile0 = None
         self._params = list(net.collect_params().values())
         if not self._params:
             raise MXNetError("ShardedTrainer: the net has no parameters")
@@ -385,6 +424,10 @@ class ShardedTrainer:
                     self._cast[i] = tgt
             elif self._dtype is not None and self._dtype != t.dtype:
                 self._cast[i] = self._dtype
+        # bytes each step's compute casts read (DTYPE_CAST_BYTES)
+        self._cast_bytes = sum(t.numel() * t.element_size()
+                               for t, c in zip(tensors, self._cast)
+                               if c is not None)
         # the master copies: packing copies, so the net's own arrays stay
         # as they are until sync_to_net
         self._train_bufs = self._train_flat.pack(
@@ -401,6 +444,11 @@ class ShardedTrainer:
                               "loss_scale": _dtp.init_loss_scale(
                                   self._ls_cfg, device=self._device)}
         self._metrics_acc = self._fresh_metrics()
+        if _telemetry.enabled():
+            _telemetry.TRAIN_STATE_BYTES.set(
+                sum(t.numel() * t.element_size()
+                    for t in self.state_tensors()),
+                device=str(self._device))
 
     def _fresh_metrics(self):
         return torch.zeros((_METRICS_WIDTH,), dtype=torch.float32,
@@ -606,7 +654,24 @@ class ShardedTrainer:
         raw_in, raw_label = self._stage(inputs, label)
         if self._train_bufs is None:
             self._lazy_init(example_inputs=raw_in)
-        return self._step_inner(raw_in, raw_label)
+        sp = _tracing.begin("ShardedTrainer.step",
+                            args={"step": self.global_step + 1}) \
+            if _tracing.enabled() else None
+        try:
+            return self._step_inner(raw_in, raw_label)
+        except Exception as e:
+            if sp is not None:
+                sp.end(error=True)
+                sp = None
+            # black-box bundle for the crashing step (a no-op unless the
+            # flight recorder is armed; the span is already closed with
+            # status=error so the bundle shows it)
+            _tracing.record_crash("exception-step", e,
+                                  extra={"layer": "ShardedTrainer.step"})
+            raise
+        finally:
+            if sp is not None:
+                sp.end()
 
     def step_many(self, batches):
         """Run ``steps_per_call`` train steps in one call.
@@ -629,7 +694,21 @@ class ShardedTrainer:
             raise MXNetError("step_many batches disagree on input arity")
         if self._train_bufs is None:
             self._lazy_init(example_inputs=raws[0][0])
-        return self._step_many_inner(raws)
+        sp = _tracing.begin("ShardedTrainer.step_many",
+                            args={"step": self.global_step + 1, "k": K}) \
+            if _tracing.enabled() else None
+        try:
+            return self._step_many_inner(raws)
+        except Exception as e:
+            if sp is not None:
+                sp.end(error=True)
+                sp = None
+            _tracing.record_crash("exception-step", e,
+                                  extra={"layer": "ShardedTrainer.step_many"})
+            raise
+        finally:
+            if sp is not None:
+                sp.end()
 
     def _step_inner(self, raw_in, raw_label):
         # HOT PATH (see _dispatch_commit for the no-host-sync contract)
@@ -642,22 +721,150 @@ class ShardedTrainer:
     def _dispatch_commit(self, batches):
         """Run the steps and commit the new state in one assignment.
 
-        HOT PATH.  No host sync lives here (or in _flush_metrics): every
-        loss/metric host read happens in _consume_metrics_sync (sync
-        mode) or on the fetch thread (async mode)."""
+        HOT PATH.  No host sync lives here (or in _flush_metrics and
+        _account): every loss/metric host read happens in
+        _consume_metrics_sync (sync mode) or on the fetch thread (async
+        mode)."""
         self._raise_pending()
-        state = (self._train_bufs, self._fixed_bufs, self.opt_state,
-                 self._metrics_acc)
-        losses = []
-        for raw_in, raw_label in batches:
-            state, loss = self._step_core(state, raw_in, raw_label)
-            losses.append(loss)
+        n = len(batches)
+        tel = _telemetry.enabled()
+        # the step timestamp serves telemetry, the wide-event layer and
+        # the goodput ledger — each is independently enableable
+        gp = self._goodput()
+        t_step0 = _time.perf_counter() \
+            if tel or _events.enabled() or gp is not None else None
+        # compile wall inside this window is compile badput: snapshot
+        # the ledger's compile total so _account carves the delta out
+        self._gp_compile0 = gp.compile_seconds_total() \
+            if gp is not None else None
+        if tel and self._last_dispatch_end is not None:
+            # dispatch-to-dispatch idle: host time spent outside step
+            # dispatch (data wait, metric bookkeeping)
+            _telemetry.HOST_GAP_SECONDS.observe(
+                max(0.0, t_step0 - self._last_dispatch_end),
+                loop="sharded")
+        span_args = {"step": self.global_step + 1}
+        if n > 1:
+            span_args["k"] = n
+        dsp = _tracing.begin("step:dispatch", args=span_args) \
+            if _tracing.enabled() else None
+        try:
+            state = (self._train_bufs, self._fixed_bufs, self.opt_state,
+                     self._metrics_acc)
+            losses = []
+            for raw_in, raw_label in batches:
+                state, loss = self._step_core(state, raw_in, raw_label)
+                losses.append(loss)
+        finally:
+            if dsp is not None:
+                dsp.end()
         (self._train_bufs, self._fixed_bufs, self.opt_state,
          self._metrics_acc) = state
-        self.global_step += len(batches)
-        self._metrics_pending += len(batches)
+        self.global_step += n
+        self._metrics_pending += n
         self._flush_metrics(self.global_step)
+        self._account(t_step0, n, batches[0][0], batches[0][1], gp)
         return losses
+
+    def _goodput(self):
+        """The goodput module while a recorder is live, else None; the
+        first step with ``MXNET_GOODPUT_DIR`` set begins one (the JAX
+        trainer begins it at ``attach_checkpoint_manager``, which the
+        port has not yet)."""
+        gp = _sys.modules.get("mxnet_tpu_torch.goodput")
+        if gp is not None and gp.active():
+            return gp
+        if self.global_step or not _config.get("MXNET_GOODPUT_DIR"):
+            return None
+        from .. import goodput as gp
+
+        if not gp.active():
+            gp.GoodputRecorder(_config.get("MXNET_GOODPUT_DIR")).begin(
+                start_reason="fresh")
+        return gp if gp.active() else None
+
+    def _account(self, t_step0, n, raw_in, raw_label, gp):
+        """Post-dispatch telemetry for a call covering ``n`` steps.  Under
+        async metrics the window covers dispatch only (backpressure
+        makes it converge to the step time); under the sync path the
+        flush already waited for the card, so it covers execution."""
+        if t_step0 is None:  # every layer was off at dispatch
+            return
+        tel = _telemetry.enabled()
+        ev_on = _events.enabled()
+        gp_on = gp is not None and gp.active()
+        dt = _time.perf_counter() - t_step0
+        bs = int(raw_label.shape[0]) if raw_label.dim() else 0
+        if tel:
+            if self._cast_bytes:
+                _telemetry.DTYPE_CAST_BYTES.inc(
+                    self._cast_bytes * n, policy=self.dtype_policy_tag)
+            _telemetry.TRAIN_STEP_SECONDS.observe(dt / n, loop="sharded")
+            _telemetry.TRAIN_STEPS.inc(n, loop="sharded")
+            if bs and dt > 0:
+                _telemetry.TRAIN_SAMPLES_PER_SEC.set(bs * n / dt)
+            # after the window is measured: the count runs a step of
+            # its own under a dispatch mode
+            self._record_step_cost(raw_in, raw_label)
+            if self._step_flops:
+                _telemetry.TRAIN_STEP_FLOPS.set(self._step_flops)
+                peak = _telemetry.peak_flops()
+                if peak and dt > 0:
+                    _telemetry.TRAIN_MFU.set(self._step_flops * n / dt
+                                             / peak)
+        if ev_on:
+            # one wide event per dispatch window (n steps under
+            # step_many): the per-step evidence row the histograms
+            # anonymize
+            _events.emit(
+                "train_step", dur_s=dt, steps=n,
+                step=self.global_step, loop="sharded",
+                batch_rows=bs or None,
+                samples_per_sec=round(bs * n / dt, 3)
+                if bs and dt > 0 else None)
+        if gp_on:
+            # the productive_step segment: the window the step histogram
+            # observes, less compile wall recorded inside it
+            comp0 = self._gp_compile0
+            comp = max(0.0, gp.compile_seconds_total() - comp0) \
+                if comp0 is not None else 0.0
+            gp.record_segment("productive_step", max(0.0, dt - comp),
+                              step=self.global_step, steps=n)
+        if tel or _tracing.enabled():
+            # per-step memory watermark: live/peak gauges per device and
+            # a counter track in the exported chrome trace
+            _tracing.sample_device_memory()
+        if tel:
+            self._last_dispatch_end = _time.perf_counter()
+
+    def _record_step_cost(self, raw_in, raw_label):
+        """One-time FLOP count of a single step (forward, backward and
+        update) by ``torch.utils.flop_counter.FlopCounterMode``, over a
+        throwaway step from the current state whose results are
+        dropped (the RNG is forked, so the training stream is
+        untouched).  Feeds the MFU gauge and ``profiler``'s cost table.
+        Best-effort: a failed count leaves the gauges unset."""
+        if self._step_flops is not None:
+            return
+        self._step_flops = 0.0
+        try:
+            from torch.utils.flop_counter import FlopCounterMode
+
+            state = (self._train_bufs, self._fixed_bufs, self.opt_state,
+                     self._fresh_metrics())
+            devices = [self._device] if self._device.type == "cuda" else []
+            with torch.random.fork_rng(devices=devices), \
+                    FlopCounterMode(display=False) as counter:
+                self._step_core(state, raw_in, raw_label)
+            flops = float(counter.get_total_flops())
+            if flops > 0:
+                from .. import profiler as _profiler
+
+                _profiler.record_xla_cost("ShardedTrainer.step",
+                                          {"flops": flops})
+                self._step_flops = flops
+        except Exception:
+            pass  # the count is best-effort; never fail a step
 
     # -- metric flush / drain boundaries -----------------------------------
     def _flush_metrics(self, step, force=False):
@@ -681,22 +888,38 @@ class ShardedTrainer:
     def _consume_metrics_sync(self, step, n, acc):
         """The synchronous metric path: block on the accumulator right
         inside the step."""
-        self._apply_metrics_host(step, n, acc.cpu().numpy(),
-                                 async_mode=False)
+        sp = _tracing.begin("step:fetch",
+                            args={"step": step, "steps": n, "sync": True}) \
+            if _tracing.enabled() else None
+        try:
+            host = acc.cpu().numpy()
+        finally:
+            if sp is not None:
+                sp.end()
+        self._apply_metrics_host(step, n, host, async_mode=False)
 
     def _apply_metrics_host(self, step, n, host, async_mode=True):
         """Consume one flushed accumulator on the host: the non-finite
         policy and skip counting.  Runs on the fetch thread under async
         dispatch, inline otherwise."""
+        tel = _telemetry.enabled()
         nonfinite = int(host[_M_NONFINITE])
+        if tel:
+            _telemetry.TRAIN_LOSS.set(float(host[_M_LAST]))
         if self._ls_active:
             # a scaled overflow is routine: the update was already
             # discarded and the scale backed off, so it is counted, not
             # warned or raised through the non-finite policy
             backoffs = int(host[_M_LS_BACKOFF])
             scale_now = float(host[_M_LS_SCALE])
+            if tel:
+                _telemetry.LOSS_SCALE.set(scale_now)
             if backoffs:
                 self.skipped_steps += backoffs
+                if tel:
+                    _telemetry.LOSS_SCALE_BACKOFFS.inc(backoffs)
+                    _telemetry.TRAIN_SKIPPED_STEPS.inc(backoffs,
+                                                       loop="sharded")
                 if scale_now <= 1.0 and \
                         self._on_nonfinite in ("warn", "raise"):
                     # the scale is at its floor and steps still overflow:
@@ -726,6 +949,8 @@ class ShardedTrainer:
                 return
             if not applied:  # "skip": the select already discarded them
                 self.skipped_steps += nonfinite
+                _telemetry.TRAIN_SKIPPED_STEPS.inc(nonfinite,
+                                                   loop="sharded")
 
     def _raise_pending(self):
         exc, self._pending_exc = self._pending_exc, None
@@ -737,6 +962,7 @@ class ShardedTrainer:
         wait for every in-flight fetch to complete and apply, then
         re-raise any deferred non-finite error.  Call before reading
         ``skipped_steps``.  A no-op in sync mode."""
+        t0 = _time.perf_counter()
         self._flush_metrics(self.global_step, force=True)
         if self._fetcher is not None:
             self._fetcher.wait()
@@ -744,7 +970,24 @@ class ShardedTrainer:
                 err, self._fetcher.error = self._fetcher.error, None
                 raise err
         self._raise_pending()
+        gp = _sys.modules.get("mxnet_tpu_torch.goodput")
+        if gp is not None and gp.active():
+            gp.record_segment("drain", _time.perf_counter() - t0,
+                              step=self.global_step)
         return self
+
+    def step_breakdown(self):
+        """Where this trainer's step milliseconds went: a
+        :class:`~mxnet_tpu_torch.perf_ledger.StepBreakdown` over the
+        telemetry window (since the last ``telemetry.reset()``) —
+        device_compute / compile / aot_load / data_wait / host_other
+        buckets that sum to the measured wall per step.  Drains first so
+        async-mode metrics are complete.  None when telemetry recorded
+        no steps."""
+        from .. import perf_ledger as _pl
+
+        self.drain()
+        return _pl.StepBreakdown.from_telemetry(loop="sharded")
 
     def close(self):
         """Drain and stop the fetch thread.  Safe to call repeatedly; the

@@ -74,9 +74,17 @@ def ulysses_attention_sharded(mesh, q, k, v, axis_name="sp", causal=False,
                               use_flash=False, batch_axis=None):
     """Convenience wrapper: shard (batch, seq, heads, dim) inputs along
     `axis_name` over `mesh` and run ulysses_attention under shard_map;
-    ``batch_axis='dp'`` also shards the batch dim."""
+    ``batch_axis='dp'`` also shards the batch dim.  Counts
+    ``COLLECTIVE_BYTES`` (telemetry on) as DeepSpeed-Ulysses does: four
+    all-to-alls of activation size (q, k, v in; the output back)."""
+    from .. import telemetry as _telemetry
+
     axes = (axis_name,) if batch_axis is None else (axis_name, batch_axis)
     require_axes(mesh, axes, who="ulysses_attention_sharded")
+    if _telemetry.enabled():
+        _telemetry.COLLECTIVE_BYTES.inc(
+            int(q.nbytes) + int(k.nbytes) + int(v.nbytes)
+            + int(q.nbytes), axis=axis_name, op="all_to_all")
     spec = P(batch_axis, axis_name)
     fn = shard_map(
         functools.partial(ulysses_attention, axis_name=axis_name,

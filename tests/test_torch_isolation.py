@@ -22,8 +22,12 @@ the ssd_detect_quant and quantize_calibrate examples: one int8
 detection forward of quantize_model's graph), and the parameter-server
 path (mx.kvstore_server, mx.tools.launch and KVStoreDist: a sync round of
 two workers through the port's server with 2-bit compression and its
-optimizer) loads neither jax nor mxnet_tpu, and chip_smoke.py imports
-neither.  The import check runs in a subprocess because this
+optimizer), and the observability layer (telemetry, tracing, profiler,
+events, perf_ledger, goodput, fleet and monitor's heartbeat: two
+ShardedTrainer steps with every layer on, their step breakdown, a
+TokenServer request, a fleet snapshot and a goodput ledger, a profiler
+window and the scrape endpoint) loads neither jax nor mxnet_tpu, and
+chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -210,6 +214,45 @@ for t in ts:
 for t in ts:
     t.join(timeout=60)
 assert all((p == -1.0).all() for p in pulled), pulled
+import urllib.request
+from mxnet_tpu_torch import (telemetry, tracing, profiler, events,
+                             perf_ledger, goodput, fleet, monitor)
+from mxnet_tpu_torch import parallel as tpar
+root = tempfile.mkdtemp()
+telemetry.enable(); tracing.enable(); events.enable(path="", sample=1.0)
+rec = goodput.GoodputRecorder(root + "/gp", rank=0, n_procs=1).begin()
+with mx.name.NameManager():
+    mlp = mx.gluon.nn.HybridSequential()
+    mlp.add(mx.gluon.nn.Dense(4, in_units=3))
+mlp.initialize(mx.init.Xavier(), ctx=mx.cpu())
+sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+st = tpar.ShardedTrainer(mlp, lambda o, l: sce(o, l), optimizer="sgd")
+profiler.set_config(filename=root + "/profile.json")
+profiler.start()
+for _ in range(2):
+    st.step([mx.nd.array(np.ones((2, 3), np.float32), ctx=mx.cpu())],
+            mx.nd.array(np.zeros(2, np.float32), ctx=mx.cpu()))
+profiler.stop()
+profiler.dump()
+assert st.step_breakdown().steps == 2
+assert telemetry.TRAIN_STEPS.value(loop="sharded") == 2
+pub = fleet.FleetPublisher(root + "/spool", rank=0, n_procs=1)
+assert pub.publish_once() is not None
+assert fleet.fleetz(spool=root + "/spool")["active"]
+eng.evict(slot, "length")
+ts = mxnet_tpu_torch.generate.TokenServer(eng, queue_depth=2,
+                                          max_new_tokens=2)
+assert len(ts.generate([1, 2, 3], timeout=60).tokens) == 2
+ts.close()
+assert [e["kind"] for e in events.recent()][-1] == "token_request"
+rec.end("clean")
+assert goodput.goodputz(dir=root + "/gp")["active"]
+assert perf_ledger.validate_record(perf_ledger.make_record("m", 1.0, "u")) == []
+monitor.TelemetryHeartbeat().line()
+srv = telemetry.serve_scrape(port=0, host="127.0.0.1")
+urllib.request.urlopen("http://127.0.0.1:%d/statusz" % srv.port,
+                       timeout=10).read()
+telemetry.stop_scrape()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))
