@@ -123,6 +123,44 @@ non-zero, printing no result, without them.  Phases, one line each:
    kernel launched.  A 'paged' line: prefill-chunk ms, step ms (beside
    the ring's), tokens/s, pages in use, the profile of 8 steps, peak
    memory;
+9b. serve: the serving tier (serving, serving_async, gateway,
+   tools.quantize_model) with telemetry and events on.  (a) resnet50_v1
+   at full width (classes 1000, Xavier from seed 0) through
+   Predictor.from_block on uint8 (32, 3, 224, 224) batches from
+   RandomState(0) normalized on the card (uint8_normalizer), chain 8: 16
+   batches and a ragged one of 5 rows, in order, the ragged one 5 rows;
+   f32 (TF32 off) logits within 1e-5 x max|logit| of the eager forward on
+   the same normalized batch; under bf16_mixed the top-5 postprocess
+   equal to the top-5 of the bf16 logits, and bf16 top-1 equal to f32's
+   on every row whose f32 top-1/top-2 gap exceeds twice the largest
+   |bf16 - f32| logit difference (and on at least that share of rows);
+   images/s host-fed uint8 and card-resident, the forward's ms at batch
+   32; no host sync flagged over one chunk by set_sync_debug_mode("warn").
+   (b) python -m mxnet_tpu_torch.tools.quantize_model --model resnet50
+   --batch 32 on the card (its own process, beside (a)'s checks): exit
+   0, --check passing; the artifact through Predictor.from_symbol: one
+   int8 forward launching int8_conv once per quantized layer, each
+   distinct layer shape bit-equal to int8_conv_plain at batch 2 and at
+   the route's batch 32, the int8 forward's ms.  (c) AsyncPredictor over two bf16 replicas on the
+   card: 64 requests of 1-8 rows from 4 threads, each answer's top-5
+   equal to the direct Predictor's, p50/p99 latency; a full queue
+   failing Overloaded("queue") and an expired request
+   DeadlineExceeded("queue") on a replica stalled through
+   testing.faults.StallingCallable; a stalled replica ejected and its
+   request answered by the other; close() draining a burst.  (d)
+   serve_gateway(port=0) with /v1/predict/resnet50 (the bf16 replicas
+   behind serving_async.ContractRows, rows sent as JSON numbers 0..255),
+   /v1/predict/resnet50_int8 and
+   /v1/generate/lm (a TokenServer(slo_ms=2000) on phase 8's LM, greedy)
+   through urllib: 8 requests of 2 rows 200 with the in-process top-5, a
+   32-row int8 request 200 bit-equal to the int8 Predictor, an SSE
+   stream of the TokenServer.submit tokens, 404, 413, 429 with
+   Retry-After for a tenant over its quota, /healthz 200 and then 503
+   while stop_gateway(drain=True) drains an open stream, /metrics with
+   the GATEWAY_* and SERVING_* series, gateway_request events.  A
+   'serve' line of these numbers and peak memory; int8_conv's launches
+   on this path (the kernel-vs-plain check's left out) are the kernels
+   line's serve_launches, no other kernel launched;
 10. zoo: one network per vision family at ImageNet width (alexnet,
    vgg16, resnet50_v2, densenet121, squeezenet1.1, mobilenet1.0 and
    mobilenetv2_1.0 at 3x224x224, inceptionv3 at 3x299x299; classes 1000,
@@ -208,7 +246,7 @@ non-zero, printing no result, without them.  Phases, one line each:
    1e-5).  --api gluon: the hybridized LeNet's step 1 against the eager
    block (logits within 1e-4 + 1e-4 |ref|, each gradient within 1e-3 of
    its norm, floored at 1e-3 of the largest norm for the gradients whose
-   exact value is 0), then 1 warm-up + 10 steps with finite, falling
+   exact value is 0), then 1 warm-up + 30 steps with finite, falling
    losses.
    resnet50_v1 cut in depth to one bottleneck unit a stage (its widths
    64-256-512-1024-2048 and its biased 1x1 convolutions; whole before
@@ -233,7 +271,8 @@ non-zero, printing no result, without them.  Phases, one line each:
    against the gluon path's, as above), each also against an eager run
    with cuDNN off; no hand-written kernel launched.  squeezenet1.1 and
    the export check run in a side process (this script with --side)
-   beside phases 14-15, which measure on; their lines print once phase
+   beside the rest of this phase and phases 14-15, which measure on
+   (started with this phase since PR 19); their lines print once phase
    15 has ended, and a failure there ends the script non-zero;
 14. recurrent: f32 with TF32 off.  The RNN op (cuDNN's RNN a layer:
    torch._VF eagerly; compiled with inductor, fullgraph, the rnn_layer
@@ -258,8 +297,9 @@ non-zero, printing no result, without them.  Phases, one line each:
    0.  rnn_bucketing --cells at upstream
    lstm_bucketing.py's width (2 x mx.rnn.LSTMCell(200), embed 200,
    vocabulary 10000, batch 32) over BucketSentenceIter with buckets 4
-   and 8 (cut in depth from upstream's 10-60 for inductor's compile
-   time), one epoch of a seeded corpus: compile seconds per bucket,
+   and 6 (cut in depth from upstream's 10-60 for inductor's compile
+   time; 4 and 8 before PR 19), one epoch of a seeded corpus: compile
+   seconds per bucket,
    batches/s, perplexity finite and falling; no hand-written kernel
    launched;
 15. fusion: each of the five patterns' microbench on the card, fused
@@ -351,11 +391,14 @@ non-zero, printing no result, without them.  Phases, one line each:
    small ShardedTrainer's step writes one flight-recorder bundle
    (trace.json, telemetry.json, stacks.txt, info.json);
 20. the whole script's wall time, then a {"kernels": [...]} line (the
-   compression rows' launches: phase 4's and each phase-17 worker's);
+   compression rows' launches: phase 4's and each phase-17 worker's;
+   int8_conv's: phase 16's, det_launches, and phase 9b's,
+   serve_launches);
 21. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
+import collections
 import contextlib
 import functools
 import hashlib
@@ -370,6 +413,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -536,7 +580,8 @@ DATA_NORM_REL = 1e-6
 # 2, and the hybridized LeNet), batch 64, sgd lr 0.05 momentum 0.9, over
 # idx-ubyte files of 2048 seeded digits (a class's prototype plus noise)
 # the phase writes: Module.fit 2 epochs, its first 3 updates again on
-# the CPU; LeNet 1 warm-up + 10 steps.  Then resnet50_v1 and
+# the CPU; LeNet 1 warm-up + 30 steps (at 10 its loss has barely left
+# ln 10 and falls within a batch's noise).  Then resnet50_v1 and
 # squeezenet1.1 at full width, cut in depth (classes 1000, batch 32,
 # 3x224x224 from a seed, sgd lr 0.01 momentum 0.9), eager against
 # hybridize(): 3 steps
@@ -551,7 +596,7 @@ DATA_NORM_REL = 1e-6
 # (resnet50_v1 from Xavier is that sensitive to f32 rounding: PERF.md,
 # PR 13)
 SYM_IMAGES, SYM_BATCH, SYM_LR, SYM_EPOCHS = 2048, 64, 0.05, 2
-SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 10
+SYM_CPU_UPDATES, SYM_GLUON_STEPS = 3, 30
 # resnet50_v1 cut in depth only, where this phase ran resnet50_v1 whole
 # before phases 14-15 (they add about 500 s, mostly inductor's
 # compiles; PERF.md section 4): its stem, bottleneck units at its widths
@@ -3803,7 +3848,7 @@ def fwd_bwd(net, x, y, loss_fn, train_mode=True):
 
 def sym_gluon(card, root, ex):
     """The gluon path: step 1 hybridized against eager, then the
-    example's loop for 1 warm-up + 10 steps."""
+    example's loop for 1 warm-up + SYM_GLUON_STEPS steps."""
     args = ex.parse_args(["--data-dir", root, "--batch-size",
                           str(SYM_BATCH), "--lr", str(SYM_LR)])
     train, _ = ex.get_iters(SYM_BATCH, root, mx.gpu(0))
@@ -4084,7 +4129,7 @@ def symbolic_aside(card):
     """Phase 13's part that measures least: SYM_NETS[1:] eager against
     hybridized and the export check on export_source's net.  In the
     whole script it runs in the side process (SideChecks) beside phases
-    14-15; its lines print when phase 15 has ended."""
+    13-15; its lines print when phase 15 has ended."""
     before = dict(kernels.launch_counts)
     problems = []
     root = tempfile.mkdtemp(prefix="symbolic_aside_")
@@ -4138,7 +4183,7 @@ def phase_symbolic(card, aside=False):
 
 class SideChecks:
     """symbolic_aside in a process of its own (``chip_smoke.py --side``),
-    beside the main process's phases 14-15: its lines and errors go to
+    beside the main process's phases 13-15: its lines and errors go to
     files, printed by finish(), which fails if the process failed."""
 
     def __init__(self):
@@ -4208,14 +4253,15 @@ LM_STEPS = 31                    # 1 warm-up + 30 timed
 LM_LOGIT_TOL, LM_GRAD_REL = 1e-4, 1e-3
 # upstream example/rnn/bucketing/lstm_bucketing.py's width (2 x
 # LSTMCell(200), embed 200, vocabulary 10000, batch 32), cut in depth
-# to buckets 4 and 8 (unrolled steps) in place of its 10-60: inductor
+# to buckets 4 and 6 (unrolled steps) in place of its 10-60: inductor
 # takes about 6 s a step to compile a bucket (buckets 10 and 20: 62.7
-# and 117.5 s, PERF.md section 4); upstream's lr
+# and 117.5 s, PERF.md section 4; bucket 8 29.8-58.4 s in PR 19's runs,
+# so 6 since then); upstream's lr
 # 0.01, with the example's momentum 0.9 (the example's own lr 0.2
 # diverges at this vocabulary)
 BUCKET_ARGS = ["--cells", "--vocab", "10000", "--num-embed", "200",
                "--num-hidden", "200", "--batch-size", "32", "--buckets",
-               "4,8", "--epochs", "1", "--lr", "0.01"]
+               "4,6", "--epochs", "1", "--lr", "0.01"]
 
 
 def rec_inputs(mode, bidir, T, N, C, H, device, seed=0):
@@ -5996,6 +6042,634 @@ def phase_dist(card, jobs=None):
             b[0]["worst"])
 
 
+# ---------------------------------------------------------------------------
+# phase 9b: the serving tier
+# ---------------------------------------------------------------------------
+
+# resnet50_v1 as the JAX package serves it (tools/prewarm.py:129-197):
+# classes 1000, uint8 (32, 3, 224, 224) batches normalized on the card,
+# chain 8, a top-5 postprocess under bf16_mixed; 16 batches plus a ragged
+# one of 5 rows from RandomState(0); the int8 artifact of the
+# quantize_model CLI at batch 32.  Bounds: f32 logits (TF32 off) within
+# SERVE_F32_REL x max|logit| of the eager forward; bf16 top-1 equal to
+# f32's on every row whose f32 top-1/top-2 gap exceeds twice the largest
+# |bf16 - f32| logit difference seen (a flip needs that much error on the
+# two logits), and on at least that share of all rows; top-5 indices
+# equal where a request's answer is compared with the direct Predictor's;
+# the int8 route's logits bit-equal to the int8 Predictor's on the same
+# batch; int8_conv bit-equal to its plain version at every distinct
+# quantized layer shape at batch 2 and at the route's batch 32
+SERVE_BATCH, SERVE_CHAIN, SERVE_FEED, SERVE_RAGGED = 32, 8, 16, 5
+SERVE_CHECK_BATCHES = (2, SERVE_BATCH)
+SERVE_SHAPE = (3, 224, 224)
+SERVE_F32_REL = 1e-5
+SERVE_ASYNC_REQUESTS, SERVE_ASYNC_THREADS, SERVE_ASYNC_ROWS = 64, 4, 8
+SERVE_SLO_MS = 2000.0            # the LM route's TTFT SLO
+SERVE_GEN_PROMPT, SERVE_GEN_NEW = 12, 16
+SERVE_HTTP_REQUESTS, SERVE_HTTP_ROWS = 8, 2
+SERVE_QUOTA_BURST = 2
+SERVE_MAX_BODY = 64 << 20        # the int8 route's 32-row JSON bodies
+
+
+def serve_top5(logits):
+    return torch.topk(logits, 5).indices
+
+
+def serve_net():
+    """resnet50_v1 at full width, Xavier from seed 0, on the card."""
+    mx.random.seed(0)
+    with mx.name.NameManager():
+        net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def serve_bf16(net, raw, postprocess=serve_top5):
+    """A bf16_mixed predictor of ``net`` on the contract of ``raw[0]``."""
+    from mxnet_tpu_torch.serving import Predictor, uint8_normalizer
+
+    return Predictor.from_block(net, raw[0], chain=SERVE_CHAIN,
+                                preprocess=uint8_normalizer(),
+                                postprocess=postprocess,
+                                dtype_policy="bf16_mixed")[0]
+
+
+def serve_imgs_per_s(pred, batches):
+    """Images/s of one pass of ``batches`` through ``pred`` (outputs on
+    the host at the end), after one warm pass."""
+    list(pred.predict(batches[:SERVE_CHAIN]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = list(pred.predict(batches))
+    dt = time.perf_counter() - t0
+    return sum(len(o) for o in outs) / dt
+
+
+def serve_sync_warnings(pred, batches):
+    """Host syncs torch flags over one chunk of ``pred``
+    (set_sync_debug_mode "warn"): their count and the first message."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            list(pred.predict(batches[:SERVE_CHAIN]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # torch's own words for a flagged sync; the mode's first-use notice
+    # ("a prototype feature and does not yet detect all synchronizing
+    # operations") is not one
+    msgs = [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(msgs), (msgs[0] if msgs else "")
+
+
+def serve_predictor(card, net, raw):
+    """(a): the f32 logits against the eager forward, bf16 top-5 against
+    bf16 logits and f32, outputs in order and the ragged batch; images/s
+    host-fed and card-resident.  Returns the bf16 top-5 predictor and
+    the numbers."""
+    from mxnet_tpu_torch.serving import Predictor, uint8_normalizer
+
+    prep32 = uint8_normalizer(dtype="float32")
+    f32 = Predictor.from_block(net, raw[0], chain=SERVE_CHAIN,
+                               preprocess=prep32, dtype_policy="f32")[0]
+    bf16 = serve_bf16(net, raw)
+    bf16_logits = serve_bf16(net, raw, postprocess=None)
+    outs = list(f32.predict(raw))
+    check(len(outs) == len(raw) and outs[-1].shape == (SERVE_RAGGED, 1000)
+          and all(o.shape == (SERVE_BATCH, 1000) for o in outs[:-1]),
+          "serve: f32 outputs %s" % [o.shape for o in outs])
+    worst = 0.0
+    with mx.autograd.predict_mode(), torch.no_grad():
+        for r, o in zip(raw, outs):
+            x = prep32(torch.from_numpy(r).cuda())
+            ref = net(mx.nd.NDArray(x)).asnumpy()
+            err = float(np.abs(o - ref).max() / np.abs(ref).max())
+            worst = max(worst, err)
+    check(worst <= SERVE_F32_REL, "serve: f32 logits %.3g x max|logit| "
+          "from the eager forward (bound %g)" % (worst, SERVE_F32_REL))
+    top5 = list(bf16.predict(raw))
+    lg16 = list(bf16_logits.predict(raw))
+    check(len(top5) == len(raw) and top5[-1].shape == (SERVE_RAGGED, 5),
+          "serve: bf16 top-5 shapes %s" % [t.shape for t in top5])
+    for t, lg in zip(top5, lg16):
+        # bf16 logits tie often: compare the values the indices pick
+        want = -np.sort(-lg, axis=1)[:, :5]
+        check(np.array_equal(np.take_along_axis(lg, t, 1), want),
+              "serve: bf16 top-5 differs from the top-5 of the bf16 "
+              "logits")
+    f32_all, b16_all = np.concatenate(outs), np.concatenate(lg16)
+    err16 = float(np.abs(b16_all - f32_all).max())
+    srt = np.sort(f32_all, axis=1)
+    gap = srt[:, -1] - srt[:, -2]
+    decided = gap > 2 * err16
+    agree = np.argmax(b16_all, 1) == np.argmax(f32_all, 1)
+    t1 = np.concatenate(top5)[:, 0] == np.argmax(f32_all, 1)
+    check(bool(np.all(agree[decided])) and bool(np.all(t1[decided])),
+          "serve: bf16 top-1 flips on %d rows whose f32 gap exceeds 2 x "
+          "%.3g" % (int((~agree & decided).sum()), err16))
+    share, need = float(t1.mean()), float(decided.mean())
+    check(share >= need, "serve: bf16 top-1 agreement %.3f < %.3f"
+          % (share, need))
+    print("serve predictor: f32 logits %.3g x max|logit| of eager (bound "
+          "%g) over %d batches + %d rows, in order | bf16 top-5 = top-5 of "
+          "the bf16 logits | bf16 top-1 = f32 on %.4f of rows (>= %.4f: "
+          "gap > 2 x max|bf16 - f32| = %.4g) | %s"
+          % (worst, SERVE_F32_REL, SERVE_FEED, SERVE_RAGGED, share, need,
+             2 * err16, card), flush=True)
+    return bf16, f32, {"f32_rel_err": worst, "bf16_top1_share": share,
+                       "bf16_top1_need": need, "bf16_max_logit_err": err16}
+
+
+def serve_timing(card, bf16, f32, raw):
+    """(a)'s numbers, with the card to itself: images/s host-fed and
+    card-resident, the forward's ms at batch 32, the host syncs torch
+    flags over one chunk."""
+    dev = [torch.from_numpy(r).cuda() for r in raw[:SERVE_FEED]]
+    host_ips = serve_imgs_per_s(bf16, raw[:SERVE_FEED])
+    dev_ips = serve_imgs_per_s(bf16, dev)
+    f32_ips = serve_imgs_per_s(f32, raw[:SERVE_FEED])
+    syncs, first_sync = serve_sync_warnings(bf16, raw)
+    # the one host wait is the output event's synchronize(), which the
+    # mode does not flag
+    check(syncs == 0, "serve: %d host syncs over one chunk, the first: %s"
+          % (syncs, first_sync))
+    x = torch.from_numpy(raw[0]).cuda()
+    with torch.inference_mode():
+        bf16_ms = time_ms(lambda: bf16._one(x, bf16._params))
+        f32_ms = time_ms(lambda: f32._one(x, f32._params))
+    print("serve predictor times: bf16 top-5 img/s host uint8 %.1f, "
+          "card-resident %.1f, f32 logits host %.1f | forward at batch %d: "
+          "bf16 %.3f ms, f32 %.3f ms | host syncs flagged over one chunk "
+          "%d %s | %s"
+          % (host_ips, dev_ips, f32_ips, SERVE_BATCH, bf16_ms, f32_ms,
+             syncs, first_sync[:120], card), flush=True)
+    return {"bf16_host_img_s": host_ips, "bf16_card_img_s": dev_ips,
+            "f32_host_img_s": f32_ips, "bf16_fwd_ms": bf16_ms,
+            "f32_fwd_ms": f32_ms, "sync_warnings": syncs}
+
+
+def serve_quantize_start(root):
+    """(b), the CLI: start quantize_model --model resnet50 --batch 32 on
+    the card into ``root``, in its own process.  Returns the process,
+    the artifact's directory and the start time."""
+    art = os.path.join(root, "resnet50_int8")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.quantize_model",
+         "--model", "resnet50", "--batch", str(SERVE_BATCH), "--out", art,
+         "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, art, time.perf_counter()
+
+
+def serve_quantize_finish(card, proc, art, t0):
+    """Wait for the CLI: exit 0, its JSON report, then --check on the
+    artifact.  Returns the report and the CLI's seconds."""
+    from mxnet_tpu_torch.tools import quantize_model as qm
+
+    out, err = proc.communicate(timeout=900)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, "serve: quantize_model exited %d: %s"
+          % (proc.returncode, err[-2000:]))
+    report = json.loads(out.strip().splitlines()[-1])
+    check(report["status"] == "emitted", "serve: quantize_model %s"
+          % report)
+    check(qm.main(["--check", art]) == 0, "serve: --check failed on %s"
+          % art)
+    print("serve quantize_model: --model resnet50 --batch %d on the card "
+          "in %.1f s (its own process, beside (a)'s checks), exit 0, "
+          "--check OK | %s" % (SERVE_BATCH, secs, card), flush=True)
+    return report, secs
+
+
+def serve_int8(card, art):
+    """(b), serving: the artifact through Predictor.from_symbol, one
+    forward's int8_conv launches (= its quantized layers), each distinct
+    layer shape bit-equal to the plain version at batch 2 and at the
+    route's batch 32 (where the persistent tile loop wraps), the int8
+    forward's ms.  Returns the predictor, its batch, the launches the
+    kernel-vs-plain check made and the numbers."""
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.ops import quantization as quant
+    from mxnet_tpu_torch.serving import Predictor
+
+    qsym, qargs, qaux, meta = tq.load_artifact(art)
+    pred = Predictor.from_symbol(
+        qsym, qargs, qaux, data_name=meta["data_name"], chain=SERVE_CHAIN,
+        batch_shape=tuple(meta["data_shape"]),
+        batch_dtype=meta["data_dtype"], aot_policy_tag="int8")
+    check(tuple(meta["data_shape"]) == (SERVE_BATCH,) + SERVE_SHAPE,
+          "serve: artifact contract %s" % meta["data_shape"])
+    batch = np.random.RandomState(7).rand(SERVE_BATCH, *SERVE_SHAPE) \
+        .astype(np.float32)
+    shapes = []
+    inner = kernels.int8_conv
+
+    def recording(x, w, stride, pad, dilate, groups):
+        shapes.append((tuple(x.shape[1:]), tuple(w.shape), tuple(stride),
+                       tuple(pad), tuple(dilate), groups))
+        return inner(x, w, stride, pad, dilate, groups)
+
+    kernels.int8_conv = recording
+    try:
+        before = kernels.launch_counts["int8_conv"]
+        out = list(pred.predict([batch]))[0]
+        launched = kernels.launch_counts["int8_conv"] - before
+    finally:
+        kernels.int8_conv = inner
+    n_q = meta["quantized_layers"]
+    check(launched == n_q == len(shapes), "serve: one int8 forward launched "
+          "int8_conv %d times for %d quantized layers" % (launched, n_q))
+    check(out.shape == (SERVE_BATCH, 1000) and np.isfinite(out).all(),
+          "serve: int8 output %s finite %s" % (out.shape,
+                                               np.isfinite(out).all()))
+    conv0 = "conv0_weight_quantized" in qargs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    distinct = sorted(set(shapes))
+    compared = kernels.launch_counts["int8_conv"]
+    for n in SERVE_CHECK_BATCHES:
+        for xs, ws, stride, pad, dilate, groups in distinct:
+            x = torch.randint(-127, 128, (n,) + xs, generator=gen,
+                              device="cuda", dtype=torch.int32) \
+                .to(torch.int8)
+            w = torch.randint(-127, 128, ws, generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+            got = kernels.int8_conv(x, w, stride, pad, dilate, groups)
+            want = quant.int8_conv_plain(x, w, stride, pad, dilate, groups)
+            check(torch.equal(got, want), "serve: int8_conv batch %d x %s "
+                  "w %s stride %s differs from the plain version in %d of "
+                  "%d" % (n, xs, ws, stride, int((got != want).sum()),
+                          want.numel()))
+    compared = kernels.launch_counts["int8_conv"] - compared
+    x = torch.from_numpy(batch).cuda()
+    with torch.inference_mode():
+        int8_ms = time_ms(lambda: pred._one(x, pred._params))
+    print("serve int8: artifact %s (top-%d agreement %.4f, delta %.4f <= "
+          "%.4f, %d quantized layers, conv0 %s) | one forward launched "
+          "int8_conv %d times | %d distinct layer shapes bit-equal to the "
+          "plain version at batch %s | int8 forward at batch %d %.3f ms | %s"
+          % (os.path.basename(art), meta["topk"], meta["agreement"],
+             meta["delta"], meta["max_delta"], n_q,
+             "quantized (3 channels padded to 16)" if conv0 else "f32",
+             launched, len(distinct),
+             " and ".join(map(str, SERVE_CHECK_BATCHES)), SERVE_BATCH,
+             int8_ms, card), flush=True)
+    return pred, batch, compared, {
+        "quantized_layers": n_q, "conv0_quantized": conv0,
+        "distinct_shapes": len(distinct),
+        "check_batches": list(SERVE_CHECK_BATCHES), "int8_fwd_ms": int8_ms,
+        "gate": {k: meta[k] for k in ("topk", "agreement", "delta",
+                                      "max_delta")}}
+
+
+def serve_requests(raw, n, rows_max, seed):
+    """``n`` requests of 1..rows_max rows cut from ``raw``'s full batches."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = raw[rng.randint(SERVE_FEED)]
+        k = int(rng.randint(1, rows_max + 1))
+        s = int(rng.randint(0, SERVE_BATCH - k + 1))
+        out.append(b[s:s + k])
+    return out
+
+
+def serve_async(card, net, raw, bf16):
+    """(c): two replicas on the card, 64 requests from 4 threads equal to
+    the direct Predictor's answers, a full queue, an expired deadline, a
+    stalled replica ejected with its request answered by the other, and
+    a drained close().  Returns the AsyncPredictor for the gateway (a
+    fresh one over the same replicas) and the numbers."""
+    from mxnet_tpu_torch.serving_async import (AsyncPredictor,
+                                               DeadlineExceeded, Overloaded)
+    from mxnet_tpu_torch.testing import faults
+
+    second = serve_bf16(net, raw)
+    reqs = serve_requests(raw, SERVE_ASYNC_REQUESTS, SERVE_ASYNC_ROWS, 3)
+    ap = AsyncPredictor([bf16, second], queue_depth=SERVE_ASYNC_REQUESTS,
+                        batch_window_ms=2.0)
+    answers, lat = [None] * len(reqs), [None] * len(reqs)
+
+    def client(k):
+        for i in range(k, len(reqs), SERVE_ASYNC_THREADS):
+            t0 = time.monotonic()
+            fut = ap.submit(reqs[i], block=True, timeout=120)
+            answers[i] = fut.result(timeout=120)
+            lat[i] = fut.resolved_at - t0
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SERVE_ASYNC_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(all(a is not None for a in answers), "serve: %d async requests "
+          "unanswered" % sum(a is None for a in answers))
+    stats = ap.stats()
+    # drained close: a burst admitted and close() right after
+    burst = [ap.submit(r) for r in reqs[:8]]
+    ap.close(drain=True, timeout=120)
+    check(all(f.done() and f.exception(0) is None for f in burst),
+          "serve: close() did not drain the burst")
+    direct = list(bf16.predict(reqs))
+    for i, (a, d) in enumerate(zip(answers, direct)):
+        check(a.shape == d.shape and np.array_equal(a, d), "serve: async "
+              "request %d (%d rows) top-5 differs from the direct "
+              "Predictor's" % (i, len(reqs[i])))
+    for f, d in zip(burst, direct):
+        check(np.array_equal(f.result(0), d), "serve: burst answer differs")
+    # a full queue and an expired deadline on a stalled third replica
+    third = serve_bf16(net, raw)
+    stall = faults.StallingCallable(third._jit_chain)
+    third._jit_chain = stall
+    ap_q = AsyncPredictor(third, queue_depth=1, batch_window_ms=1.0,
+                          sweep_interval_s=10.0)
+    try:
+        held = ap_q.submit(reqs[0])
+        check(stall.stalled.wait(60), "serve: the stall never engaged")
+        doomed = ap_q.submit(reqs[1], deadline_ms=50.0)
+        try:
+            ap_q.submit(reqs[2])
+            check(False, "serve: a full queue admitted a request")
+        except Overloaded as e:
+            check(e.reason == "queue", "serve: shed reason %s" % e.reason)
+        ap_q.sweep(now=time.monotonic() + 1.0)
+        try:
+            doomed.result(timeout=10)
+            check(False, "serve: an expired request was answered")
+        except DeadlineExceeded as e:
+            check(e.stage == "queue", "serve: deadline stage %s" % e.stage)
+        stall.release()
+        check(np.array_equal(held.result(timeout=60), direct[0]),
+              "serve: the held request's answer differs")
+    finally:
+        stall.release()
+        ap_q.close(timeout=60)
+    # a stalled replica ejected, its request answered by the other
+    stall = faults.StallingCallable(stall._fn)
+    third._jit_chain = stall
+    ap_s = AsyncPredictor([third, second], batch_window_ms=1.0,
+                          sweep_interval_s=10.0, stall_timeout_s=1.0,
+                          max_retries=2)
+    try:
+        with ap_s._cond:                  # the stalled replica claims
+            ap_s._eject_locked(ap_s._replicas[1], "test")
+        victim = ap_s.submit(reqs[3])
+        check(stall.stalled.wait(60), "serve: the stall never engaged")
+        ap_s.heal(1)
+        ej = telemetry.SERVING_REPLICA_EJECTIONS.value(reason="stall")
+        ap_s.sweep(now=time.monotonic() + 5.0)
+        check(not ap_s._replicas[0].healthy and
+              telemetry.SERVING_REPLICA_EJECTIONS.value(reason="stall")
+              == ej + 1, "serve: the stalled replica was not ejected")
+        check(np.array_equal(victim.result(timeout=60), direct[3]),
+              "serve: the rerouted request's answer differs")
+    finally:
+        stall.release()
+        ap_s.close(timeout=60)
+    lat_ms = 1e3 * np.asarray(lat)
+    p50, p99 = float(np.percentile(lat_ms, 50)), \
+        float(np.percentile(lat_ms, 99))
+    rows = sum(len(r) for r in reqs)
+    print("serve async: %d requests (%d rows) from %d threads over 2 "
+          "replicas on one card in %.3f s (%.1f img/s), latency p50 %.2f "
+          "ms p99 %.2f ms, ewma dispatch %.2f ms | equal to the direct "
+          "Predictor | full queue -> Overloaded(queue), expired -> "
+          "DeadlineExceeded(queue), stalled replica ejected and its request "
+          "rerouted, close() drained 8 | %s"
+          % (len(reqs), rows, SERVE_ASYNC_THREADS, wall, rows / wall, p50,
+             p99, 1e3 * (stats["ewma_dispatch_s"] or 0.0), card),
+          flush=True)
+    return second, {"async_p50_ms": p50, "async_p99_ms": p99,
+                    "async_img_s": rows / wall}
+
+
+def serve_http(port, path, body=None, headers=None, timeout=120):
+    """(status, headers, body bytes) of one request through urllib."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode("utf-8")
+    req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path),
+                                 data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def serve_sse_tokens(raw):
+    frames = [json.loads(p[len(b"data: "):]) for p in raw.split(b"\n\n")
+              if p.startswith(b"data: ")]
+    check(frames and frames[-1].get("done") is True, "serve: SSE stream "
+          "did not end done: %s" % frames[-1:])
+    return [f["token"] for f in frames[:-1]]
+
+
+def serve_gateway(card, lm, raw, replicas, int8_pred, int8_batch):
+    """(d): the three routes over HTTP, 404, 413, 429, /healthz 200 then
+    503 while stop_gateway(drain=True) drains an open stream, /metrics
+    and the gateway_request events.  Returns the numbers."""
+    from mxnet_tpu_torch import gateway as gw_mod
+    from mxnet_tpu_torch.serving_async import AsyncPredictor, ContractRows
+    from mxnet_tpu_torch.testing import faults
+
+    ap16 = AsyncPredictor(replicas, batch_window_ms=2.0)
+    ap8 = AsyncPredictor(int8_pred, batch_window_ms=2.0)
+    eng = generate.GenerationEngine(
+        lm, slots=4, cache_len=DECODE_CACHE,
+        sampling=generate.SamplingConfig(greedy=True))
+    srv = generate.TokenServer(eng, queue_depth=16, slo_ms=SERVE_SLO_MS)
+    prompt = np.random.RandomState(11).randint(
+        0, DECODE_LM["vocab_size"], SERVE_GEN_PROMPT).tolist()
+    want_tokens = srv.submit(prompt, max_new_tokens=SERVE_GEN_NEW) \
+        .result(timeout=120).tokens
+    gw = gw_mod.serve_gateway(port=0, max_body=SERVE_MAX_BODY,
+                              quota_qps=0.001,
+                              quota_burst=SERVE_QUOTA_BURST)
+    try:
+        gw.add_route("resnet50", ContractRows(ap16), kind="predict")
+        gw.add_route("resnet50_int8", ap8, kind="predict")
+        gw.add_route("lm", srv, kind="generate")
+        port = gw.port
+        reqs = serve_requests(raw, SERVE_HTTP_REQUESTS, SERVE_HTTP_ROWS, 5)
+        direct = list(replicas[0].predict(reqs))
+        t0 = time.perf_counter()
+        for i, (r, d) in enumerate(zip(reqs, direct)):
+            st, _h, body = serve_http(port, "/v1/predict/resnet50",
+                                      {"rows": r.tolist()},
+                                      {"X-Tenant": "client-%d" % i})
+            check(st == 200, "serve: bf16 route answered %d: %s"
+                  % (st, body[:200]))
+            got = np.asarray(json.loads(body)["outputs"])
+            check(np.array_equal(got, d), "serve: bf16 route request %d "
+                  "top-5 differs from the in-process answer" % i)
+        http16_ms = 1e3 * (time.perf_counter() - t0) / len(reqs)
+        rows8 = np.round(int8_batch.astype(np.float64), 2)
+        want8 = list(int8_pred.predict([rows8.astype(np.float32)]))[0]
+        t0 = time.perf_counter()
+        st, _h, body = serve_http(port, "/v1/predict/resnet50_int8",
+                                  {"rows": rows8.tolist()},
+                                  {"X-Tenant": "client-int8"})
+        http8_s = time.perf_counter() - t0
+        check(st == 200, "serve: int8 route answered %d: %s"
+              % (st, body[:200]))
+        got8 = np.asarray(json.loads(body)["outputs"], np.float32)
+        check(got8.shape == want8.shape and np.array_equal(got8, want8),
+              "serve: int8 route differs from the int8 Predictor by %s"
+              % (np.abs(got8 - want8).max() if got8.shape == want8.shape
+                 else got8.shape))
+        st, h, body = serve_http(port, "/v1/generate/lm",
+                                 {"tokens": prompt,
+                                  "max_new_tokens": SERVE_GEN_NEW},
+                                 {"X-Tenant": "client-lm"})
+        check(st == 200 and h.get("Content-Type") == "text/event-stream",
+              "serve: generate answered %d %s" % (st, h.get("Content-Type")))
+        got_tokens = serve_sse_tokens(body)
+        check(got_tokens == list(want_tokens), "serve: SSE tokens %s != "
+              "TokenServer.submit's %s" % (got_tokens, list(want_tokens)))
+        st, _h, _b = serve_http(port, "/v1/predict/ghost", {"rows": [[0]]})
+        check(st == 404, "serve: unknown model answered %d" % st)
+        st, _raw = faults.oversized_post("127.0.0.1", port,
+                                         "/v1/predict/resnet50",
+                                         claim_bytes=SERVE_MAX_BODY + 1)
+        check(st == 413, "serve: oversized body answered %d" % st)
+        codes = []
+        for _ in range(SERVE_QUOTA_BURST + 1):
+            st, h, _b = serve_http(port, "/v1/generate/lm",
+                                   {"tokens": prompt[:4],
+                                    "max_new_tokens": 1},
+                                   {"X-Tenant": "hog"})
+            codes.append(st)
+        check(codes == [200] * SERVE_QUOTA_BURST + [429]
+              and int(h.get("Retry-After", 0)) >= 1,
+              "serve: over-quota tenant codes %s" % codes)
+        st, _h, _b = serve_http(port, "/healthz")
+        check(st == 200, "serve: /healthz answered %d before drain" % st)
+        st, _h, metrics = serve_http(port, "/metrics")
+        check(st == 200 and b"mxnet_tpu_gateway_responses_total" in metrics
+              and b"mxnet_tpu_serving_requests_total" in metrics
+              and b"mxnet_tpu_serving_request_seconds" in metrics,
+              "serve: /metrics lacks the gateway or serving series")
+        # drain: an open stream holds the listener while /healthz is 503
+        stream = {}
+
+        def long_stream():
+            stream["r"] = serve_http(port, "/v1/generate/lm",
+                                     {"tokens": prompt,
+                                      "max_new_tokens": 160},
+                                     {"X-Tenant": "client-drain"})
+
+        ts = threading.Thread(target=long_stream)
+        ts.start()
+        deadline = time.monotonic() + 60
+        while telemetry.GATEWAY_OPEN_STREAMS.value() < 1:
+            check(time.monotonic() < deadline, "serve: stream never opened")
+            time.sleep(0.002)
+        stopper = threading.Thread(target=gw_mod.stop_gateway,
+                                   kwargs={"drain": True, "timeout": 120})
+        stopper.start()
+        seen = None
+        while stopper.is_alive():
+            try:
+                st, _h, _b = serve_http(port, "/healthz", timeout=10)
+            except OSError:              # the listener already stopped
+                break
+            if st == 503:
+                seen = st
+                break
+        ts.join(timeout=120)
+        stopper.join(timeout=120)
+        check(seen == 503, "serve: /healthz never read 503 during drain")
+        check(stream["r"][0] == 200 and len(serve_sse_tokens(
+            stream["r"][2])) > 0, "serve: the drained stream was cut")
+    finally:
+        gw_mod.stop_gateway(drain=False)
+        srv.close(timeout=60)
+        ap16.close(timeout=60)
+        ap8.close(timeout=60)
+    evs = [e for e in events.recent() if e["kind"] == "gateway_request"]
+    by_code = collections.Counter(e["http_status"] for e in evs)
+    check(by_code[200] >= SERVE_HTTP_REQUESTS + 3 and by_code[404] >= 1
+          and by_code[413] >= 1 and by_code[429] >= 1,
+          "serve: gateway_request events by code %s" % dict(by_code))
+    print("serve gateway: %d bf16 predict requests of %d rows 200 with the "
+          "in-process top-5 (%.1f ms each over HTTP), a %d-row int8 "
+          "request 200 bit-equal to the int8 Predictor (%.2f s over HTTP, "
+          "JSON both ways), SSE %d tokens = TokenServer.submit (slo_ms "
+          "%g), 404, 413, 429 with Retry-After, /healthz 200 then 503 "
+          "while draining an open stream, /metrics with GATEWAY_* and "
+          "SERVING_*, gateway_request events by code %s | %s"
+          % (SERVE_HTTP_REQUESTS, SERVE_HTTP_ROWS, http16_ms, SERVE_BATCH,
+             http8_s, len(got_tokens), SERVE_SLO_MS,
+             dict(sorted(by_code.items())), card), flush=True)
+    return {"http_bf16_ms": http16_ms, "http_int8_s": http8_s,
+            "events_by_code": {str(k): v for k, v in by_code.items()}}
+
+
+def phase_serve(card, lm=None):
+    """Phase 9b (see the module doc), on phase 8's LM (built here when the
+    phase runs alone).  Returns the int8_conv launches of the serving
+    path."""
+    t_phase = time.perf_counter()
+    if lm is None:                       # the phase alone
+        lm = build_lm(DECODE_LM, mx.gpu(0))
+        lm(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    tel_on, ev_on = telemetry.enabled(), events.enabled()
+    telemetry.enable()
+    events.enable(path="", sample=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="serve_")
+    proc = None
+    try:
+        before = dict(kernels.launch_counts)
+        # the CLI runs in its own process beside (a)'s checks
+        proc, art, t_cli = serve_quantize_start(root)
+        net = serve_net()
+        rng = np.random.RandomState(0)
+        raw = [rng.randint(0, 256, (SERVE_BATCH,) + SERVE_SHAPE)
+               .astype(np.uint8) for _ in range(SERVE_FEED)]
+        raw.append(rng.randint(0, 256, (SERVE_RAGGED,) + SERVE_SHAPE)
+                   .astype(np.uint8))
+        bf16, f32, nums = serve_predictor(card, net, raw)
+        _report, cli_s = serve_quantize_finish(card, proc, art, t_cli)
+        nums.update(serve_timing(card, bf16, f32, raw))
+        del f32
+        int8_pred, int8_batch, compared, nums8 = serve_int8(card, art)
+        second, nums_async = serve_async(card, net, raw, bf16)
+        nums_gw = serve_gateway(card, lm, raw, [bf16, second], int8_pred,
+                                int8_batch)
+        launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+        # the kernel-vs-plain check's launches are not the serving path's
+        launched["int8_conv"] -= compared
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+        if not tel_on:
+            telemetry.disable()
+        if not ev_on:
+            events.disable()
+    others = {n: c for n, c in launched.items() if n != "int8_conv" and c}
+    check(not others, "serve: kernels other than int8_conv launched: %s"
+          % others)
+    line = dict(nums, **nums8, **nums_async, **nums_gw)
+    line.update({"int8_conv_launches": launched["int8_conv"],
+                 "quantize_model_s": cli_s,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "phase_s": time.perf_counter() - t_phase, "card": card})
+    print("serve " + json.dumps(line), flush=True)
+    return launched["int8_conv"]
+
+
 def phase_observe(card):
     """The closing leg: the scrape endpoint answers /metrics and /statusz
     over HTTP, and an exception in a small trainer's step writes one
@@ -6089,8 +6763,15 @@ def time_flash(shape, dtype, causal, card):
 
 def main():
     t_start = time.perf_counter()
+    laps = []        # (phase, seconds since the previous lap)
+
+    def lap(name):
+        laps.append((name, time.perf_counter() - t_start
+                     - sum(t for _, t in laps)))
+
     card = phase_device()
     phase_build()
+    lap("1-2")
     net, trainable = build_resnet50()
     n_resnet = sum(p.data().size for p in trainable)
     worst3, flat = phase_kernels(n_resnet, card)
@@ -6101,39 +6782,55 @@ def main():
     timing = time_step_set(step_inputs, card)
     del net, trainable, step_inputs
     torch.cuda.empty_cache()
+    lap("3-4")
     phase_sharded(card)
     check_small_sharded()
     torch.cuda.empty_cache()
+    lap("7")
     flash_worst, flash_share = phase_flash(card)
     sp_launches, sp_worst, sp_share, sp_times = phase_sp(card)
     torch.cuda.empty_cache()
+    lap("5-6")
     lm, ring = phase_decode(card)
     torch.cuda.empty_cache()
+    lap("8")
     phase_paged(card, lm, ring)
-    del lm, ring
+    del ring
     torch.cuda.empty_cache()
+    lap("9")
+    serve_launches = phase_serve(card, lm)
+    del lm
+    torch.cuda.empty_cache()
+    lap("9b")
     phase_zoo(card)
     torch.cuda.empty_cache()
+    lap("10")
     phase_imperative(card)
     torch.cuda.empty_cache()
+    lap("11")
     phase_data(card)
     torch.cuda.empty_cache()
-    phase_symbolic(card, aside=True)
-    torch.cuda.empty_cache()
+    lap("12")
     side, jobs = SideChecks(), DistJobs()
     try:
         # phase 13's squeezenet and export check (inductor's compiles,
-        # the least measurement) run beside phases 14-15
+        # the least measurement) run beside phases 13-15
         side.start(card)
+        phase_symbolic(card, aside=True)
+        torch.cuda.empty_cache()
+        lap("13")
         phase_recurrent(card)
         torch.cuda.empty_cache()
         phase_fusion(card)
         torch.cuda.empty_cache()
         side.finish()
+        lap("14-15")
         # phase 17's workers import during phase 16's small case
         det_rows = phase_detection(card, after_timed=jobs.start)
         torch.cuda.empty_cache()
+        lap("16")
         dist_launches, dist_worst = phase_dist(card, jobs)
+        lap("17")
     finally:
         side.stop()
         jobs.stop()
@@ -6186,10 +6883,16 @@ def main():
             row["bf16_max_abs_err"] = flash_worst[kernel, torch.bfloat16]
             row["bf16_bound_share"] = flash_share[kernel, torch.bfloat16]
         rows.append(row)
+    # the int8_conv row: phase 16's launches and the serving path's
+    det_rows[0]["det_launches"] = det_rows[0]["launches"]
+    det_rows[0]["serve_launches"] = serve_launches
+    det_rows[0]["launches"] += serve_launches
     rows += det_rows
     phase_observe(card)
-    print("wall: the whole script %.1f s | %s"
-          % (time.perf_counter() - t_start, card), flush=True)
+    lap("18-19")
+    print("wall: the whole script %.1f s (by phase: %s) | %s"
+          % (time.perf_counter() - t_start,
+             ", ".join("%s %.1f" % lp for lp in laps), card), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

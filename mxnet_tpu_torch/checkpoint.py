@@ -1,6 +1,8 @@
 """The non-finite step guard's policy (parity: mxnet_tpu/checkpoint.py
 ``NonfiniteError`` and ``nonfinite_policy`` / ``check_finite``) and
-``atomic_write``, which the Trainer's and the KVStore's state files use.
+``atomic_write``, which the Trainer's and the KVStore's state files use,
+and ``retry`` (parity: mxnet_tpu/checkpoint.py:164), which the serving
+Predictor's host-to-card copy goes through.
 
 Checkpointing itself (sharded, topology-elastic) is not ported yet.
 """
@@ -8,7 +10,9 @@ from __future__ import annotations
 
 import logging
 import os
+import random as _pyrandom
 import tempfile
+import time
 import warnings
 
 import numpy as np
@@ -17,7 +21,7 @@ from .base import MXNetError
 from . import config as _config
 
 __all__ = ["NonfiniteError", "NONFINITE_POLICIES", "nonfinite_policy",
-           "check_finite", "atomic_write"]
+           "check_finite", "atomic_write", "retry"]
 
 
 def atomic_write(fname, data):
@@ -39,6 +43,56 @@ def atomic_write(fname, data):
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+def retry(fn, retries=3, backoff=0.05, jitter=0.5, exceptions=(OSError,),
+          logger=None, deadline=None):
+    """Wrap ``fn`` with bounded retries + exponential backoff + jitter.
+
+    ``retries`` is the number of *re*-attempts after the first call (so
+    the function runs at most ``retries + 1`` times).  Backoff doubles
+    per attempt; jitter adds a uniform fraction of the current delay so
+    a fleet of workers retrying a shared endpoint does not stampede in
+    lockstep.  Only ``exceptions`` are retried — anything else
+    propagates immediately.
+
+    ``deadline`` (seconds, measured from the first attempt of each
+    call) is an overall wall-clock budget: a re-attempt whose backoff
+    sleep would not fit inside the remaining budget is abandoned and
+    the last failure re-raised immediately.
+    """
+    if retries < 0:
+        raise ValueError("retries must be >= 0, got %r" % (retries,))
+    if deadline is not None and deadline < 0:
+        raise ValueError("deadline must be >= 0, got %r" % (deadline,))
+
+    def wrapped(*args, **kwargs):
+        t0 = time.monotonic()
+        delay = backoff
+        for attempt in range(retries + 1):
+            try:
+                return fn(*args, **kwargs)
+            except exceptions as e:
+                if attempt == retries:
+                    raise
+                sleep = delay * (1.0 + jitter * _pyrandom.random())
+                if deadline is not None and \
+                        time.monotonic() - t0 + sleep >= deadline:
+                    (logger or logging).warning(
+                        "retry budget exhausted after %s (deadline "
+                        "%.3fs): %s", getattr(fn, "__name__", fn),
+                        deadline, e)
+                    raise
+                (logger or logging).warning(
+                    "retry %d/%d after %s: %s (sleeping %.3fs)",
+                    attempt + 1, retries, getattr(fn, "__name__", fn), e,
+                    sleep)
+                time.sleep(sleep)
+                delay *= 2
+        raise AssertionError("unreachable")
+
+    wrapped.__name__ = "retry(%s)" % getattr(fn, "__name__", "fn")
+    return wrapped
 
 
 class NonfiniteError(MXNetError):

@@ -82,6 +82,86 @@ FLAGS = {
     "MXNET_NONFINITE_POLICY": (
         "warn", str,
         "step guard for NaN/Inf losses: off|warn|skip|raise"),
+    "MXNET_AOT": (
+        "0", _pbool,
+        "ahead-of-time executable store: not ported yet; a set value "
+        "makes serving.Predictor raise instead of serving without it"),
+    "MXNET_SERVING_QUEUE": (
+        "64", _pint,
+        "AsyncPredictor bounded request-queue depth (serving_async.py); "
+        "a full queue rejects non-blocking submits with a typed "
+        "Overloaded error instead of growing latency without bound"),
+    "MXNET_SERVING_DEADLINE_MS": (
+        "0", _pfloat,
+        "AsyncPredictor default per-request deadline in milliseconds "
+        "(0 = none): expired requests fail with DeadlineExceeded — in "
+        "the queue via the sweep, at dispatch pickup, or on late "
+        "completion — instead of silently blowing the client timeout"),
+    "MXNET_SERVING_MAX_INFLIGHT": (
+        "0", _pint,
+        "AsyncPredictor cap on admitted-but-uncompleted requests, "
+        "queued + claimed (0 = auto: queue depth + 2 x chain x B x "
+        "replicas — pipeline capacity in requests, so it binds when "
+        "dispatches are stuck, not before the queue); past it submits "
+        "shed with Overloaded(reason='inflight') or block when "
+        "backpressure is requested"),
+    "MXNET_SERVING_WARM_POOL": (
+        "0", _pint,
+        "AsyncPredictor default warm-pool size: N spare Predictor "
+        "replicas pre-built so a replica ejection swaps a "
+        "canary-verified spare in automatically instead of waiting for "
+        "operator heal()"),
+    "MXNET_SERVING_HEAL_PROBE": (
+        "0", _pfloat,
+        "seconds between auto-heal canary probes of ejected "
+        "AsyncPredictor replicas (0 = no probing): a probe dispatches "
+        "one known-good batch and re-admits the replica on success"),
+    "MXNET_GATEWAY_PORT": (
+        "0", _pint,
+        "HTTP serving gateway listen port (gateway.py; 0 = ephemeral, "
+        "the bound port is on Gateway.port).  The gateway also serves "
+        "the scrape routes (/metrics /healthz /statusz /varz "
+        "/requestz) on the same listener"),
+    "MXNET_GATEWAY_MAX_BODY": (
+        "1048576", _pint,
+        "gateway request-body byte cap: a Content-Length above it is "
+        "refused 413 before reading a byte, so oversized bodies can "
+        "never hold a handler thread or its memory"),
+    "MXNET_GATEWAY_READ_TIMEOUT_S": (
+        "5", _pfloat,
+        "gateway socket read timeout while receiving a request body: "
+        "a slow-loris client trickling bytes slower than this is cut "
+        "with 408 instead of pinning a handler thread"),
+    "MXNET_GATEWAY_QUOTA_QPS": (
+        "0", _pfloat,
+        "per-tenant token-bucket refill rate in requests/second "
+        "(0 = quotas off): a tenant over its bucket gets 429 with "
+        "Retry-After sized to the refill wait"),
+    "MXNET_GATEWAY_QUOTA_BURST": (
+        "8", _pint,
+        "per-tenant token-bucket capacity: how many requests a tenant "
+        "may burst above its steady MXNET_GATEWAY_QUOTA_QPS rate"),
+    "MXNET_GATEWAY_QUEUE": (
+        "16", _pint,
+        "gateway per-tenant fair-queue depth: a tenant with this many "
+        "requests already waiting for a dispatch permit sheds the "
+        "next one typed (Overloaded('queue') -> 429)"),
+    "MXNET_GATEWAY_CONCURRENCY": (
+        "8", _pint,
+        "gateway dispatch permits shared across tenants: concurrent "
+        "backend requests; freed permits go to the queued tenant with "
+        "the smallest weighted-fair virtual finish time"),
+    "MXNET_GATEWAY_DRAIN_S": (
+        "10", _pfloat,
+        "gateway close()/SIGTERM drain budget in seconds: /healthz "
+        "flips 503 first, new requests shed 503, open streams get "
+        "this long to finish before the listener stops"),
+    "MXNET_GATEWAY_MAX_TENANTS": (
+        "256", _pint,
+        "cap on distinct X-Tenant values tracked by the gateway: "
+        "tenants past the cap collapse onto one shared overflow "
+        "key (bucket/queue/metric label), so minting unique tenant "
+        "headers cannot grow per-tenant state without bound"),
     "MXNET_DECODE_SLOTS": (
         "8", _pint,
         "generate.GenerationEngine default decode slots: the fixed batch "

@@ -310,20 +310,26 @@ def _forward_symbol(sym, arg_params, aux_params, batch, data_name="data"):
     """One inference forward of ``sym`` over ``batch`` with explicit
     args (quantized graphs carry int8 weights + range scalars whose
     shapes data-only inference cannot derive), on the parameters'
-    context."""
+    context.  The graph's function runs eagerly: the gate runs each
+    graph once, and a compiled Executor would spend an inductor compile
+    (minutes for ResNet-50 on the card) on that one forward."""
+    import torch
+
     ctx = _params_context(arg_params)
-    args = {n: (a if isinstance(a, NDArray)
-                else array(np.asarray(a), ctx=ctx))
-            for n, a in arg_params.items()}
-    args[data_name] = array(np.asarray(batch), ctx=ctx)
-    # dtype_policy pinned OFF: the gate must measure the fp32 model of
-    # record and the int8 graph EXACTLY as stored — an ambient
-    # MXNET_DTYPE_POLICY would re-cast the baseline weights (and the
-    # int8 range scalars) and validate numerics nobody will serve
-    ex = sym.bind(ctx=ctx, args=args,
-                  aux_states=dict(aux_params) or None, grad_req="null",
-                  dtype_policy="f32")
-    return ex.forward(is_train=False)[0].asnumpy()
+    values = {}
+    for src in (arg_params, aux_params or {}):
+        for n, a in src.items():
+            a = a if isinstance(a, NDArray) else array(np.asarray(a), ctx=ctx)
+            values[n] = a._data.to(ctx.torch_device)
+    values[data_name] = array(np.asarray(batch), ctx=ctx)._data
+    fn, _, _ = sym._build_fn()
+    # no dtype-policy scope: the gate measures the fp32 model of record
+    # and the int8 graph EXACTLY as stored — an ambient policy would
+    # re-cast the baseline weights (and the int8 range scalars) and
+    # validate numerics nobody will serve
+    with torch.inference_mode():
+        outs, _ = fn(values, is_train=False, device=ctx.torch_device)
+    return outs[0].cpu().numpy()
 
 
 def topk_agreement(ref_logits, test_logits, k):

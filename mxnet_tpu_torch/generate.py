@@ -32,7 +32,10 @@ PagedGenerationEngine :651-1376, GenerationResult / TokenServer
 Where the JAX engines compile their programs, these run them eagerly
 under ``torch.inference_mode()`` on one device (by default the current
 context, so the card), with the parameters committed and cast once at
-construction.  Not ported yet: meshes and layouts, AOT and SLO shedding.
+construction.  ``TokenServer(slo_ms=...)`` sheds at admission with
+``serving_async.BurnRateShedder`` over the time-to-first-token
+histogram, as the JAX server does.  Not ported yet: meshes and layouts,
+AOT.
 
 Observability is the JAX package's: the ``DECODE_*`` series of both
 engines, ``TokenServer``'s ``decode.request`` spans and one
@@ -69,8 +72,9 @@ from .base import MXNetError
 from .context import Context, current_context
 from .gluon import block as _block
 from .ndarray.ndarray import NDArray
-from .serving_async import (Cancelled, DeadlineExceeded, Overloaded,
-                            ReplicaFailed, ServingError, ServingFuture)
+from .serving_async import (BurnRateShedder, Cancelled, DeadlineExceeded,
+                            Overloaded, ReplicaFailed, ServingError,
+                            ServingFuture)
 
 __all__ = ["SamplingConfig", "GenerationEngine", "PagedGenerationEngine",
            "TokenServer", "GenerationResult", "sample_logits",
@@ -98,6 +102,8 @@ def _decode_statusz():
     for s in _live_snapshot():
         st = s.stats()
         st["occupancy"] = s._engine.occupancy()
+        if s._shedder is not None:
+            st["ttft_burn_rate"] = round(s._shedder.burn, 4)
         out["servers"].append(st)
     return out
 
@@ -1257,10 +1263,6 @@ class TokenServer:
                  max_new_tokens=None, slo_ms=None, shed_error_budget=0.1,
                  shed_burn_threshold=2.0, shed_window_s=30.0,
                  shed_hist=None):
-        if slo_ms or shed_hist is not None:
-            raise MXNetError("TokenServer(slo_ms=...) shedding needs "
-                             "serving_async.BurnRateShedder, which is not "
-                             "ported yet")
         self._engine = engine
         # paged engines admit incrementally: the loop streams one prefill
         # chunk a tick between decode steps instead of running the whole
@@ -1279,6 +1281,16 @@ class TokenServer:
         if max_new_tokens is None:
             max_new_tokens = _config.get("MXNET_DECODE_MAX_NEW")
         self._max_new = int(max_new_tokens)
+        self._shedder = None
+        if slo_ms:
+            # burn-rate shedding over TIME-TO-FIRST-TOKEN: the latency a
+            # decode tier's clients feel first (serving_async sheds over
+            # whole-request latency)
+            self._shedder = BurnRateShedder(
+                float(slo_ms) / 1e3, error_budget=shed_error_budget,
+                burn_threshold=shed_burn_threshold, window_s=shed_window_s,
+                hist=shed_hist if shed_hist is not None
+                else _telemetry.DECODE_TTFT_SECONDS)
         self._cond = threading.Condition()
         self._queue = collections.deque()
         self._by_slot = {}
@@ -1295,6 +1307,9 @@ class TokenServer:
     def _admission_error_locked(self, deadline, now):
         if self._closed or not self._running:
             return Overloaded("shutdown")
+        if self._shedder is not None and self._shedder.shedding:
+            return Overloaded("slo", "TTFT burn rate %.2fx"
+                              % self._shedder.burn)
         if deadline is not None and now >= deadline:
             return DeadlineExceeded("prefill", "expired before admission")
         if len(self._queue) >= self._depth:
@@ -1649,6 +1664,8 @@ class TokenServer:
                     for t in (tok if isinstance(tok, list) else [tok]):
                         if not self._deliver(req, slot, t):
                             break
+                if self._shedder is not None:
+                    self._shedder.update()
             except Exception as e:
                 # a failed dispatch can leave the engine half-updated:
                 # fail everything typed and stop
@@ -1738,6 +1755,7 @@ class TokenServer:
                 "queue_depth": len(self._queue),
                 "active": len(self._by_slot),
                 "free_slots": self._engine.free_slots(),
-                "shedding": False,
+                "shedding": (self._shedder.shedding
+                             if self._shedder else False),
                 "closed": self._closed,
             }

@@ -459,8 +459,27 @@ def test_server_cancel_and_drain(teng, monkeypatch):
 
 
 def test_server_rejects_what_is_not_ported(teng):
-    with pytest.raises(MXNetError, match="not ported yet"):
-        tgen.TokenServer(teng, slo_ms=50)
+    # slo_ms is ported now: on a burning TTFT histogram the server sheds
+    # at admission with Overloaded("slo")
+    from mxnet_tpu_torch import telemetry as ttel
+
+    hist = ttel.Histogram("mxnet_tpu_ttft_shed_test_seconds", "t",
+                          buckets=(0.01, 0.1, 1.0))
+    was_on = ttel.enabled()
+    ttel.enable()
+    slo = tgen.TokenServer(teng, slo_ms=50, shed_hist=hist)
+    try:
+        for _ in range(10):
+            hist.observe(0.5)
+        assert slo._shedder.update() is True
+        with pytest.raises(tgen.Overloaded) as ei:
+            slo.submit(_prompt(4))
+        assert ei.value.reason == "slo"
+        assert slo.stats()["shedding"] is True
+    finally:
+        slo.close()
+        if not was_on:
+            ttel.disable()
     srv = tgen.TokenServer(teng)
     try:
         with pytest.raises(MXNetError, match="prefill bucket"):

@@ -26,8 +26,11 @@ optimizer), and the observability layer (telemetry, tracing, profiler,
 events, perf_ledger, goodput, fleet and monitor's heartbeat: two
 ShardedTrainer steps with every layer on, their step breakdown, a
 TokenServer request, a fleet snapshot and a goodput ledger, a profiler
-window and the scrape endpoint) loads neither jax nor mxnet_tpu, and
-chip_smoke.py imports neither.  The import check runs in a subprocess because this
+window and the scrape endpoint), and the serving tier (serving,
+serving_async, gateway, testing.faults and tools.quantize_model: a
+Predictor and an AsyncPredictor answering over the gateway's HTTP
+route, a TokenServer with SLO shedding on, an int8 MLP artifact) loads
+neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -253,6 +256,33 @@ srv = telemetry.serve_scrape(port=0, host="127.0.0.1")
 urllib.request.urlopen("http://127.0.0.1:%d/statusz" % srv.port,
                        timeout=10).read()
 telemetry.stop_scrape()
+import json
+from mxnet_tpu_torch import serving, serving_async, gateway
+from mxnet_tpu_torch.testing import faults
+from mxnet_tpu_torch.tools import quantize_model
+pred, _ = serving.Predictor.from_block(
+    mlp, np.ones((2, 3), np.float32), chain=2, device=mx.cpu(),
+    postprocess=lambda o: o.argmax(1))
+assert [o.shape for o in pred.predict([np.ones((2, 3), np.float32)])] \
+    == [(2,)]
+ap = serving_async.AsyncPredictor(pred, batch_window_ms=1.0)
+gw = gateway.Gateway(port=0)
+gw.add_route("mlp", ap, kind="predict")
+body = json.dumps({"rows": [[1.0, 2.0, 3.0]]}).encode()
+req = urllib.request.Request("http://127.0.0.1:%d/v1/predict/mlp" % gw.port,
+                             data=body, method="POST")
+assert json.loads(urllib.request.urlopen(req, timeout=30).read())[
+    "outputs"] == list(pred.predict([np.array([[1.0, 2.0, 3.0]],
+                                              np.float32)]))[0].tolist()
+gw.close()
+ap.close()
+slo = mxnet_tpu_torch.generate.TokenServer(eng, slo_ms=1000,
+                                           max_new_tokens=2)
+assert len(slo.generate([1, 2], timeout=60).tokens) == 2
+slo.close()
+assert quantize_model.main(["--model", "mlp", "--device", "cpu",
+                            "--out", root + "/int8"]) == 0
+assert faults.StallingCallable(lambda: 1).calls == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))
