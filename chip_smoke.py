@@ -209,6 +209,10 @@ non-zero, printing no result, without them.  Phases, one line each:
    CPU within 1e-5 relative (potrf, potri, trsm 1e-4; gelqf and syevd by
    reconstruction and up to sign); each mx.random sampler's 2^20 draws
    within 6 standard errors of its mean and variance, a reseed bit-equal;
+   ops/extended.py's other 56 names: the 44 deterministic ones card vs
+   CPU within 1e-5 relative, and each of its 12 samplers' 10^5 draws of
+   the expected shape and dtype within 5 standard errors of its mean and
+   variance, a reseed bit-equal;
    examples/dcgan.py's port 24 steps with D's loss falling; faults 4-6
    on the card; no hand-written kernel launched;
 12. data: the data pipeline on 512 JPEG images at ImageNet's shape
@@ -390,11 +394,37 @@ non-zero, printing no result, without them.  Phases, one line each:
    /metrics and /statusz through urllib, and an exception forced in a
    small ShardedTrainer's step writes one flight-recorder bundle
    (trace.json, telemetry.json, stacks.txt, info.json);
-20. the whole script's wall time, then a {"kernels": [...]} line (the
+20. sparse: ndarray.sparse, the row-sparse KVStore and SGD's lazy update
+   on the card, every array there.  A 1,000,000 x 64 f32 table (the
+   feature count of LIBSVM Avazu, which upstream MXNet 1.5's
+   example/sparse/linear_classification trains on; N(0, 0.01) from a
+   seed) and its momentum in KVStore('device') with SGD(lr 0.1,
+   momentum 0.9, wd 1e-5, lazy_update); CSR batches of 8192 rows with 32
+   distinct features a row, Zipf(1.1) folded into range, labels from a
+   hidden linear model; h = relu(sparse.dot(X, W)), a dense 64 -> 1 head
+   in the same store, a logistic loss.  Each of 1 warm-up + 10 timed
+   steps: the batch's unique rows pulled into a RowSparseNDArray
+   (bit-equal to W's rows), the forward on its dense view,
+   dW = sparse.dot(X, dh, transpose_a=True) cast to row_sparse for each
+   half of the batch, both pushed as one list (add_rsp_rsp, then the
+   lazy update), all with RuntimeWarning as an error (no densification).
+   Each step recomputed in float64 on the card with plain torch from the
+   same components: the gradient's rows equal, W's and the momentum's
+   rows and the head (its 64 weights and bias together) within 1e-5 x
+   max|ref|; at the end every touched
+   row within that bound and every untouched row of W and the momentum
+   bit-unchanged.  A small case (5000 x 8, batch 64, 3 steps) on the
+   card against the port on the CPU within 1e-5 x max|ref|;
+   dgl_csr_neighbor_uniform_sample and dgl_subgraph on card components
+   equal to the CPU's under one seed.  A 'sparse' line: the step median
+   and its split (pull, forward dot, backward dot and cast, push with
+   update), unique rows a batch, examples/s, peak memory; no
+   hand-written kernel launched;
+21. the whole script's wall time, then a {"kernels": [...]} line (the
    compression rows' launches: phase 4's and each phase-17 worker's;
    int8_conv's: phase 16's, det_launches, and phase 9b's,
    serve_launches);
-21. last line: {"ok": true, "device": {...}}.
+22. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -415,6 +445,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -550,6 +581,7 @@ IMP_NET, IMP_CLASSES, IMP_SIDE, IMP_PAD = "resnet50_v1", 1000, 224, 16
 IMP_PRED_BATCH, IMP_FT_BATCH, IMP_SO_BATCH = 32, 64, 16
 IMP_FT_CLASSES, IMP_FT_STEPS, IMP_FT_LR, IMP_BACKBONE_MULT = 100, 5, 0.01, 0.1
 IMP_DRAWS, IMP_SE = 1 << 20, 6.0
+IMP_EXT_DRAWS, IMP_EXT_SE = 10 ** 5, 5.0   # ops/extended.py's samplers
 IMP_DCGAN_STEPS, IMP_DCGAN_BATCH = 24, 32
 IMP_UPDATE_REL, IMP_SO_REL, IMP_F16_TOL, IMP_OP_REL = 1e-6, 1e-4, 5e-2, 1e-5
 IMP_LINALG_REL = {"linalg_potrf": 1e-4, "linalg_potri": 1e-4,
@@ -3130,7 +3162,7 @@ def imp_op_cases():
         else:
             key = canonical
         cases.append((name, by_canonical[key], attrs.get(key, {})))
-    return cases
+    return cases + imp_ext_cases()
 
 
 # the aliases the port had before this slice (held by earlier phases), and
@@ -3150,7 +3182,117 @@ IMP_LATER_ALIASES = (
     "Softmax", "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
     "PSROIPooling", "Proposal", "_contrib_MultiProposal",
     "_contrib_box_non_maximum_suppression", "_contrib_nms",
-    "_contrib_quadratic", "_quantized_concat")
+    "_contrib_quadratic", "_quantized_concat", "ElementWiseSum",
+    "boolean_mask", "ravel_multi_index", "unravel_index", "_crop_assign",
+    "_crop_assign_scalar")
+
+
+def imp_ext_cases():
+    """Every deterministic name of ops/extended.py's other 56 at the JAX
+    suite's shapes (tests/test_extended_ops.py, test_op_parity2.py)."""
+    r = np.random.RandomState(1)
+
+    def a(*s):
+        return np.asarray(r.randn(*s), np.float32)
+
+    def pos(*s):
+        return (r.rand(*s) + 0.5).astype(np.float32)
+
+    def img(*s):
+        return r.randint(0, 256, s).astype(np.uint8)
+
+    def multi(per, mp):
+        out = []
+        for shape in ((4,), (3, 2)):
+            w32 = a(*shape)
+            out += [w32.astype(np.float16) if mp else w32,
+                    a(*shape).astype(np.float16 if mp else np.float32)]
+            out += [0.1 * a(*shape)] if per == 3 else []
+            out += [w32.copy()] if mp else []
+        return out
+
+    theta = np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32), (2, 1)) \
+        + 0.1 * a(2, 6)
+    lr2 = {"num_weights": 2, "lrs": (0.1, 0.2), "wds": (0.01, 0.0),
+           "rescale_grad": 0.5, "clip_gradient": 0.3}
+    corr = {"kernel_size": 3, "max_displacement": 2, "stride1": 2,
+            "stride2": 1, "pad_size": 2, "is_multiply": True}
+    return [
+        ("add_n", [a(2, 3), a(2, 3), a(2, 3)], {}),
+        ("ElementWiseSum", [a(2, 3), a(2, 3)], {}),
+        ("round", [a(3, 4) * 3], {}),
+        ("reshape_like", [a(2, 3), a(3, 2)], {}),
+        ("_identity_with_attr_like_rhs", [a(2, 3), a(3, 2)], {}),
+        ("_zeros_without_dtype", [], {"shape": (2, 3)}),
+        ("_histogram", [a(50)], {"bin_cnt": 5}),
+        ("_ravel_multi_index", [np.array([[0, 1, 2], [2, 0, 3]],
+                                         np.float32)], {"shape": (3, 4)}),
+        ("ravel_multi_index", [np.array([[1, 0], [2, 3], [0, 4]],
+                                        np.float32)], {"shape": (2, 4, 5)}),
+        ("_unravel_index", [np.array([2, 4, 11], np.float32)],
+         {"shape": (3, 4)}),
+        ("unravel_index", [np.array([0, 17, 39], np.float32)],
+         {"shape": (2, 4, 5)}),
+        ("_square_sum", [a(3, 4)], {"axis": 1, "keepdims": True}),
+        ("_split_v2", [a(3, 4)], {"indices": (1, 2), "axis": 0}),
+        ("_slice_assign", [a(4, 5), a(2, 2)], {"begin": (0, 1),
+                                               "end": (2, 3)}),
+        ("_crop_assign", [a(4, 5), a(2, 3)],
+         {"begin": (3, 4), "end": (0, 1), "step": (-2, -1)}),
+        ("_slice_assign_scalar", [a(3, 4)],
+         {"scalar": -1.0, "begin": (0, 0), "end": (2, 2)}),
+        ("_crop_assign_scalar", [a(4, 5)],
+         {"scalar": 2.5, "begin": (1, 0), "end": (4, 5), "step": (2, 2)}),
+        ("cast_storage", [a(2, 3)], {"stype": "default"}),
+        ("_contrib_gradientmultiplier", [a(2, 3)], {"scalar": -2.0}),
+        ("IdentityAttachKLSparseReg", [a(2, 3)], {}),
+        ("BilinearSampler", [a(2, 3, 5, 6), (r.rand(2, 2, 4, 3) * 2.2
+                                             - 1.1).astype(np.float32)],
+         {}),
+        ("GridGenerator", [theta], {"transform_type": "affine",
+                                    "target_shape": (3, 4)}),
+        ("SpatialTransformer", [a(2, 3, 5, 5), theta],
+         {"target_shape": (4, 4), "transform_type": "affine",
+          "sampler_type": "bilinear"}),
+        ("Crop", [a(1, 2, 7, 6)], {"h_w": (3, 4), "center_crop": True}),
+        ("_contrib_AdaptiveAvgPooling2D", [a(1, 2, 7, 5)],
+         {"output_size": (3, 2)}),
+        ("_contrib_fft", [a(2, 8)], {}),
+        ("_contrib_ifft", [a(2, 16)], {}),
+        ("_contrib_boolean_mask", [a(4, 3), np.array([1, 0, 1, 0],
+                                                      np.float32)], {}),
+        ("boolean_mask", [a(2, 3), np.array([0, 1, 1], np.float32)],
+         {"axis": 1}),
+        ("_contrib_bipartite_matching", [r.rand(2, 4, 3).astype(
+            np.float32)], {"threshold": 0.3}),
+        ("_image_to_tensor", [img(2, 6, 8, 3)], {}),
+        ("_image_normalize", [r.rand(3, 6, 8).astype(np.float32)],
+         {"mean": (0.5, 0.4, 0.3), "std": (0.2, 0.3, 0.4)}),
+        ("_image_resize", [img(6, 8, 3)], {"size": (4, 3)}),
+        ("_image_crop", [img(6, 8, 3)], {"x": 1, "y": 2, "width": 4,
+                                         "height": 3}),
+        ("multi_sgd_update", multi(2, False), lr2),
+        ("multi_sgd_mom_update", multi(3, False), dict(lr2, momentum=0.9)),
+        ("multi_mp_sgd_update", multi(2, True), lr2),
+        ("multi_mp_sgd_mom_update", multi(3, True), dict(lr2,
+                                                          momentum=0.9)),
+        ("_mp_adamw_update", [a(3).astype(np.float16),
+                              (0.1 * a(3)).astype(np.float16), 0.01 * a(3),
+                              0.01 * pos(3), a(3)],
+         {"lr": 0.1, "wd": 0.01, "eta": 0.5, "clip_gradient": 0.05,
+          "rescale_grad": 2.0}),
+        ("_contrib_group_adagrad_update", [a(4, 3), a(4, 3), pos(4, 1)],
+         {"lr": 0.1, "rescale_grad": 0.5, "clip_gradient": 0.4}),
+        ("_scatter_set_nd", [np.zeros((3, 4), np.float32),
+                             np.array([[0, 2], [1, 3]], np.float32),
+                             np.array([5.0, 7.0], np.float32)],
+         {"shape": (3, 4)}),
+        ("Correlation", [r.rand(2, 3, 7, 7).astype(np.float32),
+                         r.rand(2, 3, 7, 7).astype(np.float32)], corr),
+        ("_sparse_retain", [a(5, 3), np.array([0, 3], np.float32)], {}),
+        ("_sparse_adagrad_update", [a(4, 3), a(4, 3), pos(4, 3)],
+         {"lr": 0.1, "wd": 0.01, "epsilon": 1e-7, "clip_gradient": 0.5}),
+    ]
 
 
 def imp_new_aliases():
@@ -3221,13 +3363,17 @@ def imp_ops(card):
         worst[name] = err
     aliases = imp_new_aliases()
     check(len(aliases) == 68, "%d new aliases, not 68" % len(aliases))
+    ext = {c[0] for c in imp_ext_cases()}
+    check(len(ext) == 44, "%d names of ops/extended.py, not 44" % len(ext))
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
-    print("imperative ops: %d deterministic op names of this slice (68 "
-          "aliases, 35 tensor ops, 22 linalg names) on the card vs the port "
-          "on the CPU | all within %g relative (linalg potrf/potri/trsm "
-          "%g; gelqf and syevd by reconstruction and up to each row's "
-          "sign) | worst %s | registry %d names | %s"
-          % (len(names), IMP_OP_REL, IMP_LINALG_REL["linalg_potrf"],
+    print("imperative ops: %d deterministic op names (68 aliases, 35 "
+          "tensor ops, 22 linalg names, and %d of ops/extended.py's other "
+          "56, its 12 samplers checked below) on the card vs the port on "
+          "the CPU | all within %g relative (linalg potrf/potri/trsm %g; "
+          "gelqf and syevd by reconstruction and up to each row's sign) | "
+          "worst %s | registry %d names | %s"
+          % (len(names), len(ext), IMP_OP_REL,
+             IMP_LINALG_REL["linalg_potrf"],
              ", ".join("%s %.2g" % kv for kv in top),
              len(registry.list_ops()), card), flush=True)
 
@@ -3264,12 +3410,69 @@ def imp_samplers():
     ]
 
 
+def imp_ext_samplers():
+    """ops/extended.py's per-row and *_like samplers on the card: one row
+    of IMP_EXT_DRAWS draws each, with the expected shape and dtype."""
+    gpu = mx.gpu(0)
+    n = IMP_EXT_DRAWS
+
+    def one(v):
+        return mx.nd.array(np.array([v], np.float32), ctx=gpu)
+
+    like = mx.nd.zeros((n,), ctx=gpu)
+    nd = mx.nd
+    return [
+        ("_sample_exponential", lambda: nd._sample_exponential(
+            one(2.0), shape=(n,)), 0.5, 0.25, (1, n)),
+        ("_sample_gamma", lambda: nd._sample_gamma(
+            one(2.5), one(1.5), shape=(n,)), 3.75, 5.625, (1, n)),
+        ("_sample_poisson", lambda: nd._sample_poisson(
+            one(3.5), shape=(n,)), 3.5, 3.5, (1, n)),
+        ("_sample_negative_binomial", lambda: nd._sample_negative_binomial(
+            one(3.0), one(0.4), shape=(n,)), 4.5, 11.25, (1, n)),
+        ("_sample_generalized_negative_binomial",
+         lambda: nd._sample_generalized_negative_binomial(
+             one(2.0), one(0.5), shape=(n,)), 2.0, 4.0, (1, n)),
+        ("_random_uniform_like", lambda: nd._random_uniform_like(
+            like, low=-1.0, high=3.0), 1.0, 16.0 / 12, (n,)),
+        ("_random_normal_like", lambda: nd._random_normal_like(
+            like, loc=0.5, scale=2.0), 0.5, 4.0, (n,)),
+        ("_random_exponential_like", lambda: nd._random_exponential_like(
+            like, lam=2.0), 0.5, 0.25, (n,)),
+        ("_random_gamma_like", lambda: nd._random_gamma_like(
+            like, alpha=2.5, beta=1.5), 3.75, 5.625, (n,)),
+        ("_random_poisson_like", lambda: nd._random_poisson_like(
+            like, lam=3.5), 3.5, 3.5, (n,)),
+        ("_random_negative_binomial_like",
+         lambda: nd._random_negative_binomial_like(like, k=3, p=0.4), 4.5,
+         11.25, (n,)),
+        ("_random_generalized_negative_binomial_like",
+         lambda: nd._random_generalized_negative_binomial_like(
+             like, mu=2.0, alpha=0.5), 2.0, 4.0, (n,)),
+    ]
+
+
 def imp_random(card):
+    imp_moments(card, [s[:4] for s in imp_samplers()], IMP_DRAWS, IMP_SE,
+                "imperative random: 2^%d draws a sampler on the card"
+                % int(math.log2(IMP_DRAWS)))
+    ext = imp_ext_samplers()
+    imp_moments(card, [s[:4] for s in ext], IMP_EXT_DRAWS, IMP_EXT_SE,
+                "imperative samplers: ops/extended.py's %d, %d draws each "
+                "on the card (shape and dtype as expected)"
+                % (len(ext), IMP_EXT_DRAWS), shapes={
+                    s[0]: s[4] for s in ext})
+
+
+def imp_moments(card, samplers, draws, se, head, shapes=None):
     rows = []
-    for name, draw, mean, var in imp_samplers():
+    for name, draw, mean, var in samplers:
         mx.random.seed(17)
         t_s, x = timed_s(draw)
         check(x.context == mx.gpu(0), "%s drew off the card" % name)
+        if shapes is not None:
+            check(x.shape == shapes[name] and x.dtype == np.float32,
+                  "%s: shape %s dtype %s" % (name, x.shape, x.dtype))
         v = x.asnumpy().astype(np.float64).ravel()
         m = v.mean()
         se_m = math.sqrt(var / v.size)
@@ -3279,18 +3482,16 @@ def imp_random(card):
         if name == "shuffle":
             check(np.array_equal(np.sort(v), np.arange(IMP_DRAWS)),
                   "shuffle is not a permutation")
-        check(zm <= IMP_SE and zv <= IMP_SE, "%s: mean %g (want %g, %.1f "
+        check(zm <= se and zv <= se, "%s: mean %g (want %g, %.1f "
               "SE), variance %g (want %g, %.1f SE)"
               % (name, m, mean, zm, dev2.mean(), var, zv))
         mx.random.seed(17)
         check(np.array_equal(draw().asnumpy(), x.asnumpy()),
               "%s: a reseed did not repeat the draws" % name)
         rows.append("%s %.1f/%.1f SE %.2f ms" % (name, zm, zv, 1e3 * t_s))
-    print("imperative random: 2^%d draws a sampler on the card, mean / "
-          "variance off by (standard errors, bound %g), then a reseed "
-          "bit-equal | %s | %s"
-          % (int(math.log2(IMP_DRAWS)), IMP_SE, " | ".join(rows), card),
-          flush=True)
+    print("%s, mean / variance off by (standard errors, bound %g), then a "
+          "reseed bit-equal | %s | %s"
+          % (head, se, " | ".join(rows), card), flush=True)
 
 
 def imp_dcgan(card):
@@ -6724,6 +6925,316 @@ def phase_observe(card):
              type(raised).__name__, files, card), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sparse storage on a 1,000,000-row table
+# ---------------------------------------------------------------------------
+
+# LIBSVM Avazu's 1,000,000 features (upstream MXNet 1.5's
+# example/sparse/linear_classification trains on that set); batches of
+# 8192 rows, 32 distinct features a row (value 1) drawn Zipf(1.1) and
+# folded into range, so that rows repeat within and across batches as in
+# click logs; a 1,000,000 x 64 f32 table W and its momentum in
+# KVStore('device') with SGD(lr 0.1, momentum 0.9, wd 1e-5, lazy_update);
+# h = relu(sparse.dot(X, W)), a dense 64 -> 1 head (its weight and bias
+# in the same store, dense), a logistic loss; 1 warm-up + 10 timed steps
+SPARSE = dict(features=1_000_000, width=64, batch=8192, steps=11)
+SPARSE_SMALL = dict(features=5000, width=8, batch=64, steps=3)
+SPARSE_NNZ, SPARSE_ZIPF_A, SPARSE_WARM = 32, 1.1, 1
+SPARSE_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-5,
+                  lazy_update=True)
+SPARSE_REL = 1e-5                 # f32 against the f64 recompute, relative
+SPARSE_AMBIGUOUS = 1e-5           # |z| below this x max|z|: either sign
+
+
+def sparse_data(cfg, seed):
+    """The run's CSR batches as host components (ascending columns a row),
+    labels from a hidden linear model over the features (its score above
+    the batch's median), the initial table (N(0, 0.01)) and head."""
+    rng = np.random.RandomState(seed)
+    hidden = rng.randn(cfg["features"])
+    batches = []
+    for _ in range(cfg["steps"]):
+        cols = np.zeros((cfg["batch"], SPARSE_NNZ), np.int64)
+        todo = np.arange(cfg["batch"])
+        while len(todo):
+            # the first 32 distinct ids of each row's draws, in draw order
+            d = (rng.zipf(SPARSE_ZIPF_A, (len(todo), 2 * SPARSE_NNZ)) - 1) \
+                % cfg["features"]
+            order = np.argsort(d, axis=1, kind="stable")
+            srt = np.take_along_axis(d, order, 1)
+            first = np.ones_like(srt, bool)
+            first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+            keep = np.zeros_like(first)
+            np.put_along_axis(keep, order, first, 1)
+            keep &= np.cumsum(keep, 1) <= SPARSE_NNZ
+            full = keep.sum(1) == SPARSE_NNZ
+            cols[todo[full]] = np.sort(
+                d[full][keep[full]].reshape(-1, SPARSE_NNZ), 1)
+            todo = todo[~full]
+        score = hidden[cols].sum(1)
+        y = (score > np.median(score)).astype(np.float32)
+        batches.append((cols, y))
+    w0 = (0.01 * rng.randn(cfg["features"], cfg["width"])).astype(np.float32)
+    v0 = (0.1 * rng.randn(cfg["width"], 1)).astype(np.float32)
+    return batches, w0, v0
+
+
+def sparse_csr(cols, lo, hi, ctx, features):
+    """Rows lo..hi of a batch as a CSRNDArray on ctx, values 1."""
+    part = cols[lo:hi]
+    n = part.shape[0]
+    indptr = np.arange(0, n * SPARSE_NNZ + 1, SPARSE_NNZ, dtype=np.int64)
+    return mx.nd.sparse.csr_matrix(
+        (np.ones(part.size, np.float32), part.reshape(-1), indptr),
+        shape=(n, features), ctx=ctx)
+
+
+def sync(ctx):
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+class SparseRef:
+    """The model recomputed in float64 with plain torch on the port's
+    device, from the same components: gather and index_add_, the lazy
+    update over the rows the gradient holds, the head's dense momentum
+    SGD."""
+
+    def __init__(self, w0, v0, device):
+        self.w = torch.as_tensor(w0, device=device).double()
+        self.m = torch.zeros_like(self.w)
+        self.v = torch.as_tensor(v0, device=device).double()
+        self.mv = torch.zeros_like(self.v)
+        self.b = torch.zeros(1, dtype=torch.float64, device=device)
+        self.mb = torch.zeros_like(self.b)
+        self.ambiguous = 0
+
+    def step(self, cols, y, z32):
+        lr, mom, wd = (SPARSE_OPT["learning_rate"], SPARSE_OPT["momentum"],
+                       SPARSE_OPT["wd"])
+        dev = self.w.device
+        c = torch.as_tensor(cols, device=dev).reshape(-1)
+        rid = torch.arange(cols.shape[0], device=dev).repeat_interleave(
+            cols.shape[1])
+        z = torch.zeros(cols.shape[0], self.w.shape[1], dtype=torch.float64,
+                        device=dev).index_add_(0, rid, self.w[c])
+        # an entry within f32's rounding of 0 takes the port's sign
+        near = z.abs() <= SPARSE_AMBIGUOUS * z.abs().max()
+        self.ambiguous += int(near.sum())
+        mask = torch.where(near, z32 > 0, z > 0).double()
+        h = z * mask
+        logit = h @ self.v + self.b
+        yt = torch.as_tensor(y, device=dev).double()[:, None]
+        dlogit = (torch.sigmoid(logit) - yt) / cols.shape[0]
+        dv, db = h.t() @ dlogit, dlogit.sum(0)
+        dh = dlogit * self.v.t() * mask
+        rows = torch.unique(c)
+        dw = torch.zeros(len(rows), self.w.shape[1], dtype=torch.float64,
+                         device=dev).index_add_(
+            0, torch.searchsorted(rows, c), dh[rid])
+        keep = (dw != 0).any(1)
+        rows, g = rows[keep], dw[keep] + wd * self.w[rows[keep]]
+        new_m = mom * self.m[rows] - lr * g
+        self.m[rows] = new_m
+        self.w[rows] += new_m
+        for p, m, gp in ((self.v, self.mv, dv), (self.b, self.mb, db)):
+            m.copy_(mom * m - lr * (gp + wd * p))
+            p += m
+        return rows
+
+
+def sparse_rel(got, want):
+    scale = float(want.abs().max()) or 1.0
+    return float((got.double() - want).abs().max()) / scale
+
+
+def sparse_train(cfg, ctx, seed, ref=False, measure=False):
+    """The port's sparse path: per step, pull the batch's unique rows of
+    W into a RowSparseNDArray, forward with sparse.dot on the pulled dense
+    view, dW = sparse.dot(X, dh, transpose_a=True) cast to row_sparse for
+    each half of the batch, and both halves pushed as a list (add_rsp_rsp
+    sums them; SGD's lazy update applies the sum), the head pushed dense.
+    Every step runs with RuntimeWarning as an error, so a densification
+    fails it.  With ``ref`` each step is checked against SparseRef; with
+    ``measure`` the phase's times are taken."""
+    batches, w0, v0 = sparse_data(cfg, seed)
+    feats, width, bsz = cfg["features"], cfg["width"], cfg["batch"]
+    xs = [(sparse_csr(c, 0, bsz, ctx, feats),
+           sparse_csr(c, 0, bsz // 2, ctx, feats),
+           sparse_csr(c, bsz // 2, bsz, ctx, feats), y) for c, y in batches]
+    kv = mx.kv.create("device")
+    kv.init("W", mx.nd.array(w0, ctx=ctx))
+    kv.init("v", mx.nd.array(v0, ctx=ctx))
+    kv.init("b", mx.nd.zeros((1,), ctx=ctx))
+    kv.set_optimizer(mx.optimizer.SGD(**SPARSE_OPT))
+    w_init = kv._store["W"]._data.clone()
+    v_nd, b_nd = mx.nd.zeros((width, 1), ctx=ctx), mx.nd.zeros((1,), ctx=ctx)
+    out = mx.nd.sparse.zeros_sparse("row_sparse", (feats, width), ctx=ctx)
+    sr = SparseRef(w0, v0, w_init.device) if ref else None
+    touched = torch.zeros(feats, dtype=torch.bool, device=w_init.device)
+    times, uniq, losses, worst = [], [], [], 0.0
+    if measure:
+        torch.cuda.reset_peak_memory_stats()
+    for step, (x, xa, xb, y) in enumerate(xs):
+        yt = mx.nd.array(y.reshape(-1, 1), ctx=ctx)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            t0 = sync(ctx)
+            kv.pull(["v", "b"], out=[v_nd, b_nd])
+            rows = mx.nd.NDArray(torch.unique(x.indices._data))
+            kv.row_sparse_pull("W", out=out, row_ids=rows)
+            t1 = sync(ctx)
+            n_rows = rows.shape[0]
+            check(out.data.shape == (n_rows, width)
+                  and torch.equal(out.indices._data, rows._data)
+                  and torch.equal(out.data._data,
+                                  kv._store["W"]._data[rows._data]),
+                  "step %d: the pulled rows (%s) are not W's %d rows bit "
+                  "for bit" % (step, out.data.shape, n_rows))
+            t1b = sync(ctx)
+            z = mx.nd.sparse.dot(x, out.tostype("default"))
+            h = mx.nd.relu(z)
+            logit = mx.nd.dot(h, v_nd) + b_nd
+            t2 = sync(ctx)
+            dlogit = (mx.nd.sigmoid(logit) - yt) / bsz
+            dh = mx.nd.dot(dlogit, v_nd, transpose_b=True) * (z > 0)
+            half = bsz // 2
+            grads = [mx.nd.sparse.dot(xp, dh[lo:hi], transpose_a=True)
+                     .tostype("row_sparse")
+                     for xp, lo, hi in ((xa, 0, half), (xb, half, bsz))]
+            t3 = sync(ctx)
+            kv.push("W", grads)
+            kv.push(["v", "b"], [mx.nd.dot(h, dlogit, transpose_a=True),
+                                 dlogit.sum(axis=0)])
+            t4 = sync(ctx)
+        lt = logit._data.double()
+        losses.append(float((torch.nn.functional.softplus(lt)
+                             - lt * yt._data.double()).mean()))
+        grad_rows = torch.unique(torch.cat([g.indices._data for g in grads]))
+        touched[grad_rows] = True
+        if ref:
+            ref_rows = sr.step(batches[step][0], y, z._data)
+            check(torch.equal(ref_rows, grad_rows),
+                  "step %d: the gradient's %d rows against the f64 "
+                  "recompute's %d" % (step, len(grad_rows), len(ref_rows)))
+            w, m = kv._store["W"]._data, kv._updater.states["W"]._data
+            # the head (64 weights and the bias) as one parameter set
+            head = torch.cat([kv._store["v"]._data.reshape(-1),
+                              kv._store["b"]._data])
+            errs = (sparse_rel(w[grad_rows], sr.w[grad_rows]),
+                    sparse_rel(m[grad_rows], sr.m[grad_rows]),
+                    sparse_rel(head, torch.cat([sr.v.reshape(-1), sr.b])))
+            worst = max(worst, *errs)
+            check(max(errs) <= SPARSE_REL,
+                  "step %d: W, momentum, head against the f64 recompute "
+                  "%s (bound %g)" % (step, errs, SPARSE_REL))
+        if step >= SPARSE_WARM:
+            times.append((t1 - t0, t2 - t1b, t3 - t2, t4 - t3))
+            uniq.append(n_rows)
+    w, m = kv._store["W"]._data, kv._updater.states["W"]._data
+    res = {"W": w, "M": m, "head": torch.cat([
+        kv._store["v"]._data.reshape(-1), kv._store["b"]._data]),
+           "losses": losses, "times": times,
+           "unique_rows": uniq, "worst": worst}
+    if ref:
+        errs = (sparse_rel(w[touched], sr.w[touched]),
+                sparse_rel(m[touched], sr.m[touched]))
+        check(max(errs) <= SPARSE_REL, "all touched rows of W and the "
+              "momentum against the f64 recompute: %s" % (errs,))
+        res["worst"] = max(worst, *errs)
+        res["ambiguous"] = sr.ambiguous
+        still = ~touched
+        res["untouched"] = int(still.sum())
+        check(torch.equal(w[still], w_init[still])
+              and not bool(m[still].any()),
+              "rows no gradient touched changed (W or momentum)")
+    if measure:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def sparse_dgl(card):
+    """dgl_csr_neighbor_uniform_sample and dgl_subgraph on a graph whose
+    components are on the card give the same call's output on CPU
+    components, under one host_rng seed."""
+    rng = np.random.RandomState(9)
+    n, cols, indptr = 200, [], [0]
+    for v in range(n):
+        nbr = np.sort(rng.choice(np.setdiff1d(np.arange(n), [v]),
+                                 rng.randint(1, 12), replace=False))
+        cols.extend(nbr)
+        indptr.append(len(cols))
+    parts = (np.arange(1, len(cols) + 1, dtype=np.int64),
+             np.array(cols, np.int64), np.array(indptr, np.int64))
+    got = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        g = mx.nd.sparse.csr_matrix(parts, shape=(n, n), ctx=ctx)
+        seeds = mx.nd.array(np.array([0, 17, 42], np.int64), ctx=ctx)
+        mx.random.seed(5)
+        sample = mx.nd.contrib.dgl_csr_neighbor_uniform_sample(
+            g, seeds, num_args=2, num_hops=2, num_neighbor=3,
+            max_num_vertices=60)
+        verts = mx.nd.array(np.arange(0, n, 3, dtype=np.int64), ctx=ctx)
+        sub = mx.nd.contrib.dgl_subgraph(g, verts, num_args=2,
+                                         return_mapping=True)
+        arrays = []
+        for o in sample + sub:
+            check(o.context == ctx, "dgl output on %s, not %s"
+                  % (o.context, ctx))
+            arrays += ([o.data, o.indices, o.indptr] if o.stype == "csr"
+                       else [o])
+        got.append([a.asnumpy() for a in arrays])
+    check(all(np.array_equal(a, b) for a, b in zip(*got)),
+          "dgl: card components gave other output than CPU components")
+    return len(got[0])
+
+
+def phase_sparse(card):
+    """Phase 20 (see the module doc)."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    big = sparse_train(SPARSE, mx.gpu(0), seed=0, ref=True, measure=True)
+    check(all(math.isfinite(v) for v in big["losses"]),
+          "sparse losses %s" % big["losses"])
+    small = [sparse_train(SPARSE_SMALL, ctx, seed=1)
+             for ctx in (mx.gpu(0), mx.cpu())]
+    small_err = max(sparse_rel(small[0][k].cpu(), small[1][k].double())
+                    for k in ("W", "M", "head"))
+    check(small_err <= SPARSE_REL, "sparse small case card vs CPU %g "
+          "(bound %g)" % (small_err, SPARSE_REL))
+    n_dgl = sparse_dgl(card)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the sparse path launched %s"
+          % launched)
+    split = [1e3 * statistics.median(t[i] for t in big["times"])
+             for i in range(4)]
+    step_ms = statistics.median(1e3 * sum(t) for t in big["times"])
+    print("sparse: %d x %d f32 table (KVStore device, SGD lr 0.1 momentum "
+          "0.9 wd 1e-5 lazy_update), CSR batches of %d rows x %d Zipf(%g) "
+          "features | step median %.2f ms (%d timed after %d warm-up): pull "
+          "%.2f, forward dot %.2f, backward dot and cast %.2f, push with "
+          "update %.2f ms | unique rows a batch %d-%d (median %d) | %.0f "
+          "examples/s | peak %.2f GB | losses %.4f -> %.4f | f32 vs the f64 "
+          "recompute worst %.3g relative (bound %g; %d pre-activations "
+          "within rounding of 0 took the port's sign) | %d rows untouched "
+          "bit-unchanged, pulled rows bit-exact, no RuntimeWarning | small "
+          "case (%d x %d, batch %d, %d steps) card vs CPU %.3g | dgl on "
+          "card components = CPU's (%d arrays) | hand-written kernels "
+          "launched: none | phase %.1f s | %s"
+          % (SPARSE["features"], SPARSE["width"], SPARSE["batch"],
+             SPARSE_NNZ, SPARSE_ZIPF_A, step_ms, len(big["times"]),
+             SPARSE_WARM, *split, min(big["unique_rows"]),
+             max(big["unique_rows"]),
+             statistics.median(big["unique_rows"]),
+             SPARSE["batch"] / step_ms * 1e3, big["peak_gb"],
+             big["losses"][0], big["losses"][-1], big["worst"], SPARSE_REL,
+             big["ambiguous"], big["untouched"], SPARSE_SMALL["features"],
+             SPARSE_SMALL["width"], SPARSE_SMALL["batch"],
+             SPARSE_SMALL["steps"], small_err, n_dgl,
+             time.perf_counter() - t_phase, card), flush=True)
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -6890,6 +7401,9 @@ def main():
     rows += det_rows
     phase_observe(card)
     lap("18-19")
+    phase_sparse(card)
+    torch.cuda.empty_cache()
+    lap("20")
     print("wall: the whole script %.1f s (by phase: %s) | %s"
           % (time.perf_counter() - t_start,
              ", ".join("%s %.1f" % lp for lp in laps), card), flush=True)

@@ -99,16 +99,16 @@ def _is_probing():
 _swap_state = _Local(map=None)
 
 
-def _param_data(param):
+def _param_data(param, read=None):
     """``param``'s value as a block's forward should read it: the
     swapped-in tensor inside ``swapped_params`` (a compiled forward,
-    ShardedTrainer), else ``param.data()``; for blocks that read their
-    parameters in ``forward`` instead of taking them in
-    ``hybrid_forward``."""
+    ShardedTrainer), else ``read(param)`` (default ``param.data()``); for
+    blocks that read their parameters in ``forward`` instead of taking
+    them in ``hybrid_forward``."""
     swap = getattr(_swap_state, "map", None)
     if swap is not None and param in swap:
         return swap[param]
-    return param.data()
+    return param.data() if read is None else read(param)
 
 
 @contextlib.contextmanager

@@ -43,9 +43,11 @@ class Identity(HybridBlock):
 
 class SparseEmbedding(Block):
     """Embedding for large vocabularies (reference: basic_layers.py:118).
-    The port has no row-sparse storage: the weight and its gradient are
-    dense, and the gradient is nonzero only in the rows looked up, as the
-    row-sparse one is."""
+    The weight declares row-sparse storage and gradient, as the JAX
+    block's does (mxnet_tpu/gluon/contrib/nn.py:57-65), and the forward
+    reads ``row_sparse_data`` of the looked-up rows; as there, weight and
+    gradient stay dense, the gradient nonzero only in the rows looked
+    up."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, **kwargs):
@@ -55,11 +57,12 @@ class SparseEmbedding(Block):
         self._dtype = dtype
         self.weight = self.params.get(
             "weight", shape=(input_dim, output_dim),
-            init=weight_initializer, dtype=dtype)
+            init=weight_initializer, dtype=dtype,
+            grad_stype="row_sparse", stype="row_sparse")
 
     def forward(self, x):
-        return nd.Embedding(x, _param_data(self.weight),
-                            input_dim=self._input_dim,
+        weight = _param_data(self.weight, lambda p: p.row_sparse_data(x))
+        return nd.Embedding(x, weight, input_dim=self._input_dim,
                             output_dim=self._output_dim, dtype=self._dtype,
                             sparse_grad=True)
 

@@ -36,7 +36,7 @@ def _shape_known(shape):
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None, allow_deferred_init=False,
-                 differentiable=True):
+                 differentiable=True, stype="default", grad_stype="default"):
         self._data = None  # OrderedDict ctx -> NDArray
         self._grad = None
         self.name = name
@@ -48,6 +48,10 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
+        # the storage types are recorded; data and gradient stay dense, as
+        # in the JAX package (row_sparse_data returns the dense data)
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._deferred_init = ()
 
     def __repr__(self):
@@ -171,6 +175,14 @@ class Parameter:
 
     def list_data(self):
         return self._check_and_get(self._data, list)
+
+    def row_sparse_data(self, row_id):
+        """The data for the rows ``row_id`` (parity: mxnet_tpu/gluon/
+        parameter.py:281): the whole dense data, as there."""
+        return self.data()
+
+    def list_row_sparse_data(self, row_id):
+        return self.list_data()
 
     def grad(self, ctx=None):
         if self._data is not None and self._grad is None:

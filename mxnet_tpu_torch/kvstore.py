@@ -22,6 +22,17 @@ the server's values into each output in place, so parameters keep their
 device and storage.  Rank 0 sends the initial values and every worker
 waits at a barrier, as upstream's ``InitImpl``; the ``Trainer`` and
 ``Module`` then pull them, so every worker starts from rank 0's weights.
+
+Row-sparse values (parity: mxnet_tpu/kvstore.py:37-56, :110-131):
+a push of a list of ``RowSparseNDArray``s sums them with ``add_rsp_rsp``
+and hands the row-sparse sum to the updater (SGD's lazy update reads and
+writes only its rows); without an updater its rows are added into the
+stored value.  A list that mixes storage types is pushed dense.
+``row_sparse_pull`` into a ``RowSparseNDArray`` gathers only the
+requested rows (deduplicated, ascending) of the stored value on its
+device; a dense ``out`` gets the stored value with every other row zero.
+``KVStoreDist`` densifies a row-sparse push before the wire and serves
+``row_sparse_pull`` from the pulled value, as the JAX store does.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ import torch
 from .base import MXNetError
 from .checkpoint import atomic_write
 from .ndarray.ndarray import NDArray
+from .ndarray.sparse import (BaseSparseNDArray, RowSparseNDArray,
+                             add_rsp_rsp)
 from . import optimizer as opt
 
 __all__ = ["KVStore", "KVStoreDist", "create"]
@@ -58,6 +71,32 @@ def _runs(keys):
         runs[-1].append(i)
         seen.add(k)
     return runs
+
+
+def _row_sparse(vlist):
+    return all(isinstance(v, RowSparseNDArray) for v in vlist)
+
+
+def _dense(vlist):
+    """The list with its sparse values cast to dense storage."""
+    return [v.tostype("default") if isinstance(v, BaseSparseNDArray) else v
+            for v in vlist]
+
+
+def _rsp_pull_into(out, row_ids, src):
+    """Write the rows ``row_ids`` of the stored value ``src`` (a tensor)
+    into ``out``: as components of a ``RowSparseNDArray`` (a gather of
+    the unique rows on ``src``'s device), or into a dense ``out`` with
+    every other row zero."""
+    if isinstance(out, RowSparseNDArray):
+        rows = torch.unique(row_ids._data.reshape(-1).to(src.device,
+                                                          torch.int64))
+        device = out._device()
+        out._assign_rows(NDArray(src[rows].to(device)),
+                         NDArray(rows.to(device)), src.shape)
+        return
+    with torch.no_grad():
+        out._data.copy_(_row_masked(src, row_ids))
 
 
 def _row_masked(value, row_ids):
@@ -151,8 +190,13 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % k)
         for run in _runs(keys):
+            rsp_keys = {keys[i] for i in run if _row_sparse(vals[i])}
+            for i in run:
+                if keys[i] in rsp_keys:
+                    self._push_row_sparse(keys[i], vals[i])
+            run = [i for i in run if keys[i] not in rsp_keys]
             run_keys = [keys[i] for i in run]
-            run_vals = [vals[i] for i in run]
+            run_vals = [_dense(vals[i]) for i in run]
             if self._gc is not None:
                 run_vals = self._compress(run_keys, run_vals)
             for k, vlist in zip(run_keys, run_vals):
@@ -162,6 +206,18 @@ class KVStore:
                                   self._store[k])
                 else:
                     self._store[k] = agg
+
+    def _push_row_sparse(self, k, vlist):
+        agg = vlist[0]
+        for v in vlist[1:]:
+            agg = add_rsp_rsp(agg, v)
+        if self._updater is not None:
+            self._updater(int(k) if k.isdigit() else k, agg, self._store[k])
+            return
+        st = self._store[k]._data
+        with torch.no_grad():
+            st.index_add_(0, agg.indices._data.to(st.device),
+                          agg.data._data.to(st.device, st.dtype))
 
     def _value(self, k):
         if k not in self._store:
@@ -183,16 +239,15 @@ class KVStore:
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows in ``row_ids`` (parity: kvstore.py:155): a
-        dense ``out`` gets the stored value with every other row zero.  (A
-        ``RowSparseNDArray`` out waits for the port's ndarray.sparse.)"""
+        ``RowSparseNDArray`` out receives them as its components, a dense
+        ``out`` the stored value with every other row zero."""
         keys, outs = _key_value_lists(key, out)
         if isinstance(row_ids, NDArray):
             row_ids = [row_ids] * len(outs[0])
         for k, olist in zip(keys, outs):
             src = self._value(str(k))
             for o, rid in zip(olist, row_ids):
-                with torch.no_grad():
-                    o._data.copy_(_row_masked(src, rid))
+                _rsp_pull_into(o, rid, src)
 
     def barrier(self):
         pass
@@ -273,6 +328,7 @@ class KVStoreDist(KVStore):
     def push(self, key, value, priority=0):
         keys, vals = _key_value_lists(key, value)
         keys = [str(k) for k in keys]
+        vals = [_dense(vl) for vl in vals]
         aggs = []
         for run in _runs(keys):
             run_vals = [vals[i] for i in run]

@@ -20,8 +20,11 @@ from .ndarray import (  # noqa: F401
     stack, moveaxis, onehot_encode, waitall, save, load, _invoke_nd,
 )
 from . import register as _register
+from . import sparse  # noqa: F401 (registers _csr_matmul)
+from .sparse import csr_matrix, row_sparse_array  # noqa: F401
 
 _register.populate(globals())
+sparse.nd_overrides(globals())
 
 maximum = _soa(NDArray, _invoke_nd, "broadcast_maximum", "_maximum_scalar")
 minimum = _soa(NDArray, _invoke_nd, "broadcast_minimum", "_minimum_scalar")
@@ -41,4 +44,4 @@ def __getattr__(name):
 __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "concatenate", "concat", "stack", "moveaxis", "onehot_encode",
            "waitall", "save", "load", "maximum", "minimum",
-           "hypot"] + _list_ops()
+           "hypot", "sparse", "csr_matrix", "row_sparse_array"] + _list_ops()

@@ -414,9 +414,13 @@ class NDArray:
         return NDArray(self._data.detach())
 
     def tostype(self, stype):
+        """This array (``"default"``), or a sparse one of its value
+        (``"csr"``, ``"row_sparse"``; ndarray.sparse.cast_storage)."""
         if stype == "default":
             return self
-        raise MXNetError("sparse storage type %r is not ported" % (stype,))
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     # -- shape -----------------------------------------------------------------
     def reshape(self, *shape, **kwargs):

@@ -21,6 +21,7 @@ import torch
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray.ndarray import NDArray, _invoke_nd, array
+from ..ndarray.sparse import RowSparseNDArray
 from .. import random as _random
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
@@ -168,10 +169,14 @@ def _zeros(weight):
 @register
 class SGD(Optimizer):
     """SGD with momentum through sgd_update / sgd_mom_update, and the mp_
-    pair for an f16 weight under ``multi_precision``.  ``lazy_update``
-    is kept for the reference's row-sparse path, which the port does not
-    have (every gradient is dense).  ``gluon.Trainer`` fuses the updates
-    of a plain ``SGD`` into one multi-tensor program."""
+    pair for an f16 weight under ``multi_precision``.  A
+    ``RowSparseNDArray`` gradient with ``lazy_update`` (the default) takes
+    the lazy path: only the gradient's rows of the weight and the
+    momentum are read or written (parity: mxnet_tpu/optimizer/
+    optimizer.py:170-201), so the other rows keep their weight and their
+    momentum; with ``lazy_update=False`` it is densified and every row's
+    momentum decays.  ``gluon.Trainer`` fuses the updates of a plain
+    ``SGD`` into one multi-tensor program."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -185,12 +190,34 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
+        if self.lazy_update and isinstance(grad, RowSparseNDArray):
+            self._lazy_update(index, weight, grad, state)
+            return
         kw = self._kw(index)
         if state is not None:
             _invoke_nd("sgd_mom_update", [weight, grad, state],
                        dict(kw, momentum=self.momentum))
         else:
             _invoke_nd("sgd_update", [weight, grad], kw)
+
+    def _lazy_update(self, index, weight, grad, state):
+        """The update on the gradient's rows alone: rescale, clip, + wd *
+        w, then the momentum step, in the JAX class's order."""
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        rows = grad.indices._data
+        w = weight._data
+        with torch.no_grad():
+            g = grad.data._data.to(w.dtype) * self.rescale_grad
+            if self.clip_gradient:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            g = g + wd * w[rows]
+            if state is not None:
+                m = state._data
+                new_m = self.momentum * m[rows] - lr * g
+                m.index_copy_(0, rows, new_m)
+                w.index_add_(0, rows, new_m)
+            else:
+                w.index_add_(0, rows, -lr * g)
 
     def update_multi_precision(self, index, weight, grad, state):
         if self.multi_precision and weight.dtype == np.float16:
@@ -316,7 +343,9 @@ class SGLD(Optimizer):
 
 @register
 class Adam(Optimizer):
-    """adam_update with the bias corrections folded into the rate."""
+    """adam_update with the bias corrections folded into the rate.
+    ``lazy_update`` is accepted; a row-sparse gradient is densified (with
+    the RuntimeWarning), as in the JAX class."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):

@@ -6,17 +6,20 @@ One explicit ``torch.Generator`` per device, all reseeded by ``seed``
 ``normal``, ... below, the initializers, token sampling) draw from the
 generator of the device they write to, never from torch's global default
 generator.  The samplers return NDArrays on ``ctx`` (default: the
-current context, ``gpu(0)``).
+current context, ``gpu(0)``).  ``host_rng`` is a numpy ``RandomState``
+seeded by ``seed`` too, for the host-side samplers (the DGL graph ops).
 """
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "next_key", "uniform", "normal", "randint",
-           "randn", "exponential", "gamma", "poisson", "negative_binomial",
-           "generalized_negative_binomial", "shuffle", "multinomial"]
+__all__ = ["seed", "generator", "next_key", "host_rng", "uniform", "normal",
+           "randint", "randn", "exponential", "gamma", "poisson",
+           "negative_binomial", "generalized_negative_binomial", "shuffle",
+           "multinomial"]
 
 _state = threading.local()
 
@@ -37,6 +40,8 @@ def seed(seed_state, ctx="all"):
     """Reseed every device's generator, or only ``ctx``'s (parity:
     mx.random.seed)."""
     st = _st()
+    st.np_seed = int(seed_state)
+    st.np_rng = None
     if ctx == "all":
         st.seed = int(seed_state)
         st.gens = {}
@@ -59,6 +64,15 @@ def generator(device):
         gen.manual_seed(st.seed)
         st.gens[key] = gen
     return gen
+
+
+def host_rng():
+    """A numpy ``RandomState`` seeded by the last ``seed`` (0 before any;
+    parity: mxnet_tpu/random.py:40), made anew by each ``seed``."""
+    st = _st()
+    if getattr(st, "np_rng", None) is None:
+        st.np_rng = np.random.RandomState(getattr(st, "np_seed", 0))
+    return st.np_rng
 
 
 def next_key(device):

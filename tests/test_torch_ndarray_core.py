@@ -395,8 +395,16 @@ def test_scalar_conversions():
     assert x.item() == 2.75 and float(x) == 2.75 and int(x) == 2
     assert x.asscalar() == jmx.nd.array([2.75]).asscalar()
     assert _t(np.array([2.75], np.float32)).stype == "default"
-    with pytest.raises(MXNetError, match="sparse"):
-        x.tostype("csr")
+    # sparse storage is ported: tostype casts, as the JAX package's does
+    m = _t(np.array([[0.0, 2.75]], np.float32))
+    csr = m.tostype("csr")
+    assert csr.stype == "csr"
+    np.testing.assert_array_equal(csr.asnumpy(), m.asnumpy())
+    np.testing.assert_array_equal(
+        csr.data.asnumpy(),
+        jmx.nd.array([[0.0, 2.75]]).tostype("csr").data.asnumpy())
+    with pytest.raises(MXNetError, match="stype"):
+        x.tostype("dense")
 
 
 FUNCTIONS = [
