@@ -420,17 +420,43 @@ non-zero, printing no result, without them.  Phases, one line each:
    and its split (pull, forward dot, backward dot and cast, push with
    update), unique rows a batch, examples/s, peak memory; no
    hand-written kernel launched;
-21. the whole script's wall time, then a {"kernels": [...]} line (the
+21. compile and memory.  The script (run with no arguments) compiles
+   into a fresh persistent compile cache (MXNET_COMPILE_CACHE_DIR, a
+   temporary directory made before the port is imported, removed at the
+   end), so phases 13-16 compile cold.  (a) rematerialisation on phase
+   7's path: resnet50_v1 at full width, 1000 classes, bf16_mixed, batch
+   256, sgd lr 0.1 momentum 0.9 through ShardedTrainer with remat_policy
+   none, dots_saveable and full, each from the same weights (seed 0)
+   with deterministic cuDNN, 2 warm-up + 5 synchronous steps: the step
+   median, img/s and torch.cuda.max_memory_allocated after a reset; step
+   1's loss and every parameter and moving stat after step 1 bit-equal
+   to none's (the worst |diff| printed), full's peak below none's; a
+   'remat' line.  (b) train_mnist's hybridized LeNet (phase 13) under
+   hybridize(remat_policy="dots_saveable"): no graph break, step 1's
+   logits and gradients against the eager block within phase 13's
+   bounds; a 'remat compiled' line.  (c) once phase 13 has run, a child
+   process (this script with --warm-compile) rebuilds phase 13's
+   hybridized resnet50_v1 cut from the same seed and shape and runs its
+   first training call, beside phases 14-15: at least one FX-graph cache
+   hit and no miss, its logits bit-equal to phase 13's; a 'compile
+   cache' line with the parent's cold and the child's warm compile
+   seconds and both processes' hit and miss counts.  (d) the port's
+   examples/fine_tune.py for one epoch of 8 batches in the side process:
+   finite losses, the accuracy printed; a 'finetune' line.  No
+   hand-written kernel launched;
+22. the whole script's wall time, then a {"kernels": [...]} line (the
    compression rows' launches: phase 4's and each phase-17 worker's;
    int8_conv's: phase 16's, det_launches, and phase 9b's,
    serve_launches);
-22. last line: {"ok": true, "device": {...}}.
+23. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
+import atexit
 import collections
 import contextlib
 import functools
+import gc
 import hashlib
 import json
 import logging
@@ -452,7 +478,18 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-import mxnet_tpu_torch as mx
+# the whole script (no arguments) compiles into a fresh persistent
+# compile cache, so phases 13-16 compile cold as they did before the
+# cache; the side, warm-compile and dist processes inherit it through the
+# environment (phase 21)
+COMPILE_DIR = None
+if __name__ == "__main__" and len(sys.argv) == 1:
+    COMPILE_DIR = tempfile.mkdtemp(prefix="chip_smoke_compile_")
+    atexit.register(shutil.rmtree, COMPILE_DIR, True)
+    os.environ["MXNET_COMPILE_CACHE"] = "1"
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = COMPILE_DIR
+
+import mxnet_tpu_torch as mx  # noqa: E402
 from mxnet_tpu_torch import (events, fleet, generate, goodput, kernels,
                              parallel, profiler, telemetry, tracing)
 from mxnet_tpu_torch.contrib import compression as comp
@@ -3946,6 +3983,22 @@ def grad_rel(got, ref):
     return rel[worst], worst
 
 
+def cache_counts():
+    """dynamo's persistent-cache counters (inductor's FX-graph cache,
+    AOTAutograd's cache), as jit.Compiled reads them."""
+    from torch._dynamo.utils import counters
+    return {name: counters[group][name]
+            for group, name in mx.jit._CACHE_COUNTERS}
+
+
+def counts_text(c):
+    return "fx-graph hits %d misses %d bypasses %d, aot-autograd hits %d " \
+        "misses %d bypasses %d" % (
+            c["fxgraph_cache_hit"], c["fxgraph_cache_miss"],
+            c["fxgraph_cache_bypass"], c["autograd_cache_hit"],
+            c["autograd_cache_miss"], c["autograd_cache_bypass"])
+
+
 def sym_module(card, root, ex):
     """The Module path: fit 2 epochs, accuracy, img/s of epoch 2, and the
     first 3 updates' parameters against the same updates on the CPU."""
@@ -4161,9 +4214,11 @@ def sym_network(name, card, problems):
     # compiled: inductor's), so it is compared in predict mode
     train_mode = name != SYM_SQUEEZE
     torch.cuda.synchronize()
+    counts0 = cache_counts()
     t0 = time.perf_counter()
     logits_h = fwd_bwd(hyb, x, y, loss_fn, train_mode)
     first.append(time.perf_counter() - t0)
+    counts = {k: v - counts0[k] for k, v in cache_counts().items()}
     logits_e = fwd_bwd(eager, x, y, loss_fn, train_mode)
     logits_a = cudnn_off(lambda: fwd_bwd(alt, x, y, loss_fn, train_mode))
     grads_e = grads_of(eager)
@@ -4203,7 +4258,9 @@ def sym_network(name, card, problems):
                         "(eager with cuDNN off %g)"
                         % (name, SYM_COMPARE_STEPS, serr, syard))
     del alt, trainers[2]
-    row = {"network": name, "batch": SYM_NET_BATCH}
+    row = {"network": name, "batch": SYM_NET_BATCH,
+           "logits_first": logits_h, "cache_counts": counts,
+           "first_call_s": first[0]}
     for tag, net, tr in (("eager", eager, trainers[0]),
                          ("hybridized", hyb, trainers[1])):
         steps = [timed_s(lambda: sym_step(net, tr, x, y, loss_fn))[0]
@@ -4429,11 +4486,279 @@ class SideChecks:
 
 def side_main(card):
     """Entry of the side process: phase_device's settings, then
-    symbolic_aside."""
+    symbolic_aside and the fine-tuning example (phase 21d)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     symbolic_aside(card)
+    fine_tune_check(card)
+
+
+# phase 21d: the port's examples/fine_tune.py at its defaults
+# (resnet18_v1 "pretrained" on 10 classes, grafted to 20, 3x32x32,
+# batch 32, sgd lr 0.05 momentum 0.9, backbone lr_mult 0.1), one epoch
+# of 8 batches and 2 validation batches, on the card
+FT_ARGS = ["--epochs", "1", "--train-batches", "8", "--val-batches", "2"]
+
+
+def fine_tune_check(card):
+    from mxnet_tpu_torch.examples import fine_tune
+
+    t0 = time.perf_counter()
+    out = fine_tune.train(FT_ARGS, ctx=mx.gpu(0))
+    wall = time.perf_counter() - t0
+    check(len(out["losses"]) == 8 and np.all(np.isfinite(out["losses"])),
+          "fine_tune losses %s" % out["losses"])
+    print("finetune: examples/fine_tune.py %s | cut at flatten, new head "
+          "20 classes, backbone lr_mult 0.1 | losses %s | train accuracy "
+          "%.3f, validation accuracy %.3f | %.1f s (two compiles: the "
+          "training and the predict graph) | %s"
+          % (" ".join(FT_ARGS), ["%.3f" % v for v in out["losses"]],
+             out["train_acc"][-1], out["val_acc"], wall, card), flush=True)
+
+
+# phase 21c: the persistent compile cache.  A child process (this script
+# with --warm-compile) rebuilds phase 13's hybridized resnet50_v1 cut
+# (the same seed, batch and first training call) after phase 13 has
+# compiled it into the script's fresh cache directory
+WARM_TIMEOUT_S = 600
+
+
+def warm_main(card, out_dir):
+    """Entry of the warm-compile process: phase 13's settings, its
+    hybridized SYM_NETS[0] from seed 0, one training forward and
+    backward; the logits and the cache counters go to ``out_dir``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SYM_NET_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SYM_NET_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    mx.random.seed(0)
+    net = sym_build(SYM_RESNET)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.pause():
+        net(x[0:2])
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    counts0 = cache_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = fwd_bwd(net, x, y, loss_fn, True)
+    first_s = time.perf_counter() - t0
+    np.save(os.path.join(out_dir, "warm_logits.npy"), logits)
+    with open(os.path.join(out_dir, "warm.json"), "w") as f:
+        json.dump({"first_call_s": first_s,
+                   "forward_compile_s": net._cached_op.compile_seconds,
+                   "counts": {k: v - counts0[k]
+                              for k, v in cache_counts().items()},
+                   "dir": mx.config.get("MXNET_COMPILE_CACHE_DIR")}, f)
+
+
+class WarmCompile:
+    """warm_main in a process of its own, started once phase 13 has
+    compiled and run beside phases 14-15; finish() holds its logits and
+    cache counters against phase 13's."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="warm_")
+        self.proc = None
+
+    def start(self, card, row):
+        self.card, self.row = card, row
+        self.err = open(os.path.join(self.dir, "err"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, DIST_WORKER_SCRIPT, "--warm-compile", card,
+             self.dir], cwd=DIST_ROOT, stdout=self.err,
+            stderr=subprocess.STDOUT, text=True)
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(timeout=WARM_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.err.seek(0)
+        check(rc == 0, "the warm-compile process %s:\n%s"
+              % ("exited %d" % rc if rc is not None else "did not finish",
+                 self.err.read()[-6000:]))
+        with open(os.path.join(self.dir, "warm.json")) as f:
+            warm = json.load(f)
+        logits = np.load(os.path.join(self.dir, "warm_logits.npy"))
+        cold, c = self.row["cache_counts"], warm["counts"]
+        diff = float(np.abs(logits.astype(np.float64)
+                            - self.row["logits_first"]).max())
+        print("compile cache: %s hybridized, batch %d, the first training "
+              "call | parent (cold, phase 13): compile %.1f s (first call "
+              "%.1f s, forward %.1f s), %s | child (--warm-compile): first "
+              "call %.1f s (forward %.1f s), %s | child logits against "
+              "the parent's: max |diff| %g | cache %s | %s"
+              % (SYM_RESNET, SYM_NET_BATCH, self.row["compile_s"],
+                 self.row["first_call_s"], self.row["forward_compile_s"],
+                 counts_text(cold), warm["first_call_s"],
+                 warm["forward_compile_s"], counts_text(c), diff,
+                 warm["dir"], self.card), flush=True)
+        check(warm["dir"] == COMPILE_DIR,
+              "the child's cache is %s, not %s" % (warm["dir"], COMPILE_DIR))
+        check(c["fxgraph_cache_hit"] >= 1 and c["fxgraph_cache_miss"] == 0,
+              "the warm child did not hit the compile cache: %s"
+              % counts_text(c))
+        check(np.array_equal(logits, self.row["logits_first"]),
+              "the warm child's logits differ from the parent's by %g"
+              % diff)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if getattr(self, "err", None) is not None:
+            self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+# phase 21a: rematerialisation on phase 7's path (resnet50_v1 at full
+# width, 1000 classes, bf16_mixed, batch 256, sgd lr 0.1 momentum 0.9,
+# ShardedTrainer), each policy from the same weights (seed 0) with
+# deterministic cuDNN: 2 warm-up + 5 synchronous steps
+REMAT_POLICIES = ("none", "dots_saveable", "full")
+REMAT_WARM, REMAT_STEPS = 2, 5
+
+
+def remat_run(policy, x, y):
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.pause():      # deferred shapes: Xavier draws here
+        net(x[0:2])
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = parallel.ShardedTrainer(
+        net, lambda o, l: loss_fn(o, l), optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+        dtype_policy="bf16_mixed", remat_policy=policy)
+    torch.cuda.synchronize()
+    gc.collect()      # an earlier policy's trainer and graph (cycles)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses, first = [], [], None
+    for i in range(REMAT_WARM + REMAT_STEPS):
+        dt, loss = timed_s(lambda: trainer.step([x], y))
+        losses.append(float(loss))
+        step_s.append(dt)
+        if i == 0:
+            first = [t.clone() for t in trainer.param_arrays]
+    peak = torch.cuda.max_memory_allocated()
+    trainer.close()
+    med = statistics.median(step_s[REMAT_WARM:])
+    return {"losses": losses, "first": first, "step_ms": 1e3 * med,
+            "img_s": SHARDED_BATCH / med, "peak_gb": peak / 1e9,
+            "activation_gb": (peak - base) / 1e9,
+            "warm_ms": [1e3 * s for s in step_s[:REMAT_WARM]]}
+
+
+def remat_hybridized(card):
+    """21b: phase 13's hybridized LeNet under hybridize(remat_policy=
+    "dots_saveable") against the eager block, step 1's logits and
+    gradients within phase 13's bounds."""
+    from mxnet_tpu_torch.examples import train_mnist as ex
+
+    root = tempfile.mkdtemp(prefix="remat_")
+    try:
+        write_mnist(root, SYM_BATCH * 2)
+        train, _ = ex.get_iters(SYM_BATCH, root, mx.gpu(0))
+        batch = next(iter(train))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    x, y = batch.data[0], batch.label[0]
+    nets = []
+    for _ in range(2):
+        net = ex.lenet_gluon()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        with mx.autograd.pause():
+            net(x)
+        nets.append(net)
+    eager, hyb = nets
+    copy_weights(hyb, eager)
+    hyb.hybridize(remat_policy="dots_saveable")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    breaks = graph_breaks()
+    t0 = time.perf_counter()
+    logits_h = fwd_bwd(hyb, x, y, loss_fn)
+    first_s = time.perf_counter() - t0
+    breaks = graph_breaks() - breaks
+    logits_e = fwd_bwd(eager, x, y, loss_fn)
+    lerr = close(logits_h, logits_e, SYM_LOGIT_TOL, SYM_LOGIT_TOL)
+    gerr, gworst = grad_rel(grads_of(hyb), grads_of(eager))
+    check(hyb._cached_op._remat, "hybridize(remat_policy=...) is not on")
+    check(breaks == 0, "remat LeNet: %d graph breaks" % breaks)
+    check(lerr <= 1.0 and gerr <= SYM_GRAD_REL,
+          "remat LeNet hybridized vs eager: logits %g of the bound, "
+          "gradients %g (%s)" % (lerr, gerr, gworst))
+    print("remat compiled: train_mnist's LeNet hybridize(remat_policy="
+          "'dots_saveable'), batch %d | first call (compile) %.1f s | graph "
+          "breaks %d | step 1 vs eager: logits %.3g of the bound, gradients "
+          "%.3g of their norm (%s) | %s"
+          % (SYM_BATCH, first_s, breaks, lerr, gerr, gworst, card),
+          flush=True)
+
+
+def phase_remat(card):
+    """Phase 21a-b (module doc)."""
+    before = dict(kernels.launch_counts)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SHARDED_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SHARDED_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for policy in REMAT_POLICIES:
+            runs[policy] = remat_run(policy, x, y)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    ref = runs["none"]
+    worst = {}
+    for policy in REMAT_POLICIES[1:]:
+        r = runs[policy]
+        worst[policy] = max(float((a.double() - b.double()).abs().max())
+                            for a, b in zip(r["first"], ref["first"]))
+        check(r["losses"][0] == ref["losses"][0],
+              "remat %s: step 1 loss %r against none's %r"
+              % (policy, r["losses"][0], ref["losses"][0]))
+        check(all(torch.equal(a, b) for a, b in zip(r["first"],
+                                                    ref["first"])),
+              "remat %s: parameters after step 1 differ from none's by %g"
+              % (policy, worst[policy]))
+        check(all(np.isfinite(r["losses"])), "remat %s: losses %s"
+              % (policy, r["losses"]))
+    check(runs["full"]["peak_gb"] < ref["peak_gb"],
+          "remat full's peak %.3f GB is not below none's %.3f GB"
+          % (runs["full"]["peak_gb"], ref["peak_gb"]))
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the remat path launched %s"
+          % launched)
+    print("remat: resnet50_v1 bf16_mixed batch %d ShardedTrainer sgd lr 0.1 "
+          "momentum 0.9, cuDNN deterministic, %d warm-up + %d steps | %s | "
+          "step 1 loss and every parameter and moving stat after step 1 "
+          "bit-equal to none's (worst |diff| %s) | losses %s | %s"
+          % (SHARDED_BATCH, REMAT_WARM, REMAT_STEPS, " | ".join(
+              "%s: step median %.2f ms, %.1f img/s, peak %.3f GB (above "
+              "the state %.3f GB), warm-up ms %s"
+              % (p, runs[p]["step_ms"], runs[p]["img_s"], runs[p]["peak_gb"],
+                 runs[p]["activation_gb"],
+                 ["%.1f" % v for v in runs[p]["warm_ms"]])
+              for p in REMAT_POLICIES), worst,
+             {p: ["%.4f" % v for v in runs[p]["losses"]]
+              for p in REMAT_POLICIES}, card), flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    remat_hybridized(card)
 
 
 # phase 14 (recurrent): the RNN op at the word LM's width, each mode on
@@ -7322,19 +7647,24 @@ def main():
     phase_data(card)
     torch.cuda.empty_cache()
     lap("12")
-    side, jobs = SideChecks(), DistJobs()
+    side, jobs, warm = SideChecks(), DistJobs(), WarmCompile()
     try:
         # phase 13's squeezenet and export check (inductor's compiles,
-        # the least measurement) run beside phases 13-15
+        # the least measurement) and phase 21d's fine-tuning run beside
+        # phases 13-15
         side.start(card)
-        phase_symbolic(card, aside=True)
+        sym_row = phase_symbolic(card, aside=True)
         torch.cuda.empty_cache()
+        # phase 21c: a second process compiles phase 13's resnet from the
+        # cache, beside phases 14-15
+        warm.start(card, sym_row)
         lap("13")
         phase_recurrent(card)
         torch.cuda.empty_cache()
         phase_fusion(card)
         torch.cuda.empty_cache()
         side.finish()
+        warm.finish()
         lap("14-15")
         # phase 17's workers import during phase 16's small case
         det_rows = phase_detection(card, after_timed=jobs.start)
@@ -7345,6 +7675,7 @@ def main():
     finally:
         side.stop()
         jobs.stop()
+        warm.stop()
     rows = []
     for name in ("quantize_2bit", "dequantize_2bit"):
         t = timing[name]
@@ -7404,6 +7735,9 @@ def main():
     phase_sparse(card)
     torch.cuda.empty_cache()
     lap("20")
+    phase_remat(card)
+    torch.cuda.empty_cache()
+    lap("21")
     print("wall: the whole script %.1f s (by phase: %s) | %s"
           % (time.perf_counter() - t_start,
              ", ".join("%s %.1f" % lp for lp in laps), card), flush=True)
@@ -7419,6 +7753,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--side"]:
         side_main(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--warm-compile"]:
+        warm_main(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

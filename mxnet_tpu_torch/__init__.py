@@ -51,12 +51,21 @@ fusion passes (``mx.sym.fusion``) and their cost table
 (spans, the Chrome trace and the flight recorder), ``profiler`` (over
 ``torch.profiler``), ``events`` (wide events), ``perf_ledger``,
 ``goodput`` and ``fleet``, fed by the trainers, the engines and
-``TokenServer``.
+``TokenServer``; and ``remat`` (activation rematerialisation on
+``torch.utils.checkpoint`` for ShardedTrainer, hybridize, Executor and
+Module), the persistent compile cache (``config.enable_compile_cache``,
+on at import unless ``MXNET_COMPILE_CACHE=0``), ``cpu_pinned`` and the
+small ``contrib`` modules (autograd, io, tensorboard, tensorrt,
+svrg_optimization, text), behind ``examples.fine_tune`` and
+``tools.im2rec``.
 """
 from .base import MXNetError  # noqa: F401
-from .context import Context, cpu, gpu, current_context  # noqa: F401
+from .context import (Context, cpu, gpu, cpu_pinned, current_context,  # noqa: F401
+                      num_gpus)
 from . import name  # noqa: F401
+from .name import NameManager  # noqa: F401
 from . import random  # noqa: F401
+from . import random as rnd  # noqa: F401
 from . import config  # noqa: F401
 from . import engine  # noqa: F401
 from . import runtime  # noqa: F401
@@ -68,6 +77,7 @@ from . import ndarray as nd  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import metric  # noqa: F401
 from . import contrib  # noqa: F401
@@ -86,13 +96,19 @@ from . import io  # noqa: F401
 from . import attribute  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
+from .symbol import Symbol  # noqa: F401
 from . import executor  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import model  # noqa: F401
+from .model import FeedForward  # noqa: F401
 from . import callback  # noqa: F401
 from . import monitor  # noqa: F401
+from .monitor import Monitor  # noqa: F401
 from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from . import test_utils  # noqa: F401
+from . import remat  # noqa: F401
 from . import fusion_cost  # noqa: F401
 from . import rnn  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
@@ -101,5 +117,14 @@ from . import telemetry  # noqa: F401  (MXNET_TELEMETRY enables at import)
 from . import tracing  # noqa: F401  (MXNET_TRACE / MXNET_FLIGHT_RECORDER)
 from . import events  # noqa: F401  (MXNET_EVENTS wide-event layer)
 
+config.warn_unknown()
 if config.get("MXNET_PROFILER_AUTOSTART"):
     profiler.start()
+if config.get("MXNET_COMPILE_CACHE"):
+    # the persistent compile cache (inductor's FX-graph and AOTAutograd
+    # caches on disk): a second process compiling the same graph loads
+    # it.  MXNET_COMPILE_CACHE=0 opts out; MXNET_COMPILE_CACHE_DIR moves
+    # it.
+    config.enable_compile_cache()
+else:
+    config.disable_compile_cache()

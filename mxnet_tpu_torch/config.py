@@ -1,17 +1,20 @@
 """Environment knobs of the port (parity: mxnet_tpu/config.py).
 
 Only the knobs the ported modules read are here, with the JAX package's
-names, defaults and parsing; the rest arrive with their users.  The
-``enable_*`` helpers switch the observability layer after import, as
-the JAX package's do.
+names, defaults and parsing; the rest arrive with their users, so every
+flag's disposition is "honored".  The ``enable_*`` helpers switch the
+observability layer and the compile cache after import, as the JAX
+package's do.
 """
 from __future__ import annotations
 
 import os
 import warnings
 
-__all__ = ["get", "FLAGS", "fusion_cost_table", "enable_telemetry",
-           "enable_events", "enable_tracing", "enable_flight_recorder"]
+__all__ = ["get", "FLAGS", "describe", "markdown_table", "warn_unknown",
+           "fusion_cost_table", "enable_telemetry", "enable_events",
+           "enable_tracing", "enable_flight_recorder",
+           "enable_compile_cache", "disable_compile_cache"]
 
 
 def _pint(v):
@@ -52,6 +55,28 @@ FLAGS = {
         "ShardedTrainer: '' = the identical-math patterns plus cost-table "
         "upgrades, 'off', 'all', or a list of pattern names "
         "(symbol.fusion.list_patterns())"),
+    "MXNET_REMAT_POLICY": (
+        "", str,
+        "default activation-remat policy of Executor, CachedOp, Module and "
+        "ShardedTrainer ('' = off; see remat.list_policies())"),
+    "MXNET_COMPILE_CACHE": (
+        "1", _pbool,
+        "persistent compile cache: inductor's FX-graph cache and "
+        "AOTAutograd's cache on disk, so a second process compiling the "
+        "same graph loads it (config.enable_compile_cache, at import)"),
+    "MXNET_COMPILE_CACHE_DIR": (
+        os.path.join(os.path.expanduser("~"), ".cache", "mxnet_tpu_torch",
+                     "compile"), str,
+        "directory of the persistent compile cache (inductor's cache dir, "
+        "Triton's cache under it)"),
+    "MXNET_SAFE_ACCUMULATION": (
+        "0", _pbool,
+        "accumulate f16 / bf16 sum, mean, prod, max, min, nansum and "
+        "nanprod in f32 (ops/tensor.py)"),
+    "MXNET_HOME": (
+        os.path.join("~", ".mxnet"), str,
+        "data and cache root of the gluon contrib dataset downloads "
+        "(gluon/contrib/data.py)"),
     "MXNET_FUSION_TUNE": (
         "", str,
         "path of a measured shape-keyed fusion cost table ('' = no table: "
@@ -348,6 +373,36 @@ FLAGS = {
 _warned = set()
 
 
+def warn_unknown():
+    """One-time warning for unrecognized MXNET_* environment variables
+    (called at import)."""
+    for name in os.environ:
+        if name.startswith("MXNET_") and name not in FLAGS and \
+                name not in _warned:
+            _warned.add(name)
+            warnings.warn("environment variable %s is not recognized by "
+                          "mxnet_tpu_torch (see mxnet_tpu_torch.config.FLAGS)"
+                          % name)
+
+
+def describe():
+    """Human-readable flag table, one row a flag: name, disposition,
+    default, note (the JAX package's layout)."""
+    rows = ["%-36s %-9s default=%-10s %s" % (n, "honored", d[0], d[2])
+            for n, d in sorted(FLAGS.items())]
+    return "\n".join(rows)
+
+
+def markdown_table():
+    """The flag table as markdown (returned, not written anywhere)."""
+    rows = ["| `%s` | %s | `%s` | %s |"
+            % (n, "honored", d[0] if d[0] != "" else "''",
+               d[2].replace("|", "\\|"))
+            for n, d in sorted(FLAGS.items())]
+    return "\n".join(["| knob | disposition | default | notes |",
+                      "| --- | --- | --- | --- |"] + rows)
+
+
 def get(name):
     """Parsed value of a registered flag (env overrides default)."""
     default, parser, _note = FLAGS[name]
@@ -415,3 +470,41 @@ def enable_flight_recorder(on=True, directory=None):
         tracing.enable_flight_recorder(directory)
     else:
         tracing.disable_flight_recorder()
+
+
+def enable_compile_cache(cache_dir=None):
+    """Point torch's persistent compile caches at ``cache_dir`` (else
+    ``MXNET_COMPILE_CACHE_DIR``) and turn them on: inductor's FX-graph
+    cache and AOTAutograd's cache live in inductor's cache directory
+    (``TORCHINDUCTOR_CACHE_DIR``), Triton's under it
+    (``TRITON_CACHE_DIR``), so a second process that compiles the same
+    graph loads it instead of compiling.  Called at import when
+    ``MXNET_COMPILE_CACHE`` is on (the default).  Inductor reads the
+    directory at its first use, so call this before the first compile to
+    move it.  Returns the directory, or None when it cannot be made (a
+    warning says why; the caches then stay off)."""
+    cache_dir = os.path.abspath(os.path.expanduser(
+        cache_dir or get("MXNET_COMPILE_CACHE_DIR")))
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError as e:
+        warnings.warn("persistent compile cache disabled: %s" % e)
+        return None
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache_dir
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache_dir, "triton")
+    import torch._functorch.config as _functorch_config
+    import torch._inductor.config as _inductor_config
+
+    _inductor_config.fx_graph_cache = True
+    _functorch_config.enable_autograd_cache = True
+    return cache_dir
+
+
+def disable_compile_cache():
+    """Turn torch's persistent compile caches off (``MXNET_COMPILE_CACHE=0``
+    at import): no compile reads or writes a cache entry."""
+    import torch._functorch.config as _functorch_config
+    import torch._inductor.config as _inductor_config
+
+    _inductor_config.fx_graph_cache = False
+    _functorch_config.enable_autograd_cache = False

@@ -1,9 +1,14 @@
 """Device context (parity: mxnet_tpu/context.py, python/mxnet/context.py).
 
 A Context names a ``torch.device``: ``gpu(i)`` is ``cuda:i`` and ``cpu()``
-is the host.  The implicit context is ``gpu(0)``.  Asking a GPU context
-for its device when CUDA is unavailable raises ``MXNetError``; nothing
-falls back to the CPU unless the caller passes ``cpu()``.
+is the host.  ``cpu_pinned()`` (device type 3) is the host too: arrays
+made on it are page-locked (``pin_memory()``) when a card is present, so
+their copies to the card can run asynchronously; without a card they are
+plain host arrays.  The implicit context (``default_context()``) is
+``gpu(0)``.  Asking a GPU context for its device when CUDA is
+unavailable raises ``MXNetError``; nothing falls back to the CPU unless
+the caller passes ``cpu()``.  ``tpu`` and ``num_tpus`` stay out: they
+name a device this card is not.
 """
 from __future__ import annotations
 
@@ -13,14 +18,15 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_gpus", "default_context", "device"]
 
 _context_stack = threading.local()
 
 
 class Context:
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
@@ -39,7 +45,7 @@ class Context:
     @property
     def torch_device(self):
         """The torch.device this context names."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -49,6 +55,14 @@ class Context:
             raise MXNetError("%s requested but only %d CUDA device(s) exist"
                              % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
+
+    def place(self, tensor):
+        """``tensor`` (on this context's device) as this context holds
+        it: page-locked for ``cpu_pinned`` when a card is present."""
+        if self.device_typeid == 3 and torch.cuda.is_available() and \
+                not tensor.is_pinned():
+            return tensor.pin_memory()
+        return tensor
 
     @staticmethod
     def from_device(device):
@@ -88,9 +102,30 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Page-locked host memory (module doc)."""
+    return Context("cpu_pinned", device_id)
+
+
+# ``device`` alias matching later-mxnet naming
+device = Context
+
+
+def num_gpus():
+    """The number of CUDA cards torch sees."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def default_context():
+    """The implicit context: ``gpu(0)``.  The JAX package answers the
+    host when it sees no accelerator; the port keeps the card, and a
+    host run names ``cpu()`` (module doc)."""
+    return Context("gpu", 0)
+
+
 def current_context():
-    """Innermost ``with ctx:`` scope, else ``gpu(0)``."""
+    """Innermost ``with ctx:`` scope, else :func:`default_context`."""
     stack = getattr(_context_stack, "stack", None)
     if stack:
         return stack[-1]
-    return Context("gpu", 0)
+    return default_context()

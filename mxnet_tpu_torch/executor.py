@@ -11,6 +11,10 @@ arguments whose ``grad_req`` is not ``null`` as fresh leaves;
 ``backward`` runs ``torch.autograd.grad`` for those leaves and writes
 (``write``) or adds (``add``) each gradient into its grad array.
 
+``remat_policy`` (else ``MXNET_REMAT_POLICY``) makes a training forward
+with gradients one checkpoint region (``remat.py``), as the JAX Executor
+wraps its ``fwd_bwd``.
+
 At bind, ``fusion`` (else ``MXNET_FUSION``) runs the graph-fusion passes
 (``symbol.fusion.apply_fusion``) over the graph the compiled function
 runs; with neither set, the default-on patterns fire (``add_act``,
@@ -33,6 +37,7 @@ from . import autograd as _ag
 from . import dtype_policy as _dtp
 from . import fusion_cost as _fc
 from . import jit as _jit
+from . import remat as _remat
 from .ndarray.ndarray import NDArray
 
 __all__ = ["Executor"]
@@ -54,7 +59,10 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad, grad_req, aux_states,
                  shared_exec=None, remat_policy=None, fusion=None,
                  aot=None, dtype_policy=None):
-        _not_ported(remat_policy=remat_policy, aot=aot)
+        _not_ported(aot=aot)
+        # None defers to MXNET_REMAT_POLICY; a bad name fails here
+        remat_on, remat_resolved = _remat.resolve_policy(remat_policy)
+        self._remat_policy = remat_policy
         # None defers to MXNET_FUSION; a bad spec fails here, at bind
         fusion_plan = _fc.resolve_fusion(fusion)
         self._fusion = fusion
@@ -100,8 +108,15 @@ class Executor:
                           else policy.cast_compute(n, v)
                           for n, v in values.items()}
             with _dtp.scope(policy):
-                outs, aux = graph_fn(values, is_train=is_train,
-                                     device=device)
+                if remat_on and is_train and torch.is_grad_enabled():
+                    # the activation-remat policy: one checkpoint region,
+                    # recomputed in the compiled backward
+                    outs, aux = _remat.checkpoint_region(
+                        lambda v: graph_fn(v, is_train=True, device=device),
+                        (values,), remat_resolved)
+                else:
+                    outs, aux = graph_fn(values, is_train=is_train,
+                                         device=device)
             if policy is not None:
                 outs = [policy.cast_output(o) for o in outs]
                 aux = {k: v.to(orig[k].dtype) for k, v in aux.items()}
@@ -247,7 +262,8 @@ class Executor:
             new_aux[name] = old if tuple(old.shape) == tuple(shp) else \
                 nd_zeros(shp, ctx=self._ctx, dtype=old.dtype)
         return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self._grad_req, new_aux, fusion=self._fusion,
+                        self._grad_req, new_aux,
+                        remat_policy=self._remat_policy, fusion=self._fusion,
                         dtype_policy=self._dtype_policy)
 
     def set_monitor_callback(self, callback, monitor_all=False):

@@ -1,5 +1,5 @@
 """Gluon: the imperative NN API (parity: mxnet_tpu/gluon/)."""
-from .parameter import Parameter, ParameterDict  # noqa: F401
+from .parameter import Parameter, Constant, ParameterDict  # noqa: F401
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401

@@ -40,6 +40,7 @@ parameters read as the given tensors, in the calling thread only.
 from __future__ import annotations
 
 import contextlib
+from contextlib import nullcontext
 import re
 import threading
 from collections import OrderedDict
@@ -55,6 +56,7 @@ from .. import autograd
 from .. import dtype_policy as _dtp
 from .. import fusion_cost as _fc
 from .. import jit as _jit
+from .. import remat as _remat
 from ..name import NameManager, Prefix
 from ..symbol import symbol as _symbol
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
@@ -370,6 +372,10 @@ class Block:
             cld.hybridize(active, **kwargs)
 
     def __call__(self, *args):
+        if _remat.is_segment(self) and \
+                all(isinstance(a, NDArray) for a in args):
+            # one eager remat region of a ShardedTrainer step (remat.py)
+            return _remat.run_segment(self, args)
         for hook in self._forward_pre_hooks.values():
             hook(self, args)
         with autograd.grad_mode():
@@ -387,15 +393,18 @@ def _flatten_nested(out):
     template mirrors the nesting with flat-list indices at the leaves
     (parity: mxnet_tpu/gluon/block.py:120)."""
     flat = []
+    return flat, _flatten_into(out, flat)
 
-    def rec(o):
-        if isinstance(o, (list, tuple)):
-            t = [rec(x) for x in o]
-            return t if isinstance(o, list) else tuple(t)
-        flat.append(o)
-        return len(flat) - 1
 
-    return flat, rec(out)
+def _flatten_into(o, flat):
+    # a module-level function: a nested recursive closure would hold
+    # ``flat`` (the outputs, and through their grad_fn the whole step's
+    # graph) in a reference cycle until the garbage collector ran
+    if isinstance(o, (list, tuple)):
+        t = [_flatten_into(x, flat) for x in o]
+        return t if isinstance(o, list) else tuple(t)
+    flat.append(o)
+    return len(flat) - 1
 
 
 def _regroup_nested(tmpl, flat):
@@ -405,7 +414,7 @@ def _regroup_nested(tmpl, flat):
     return flat[tmpl]
 
 
-_NOT_PORTED_FLAGS = ("remat_policy", "aot")
+_NOT_PORTED_FLAGS = ("aot",)
 
 
 class CachedOp:
@@ -421,6 +430,9 @@ class CachedOp:
     package; ``dtype_policy`` casts each parameter to its compute dtype
     by name, installs the policy's scope, and casts outputs to the
     policy's output dtype and moving stats back to their storage dtype.
+    ``remat_policy`` (else ``MXNET_REMAT_POLICY``) makes a training key's
+    pure function one checkpoint region (``remat.py``), which the compiled
+    graph recomputes in its backward per the policy.
     ``fusion`` (else ``MXNET_FUSION``) is resolved into a fusion plan
     when a key first runs and installed (``fusion_cost.scope``) around
     that key's probe and compiled calls, where an op's shape-specialized
@@ -433,6 +445,7 @@ class CachedOp:
                  dtype_policy=None):
         self._block = block
         self._policy = _dtp.resolve_policy(dtype_policy)
+        self._remat, self._remat_policy = _remat.resolve_policy(remat_policy)
         _fc.resolve_fusion(fusion)   # a bad spec fails at hybridize()
         self._fusion = fusion
         self._params = list(block.collect_params().values())
@@ -446,7 +459,15 @@ class CachedOp:
 
     def _pure(self, inputs, params):
         """(input tensors, parameter tensors) -> (output tensors, new
-        moving-stat tensors); compiled per key."""
+        moving-stat tensors); compiled per key.  A training key under a
+        remat policy runs it as one checkpoint region."""
+        if self._remat and autograd.is_training() and \
+                torch.is_grad_enabled():
+            return _remat.checkpoint_region(self._region, (inputs, params),
+                                            self._remat_policy)
+        return self._region(inputs, params)
+
+    def _region(self, inputs, params):
         policy = self._policy
         if policy is not None:
             params = [policy.cast_compute(p.name, a)
@@ -502,7 +523,8 @@ class CachedOp:
                 self._meta[key] = self._probe(inputs) + (plan,)
         tmpl, aux_params, plan = self._meta[key]
         with torch.set_grad_enabled(recording), _dtp.scope(self._policy), \
-                _fc.scope(plan):
+                _fc.scope(plan), \
+                _remat.compile_scope() if self._remat else nullcontext():
             outs, aux = self._compiled(key, in_t, par_t)
         for p, v in zip(aux_params, aux):
             p.data()._rebind(v)
@@ -533,6 +555,7 @@ class HybridBlock(Block):
             if flags[name] is not None:
                 raise MXNetError("hybridize(%s=%r): not ported yet"
                                  % (name, flags[name]))
+        _remat.resolve_policy(remat_policy)
         _dtp.resolve_policy(dtype_policy)
         _fc.resolve_fusion(fusion)
         self._active = active

@@ -21,6 +21,7 @@ from ..data import dataset, sampler
 from ... import ndarray as nd
 from ...base import MXNetError
 from ...context import cpu
+from ... import config as _config
 
 __all__ = ["IntervalSampler", "WikiText2", "WikiText103"]
 
@@ -149,7 +150,7 @@ class WikiText2(_WikiText):
 
     def __init__(self, root=None, segment="train", vocab=None, seq_len=35):
         if root is None:
-            root = os.path.join(os.environ.get("MXNET_HOME", "~/.mxnet"),
+            root = os.path.join(_config.get("MXNET_HOME"),
                                 "datasets", "wikitext-2")
         super().__init__(root, segment, vocab, seq_len)
 
@@ -164,6 +165,6 @@ class WikiText103(_WikiText):
 
     def __init__(self, root=None, segment="train", vocab=None, seq_len=35):
         if root is None:
-            root = os.path.join(os.environ.get("MXNET_HOME", "~/.mxnet"),
+            root = os.path.join(_config.get("MXNET_HOME"),
                                 "datasets", "wikitext-103")
         super().__init__(root, segment, vocab, seq_len)

@@ -17,7 +17,7 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "download"]
+           "download", "shape_is_known"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -138,3 +138,14 @@ def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
             if attempt + 1 >= retries:
                 raise
             time.sleep(0.1 * 2 ** attempt)
+
+
+def shape_is_known(shape):
+    """Whether every dimension of ``shape`` is known: not None and no
+    dimension 0 or None (parity: mxnet_tpu/gluon/utils.py:168)."""
+    if shape is None:
+        return False
+    for dim_size in shape:
+        if dim_size in (0, None):
+            return False
+    return True

@@ -49,8 +49,10 @@ class Module(BaseModule):
         super().__init__(logger=logger)
         from ..executor import _not_ported
         from ..fusion_cost import resolve_fusion
+        from ..remat import resolve_policy
 
-        _not_ported(remat_policy=remat_policy, aot=aot)
+        _not_ported(aot=aot)
+        resolve_policy(remat_policy)   # a bad name fails here
         resolve_fusion(fusion)   # a bad spec fails here, not at bind
         self._remat_policy = remat_policy
         self._fusion = fusion

@@ -229,7 +229,11 @@ class NDArray:
 
     @property
     def context(self):
-        return Context.from_device(self._data.device)
+        t = self._data
+        if t.device.type == "cpu" and torch.cuda.is_available() and \
+                t.is_pinned():
+            return Context("cpu_pinned", 0)
+        return Context.from_device(t.device)
 
     ctx = context
 
@@ -391,8 +395,8 @@ class NDArray:
 
     def copyto(self, other):
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device,
-                                                  copy=True))
+            return NDArray(other.place(self._data.detach().to(
+                other.torch_device, copy=True)))
         if isinstance(other, NDArray):
             other._rebind(self._data.to(other._data.device,
                                         other._data.dtype, copy=True))
@@ -681,26 +685,32 @@ def array(source_array, ctx=None, dtype=None):
     if isinstance(source_array, NDArray):
         src = source_array._data.detach()
         device = src.device if ctx is None else ctx.torch_device
-        return NDArray(src.to(device, torch_dtype(dtype) if dtype is not None
-                              else src.dtype, copy=True))
+        out = src.to(device, torch_dtype(dtype) if dtype is not None
+                     else src.dtype, copy=True)
+        return NDArray(out if ctx is None else ctx.place(out))
     src = np.asarray(source_array)
     if dtype is None:
         if not isinstance(source_array, np.ndarray):
             dtype = np.float32 if src.dtype.kind in "fiu" else src.dtype
         else:
             dtype = _NARROW.get(src.dtype, src.dtype)
-    return NDArray(torch.tensor(src, dtype=torch_dtype(dtype),
-                                device=_ctx_device(ctx)))
+    return NDArray(_placed(torch.tensor(src, dtype=torch_dtype(dtype),
+                                        device=_ctx_device(ctx)), ctx))
+
+
+def _placed(tensor, ctx):
+    """``tensor`` as ``ctx`` holds it (page-locked for ``cpu_pinned``)."""
+    return tensor if ctx is None else ctx.place(tensor)
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs):
-    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
-                               device=_ctx_device(ctx)))
+    return NDArray(_placed(torch.zeros(shape, dtype=torch_dtype(dtype),
+                                       device=_ctx_device(ctx)), ctx))
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
-    return NDArray(torch.ones(shape, dtype=torch_dtype(dtype),
-                              device=_ctx_device(ctx)))
+    return NDArray(_placed(torch.ones(shape, dtype=torch_dtype(dtype),
+                                      device=_ctx_device(ctx)), ctx))
 
 
 def empty(shape, ctx=None, dtype=None):

@@ -229,11 +229,28 @@ def _reduce(kind, data, axis=None, keepdims=False, exclude=False):
     return out.to(data.dtype) if _is_int(data) else out
 
 
+@torch.compiler.assume_constant_result
+def _safe_accumulation():
+    from .. import config as _config
+
+    return _config.get("MXNET_SAFE_ACCUMULATION")
+
+
+def _reduce_op(kind, data, axis=None, keepdims=False, exclude=False):
+    if data.dtype in (torch.float16, torch.bfloat16) and \
+            _safe_accumulation():
+        # MXNET_SAFE_ACCUMULATION: accumulate halves in f32 (parity:
+        # mxnet_tpu/ops/tensor.py:195-212)
+        return _reduce(kind, data.to(torch.float32), axis, keepdims,
+                       exclude).to(data.dtype)
+    return _reduce(kind, data, axis, keepdims, exclude)
+
+
 for _name in ("sum", "mean", "prod", "max", "min", "nansum", "nanprod"):
     register(_name, aliases=((_name + "_axis",)
                              if _name in ("sum", "max", "min") else ()))(
         (lambda k: lambda data, axis=None, keepdims=False, exclude=False,
-            **kw: _reduce(k, data, axis, keepdims, exclude))(_name))
+            **kw: _reduce_op(k, data, axis, keepdims, exclude))(_name))
 
 
 @register("norm")

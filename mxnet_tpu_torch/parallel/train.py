@@ -31,8 +31,11 @@ it runs eagerly through torch, with the same semantics:
 ``step_many`` runs ``steps_per_call`` steps in one call through the same
 step code, so it is bit for bit equal to as many ``step`` calls where the
 kernels are deterministic (the CPU; cuDNN's default backward algorithms
-on the card need not be).  The mesh, layouts, rematerialisation, AOT and
-checkpoint arguments of the JAX trainer are not ported yet.
+on the card need not be).  ``remat_policy`` (else ``MXNET_REMAT_POLICY``)
+recomputes activations in the backward (``remat.py``): each child of the
+net's outermost sequential container is one eager checkpoint region.
+The mesh, layouts, AOT and checkpoint arguments of the JAX trainer are
+not ported yet.
 
 The observability producers are the JAX trainer's: the spans
 ``ShardedTrainer.step`` / ``.step_many`` / ``step:dispatch`` /
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import queue as _queue
 import sys as _sys
+from contextlib import nullcontext
 import threading as _threading
 import time as _time
 
@@ -64,6 +68,7 @@ from .. import config as _config
 from .. import dtype_policy as _dtp
 from .. import events as _events
 from .. import fusion_cost as _fc
+from .. import remat as _remat
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
 from ..checkpoint import check_finite, nonfinite_policy
@@ -256,7 +261,6 @@ class _Flat:
 
 _UNPORTED_DEFAULTS = (("mesh", None), ("batch_axis_spec", None),
                       ("param_spec_fn", None), ("donate", True),
-                      ("remat_policy", None),
                       ("aot", None), ("aot_spec", None), ("layout", None),
                       ("distributed", "auto"))
 
@@ -293,8 +297,11 @@ class ShardedTrainer:
         (``fusion_cost.scope``) around each step's forward, where an op's
         shape-specialized fast path (LayerNorm's) consults it
 
+    remat_policy : a ``remat.list_policies()`` name or a selective
+        checkpoint policy (None = the ``MXNET_REMAT_POLICY`` default)
+
     ``mesh``, ``batch_axis_spec``, ``param_spec_fn``, ``donate``,
-    ``remat_policy``, ``aot``, ``aot_spec``, ``layout`` and
+    ``aot``, ``aot_spec``, ``layout`` and
     ``distributed`` take the JAX trainer's defaults only; anything else
     raises ``MXNetError``.
     """
@@ -308,8 +315,7 @@ class ShardedTrainer:
                  metrics_every=None, fetch_depth=2, dtype_policy=None,
                  distributed="auto"):
         given = dict(mesh=mesh, batch_axis_spec=batch_axis_spec,
-                     param_spec_fn=param_spec_fn, donate=donate,
-                     remat_policy=remat_policy, aot=aot,
+                     param_spec_fn=param_spec_fn, donate=donate, aot=aot,
                      aot_spec=aot_spec, layout=layout,
                      distributed=distributed)
         for name, default in _UNPORTED_DEFAULTS:
@@ -320,6 +326,11 @@ class ShardedTrainer:
         # resolved once, as an Executor does at bind (a bad spec fails
         # here)
         self._fusion_plan = _fc.resolve_fusion(fusion)
+        self._remat_policy = remat_policy
+        self._remat, self._remat_resolved = _remat.resolve_policy(remat_policy)
+        # eager regions: the children of the net's outermost sequential
+        # container, else the whole forward and loss (remat.py)
+        self._remat_segments = _remat.segments(net) if self._remat else None
         self.net = net
         self.loss_fn = loss_fn
         self._on_nonfinite = nonfinite_policy(on_nonfinite)
@@ -529,7 +540,26 @@ class ShardedTrainer:
     def _forward_loss(self, train_leaves, fixed_bufs, inputs, label):
         """Mean loss (f32) of one batch with each parameter's compute
         tensor swapped into the block, and the aux sink's (param, value)
-        pairs."""
+        pairs.  Under a remat policy each segment of the net is a
+        checkpoint region, or, with no segments, the whole of this."""
+        if self._remat and self._remat_segments is None:
+            params = []
+
+            def region(train_leaves, fixed_bufs, inputs, label):
+                loss, sink = self._forward_loss_plain(
+                    train_leaves, fixed_bufs, inputs, label)
+                if not params:
+                    params.extend(p for p, _ in sink)
+                return loss, tuple(v for _, v in sink)
+
+            loss, values = _remat.checkpoint_region(
+                region, (list(train_leaves), list(fixed_bufs),
+                         list(inputs), label), self._remat_resolved)
+            return loss, list(zip(params, values))
+        return self._forward_loss_plain(train_leaves, fixed_bufs, inputs,
+                                        label)
+
+    def _forward_loss_plain(self, train_leaves, fixed_bufs, inputs, label):
         views = self._views(train_leaves, fixed_bufs)
         policy = self._dtype_policy
         sink = []
@@ -546,9 +576,12 @@ class ShardedTrainer:
                     d._data = v.to(ct) if ct is not None else v
                 # inputs are not cast under a policy: the first
                 # parameterized op harmonizes them to its weight
-                out = self.net(*[NDArray(x.to(self._dtype)
-                                         if self._dtype is not None else x)
-                                 for x in inputs])
+                with _remat.segment_scope(self._remat_segments,
+                                          self._remat_resolved) \
+                        if self._remat_segments else nullcontext():
+                    out = self.net(*[NDArray(x.to(self._dtype)
+                                             if self._dtype is not None
+                                             else x) for x in inputs])
                 if policy is not None and policy.cast_outputs is not None:
                     # the loss head boundary: logits in f32 before the
                     # softmax / cross-entropy

@@ -1054,6 +1054,18 @@ def note_compile(duration_secs):
             pass
 
 
+def note_compile_cache(hits, misses):
+    """The persistent compile cache's hits and misses of one compile
+    (``jit.Compiled``, from dynamo's inductor and AOTAutograd counters):
+    :data:`COMPILE_CACHE_HITS` / :data:`COMPILE_CACHE_MISSES`."""
+    if not _enabled:
+        return
+    if hits:
+        COMPILE_CACHE_HITS.inc(hits)
+    if misses:
+        COMPILE_CACHE_MISSES.inc(misses)
+
+
 # ---------------------------------------------------------------------------
 # MFU peak-FLOPs resolution
 # ---------------------------------------------------------------------------

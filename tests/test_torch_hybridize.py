@@ -158,9 +158,12 @@ def test_hybridize_false_returns_to_eager():
 
 def test_flags():
     net = _net(tmx)
-    for flag in ("remat_policy", "aot"):
-        with pytest.raises(MXNetError, match="not ported yet"):
-            net.hybridize(**{flag: "x"})
+    with pytest.raises(MXNetError, match="not ported yet"):
+        net.hybridize(aot="x")
+    # remat_policy is ported (remat.py): an unknown name raises as in the
+    # JAX package
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        net.hybridize(remat_policy="x")
     with pytest.raises(TypeError):
         net.hybridize(nonsense=True)
     with pytest.raises(MXNetError):

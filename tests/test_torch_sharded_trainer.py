@@ -650,7 +650,7 @@ def test_sync_to_net_writes_the_trained_params_back():
     ({"steps_per_call": 0}, "steps_per_call must be >= 1"),
     ({"mesh": "dp=2"}, "not ported yet"),
     ({"layout": "fsdp"}, "not ported yet"),
-    ({"remat_policy": "full"}, "not ported yet"),
+    ({"donate": False}, "not ported yet"),
     ({"aot": True}, "not ported yet"),
     ({"distributed": False}, "not ported yet"),
 ])
