@@ -444,11 +444,36 @@ non-zero, printing no result, without them.  Phases, one line each:
    examples/fine_tune.py for one epoch of 8 batches in the side process:
    finite losses, the accuracy printed; a 'finetune' line.  No
    hand-written kernel launched;
-22. the whole script's wall time, then a {"kernels": [...]} line (the
+22. checkpoint: fault-tolerant checkpointing on phase 21a's path
+   (resnet50_v1 at full width, 1000 classes, bf16_mixed, batch 256, sgd
+   lr 0.1 momentum 0.9 through ShardedTrainer, deterministic cuDNN).
+   (a) 6 steps from seed-0 weights, the losses kept.  (b) From the same
+   weights, CheckpointManager(keep_last=2, async_save=True) attached with
+   period 2 (its goodput recorder begins there under MXNET_GOODPUT_DIR),
+   4 steps, then SIGTERM to this process: the handler flushes step 4 and
+   sets manager.preempted.  (c) A trainer from seed-1 weights attached
+   with auto_resume returns 4, with every parameter, momentum leaf,
+   moving statistic and the random stream bit-equal to (b)'s after step
+   4; steps 5-6 give losses and a final state bit-equal to (a)'s; then 3
+   steps alone and 3 with an async save in flight, each save's blocking
+   snapshot and background write timed.  (d) flip_bit on step 4's data
+   file: a fresh load falls back to step 2 with a CORRUPT warning and
+   CHECKPOINT_DIGEST_FAILURES rises by 1; the port's goodputz CLI reads
+   the ledger: a fresh incarnation ended by the preemption at step 4 and
+   a resumed one, with ckpt_save and ckpt_restore time.  (e) A sharded
+   save validated by validate_sharded_checkpoint and loaded with a
+   restrict map, bit-equal.  (f) train_mnist's Module (phase 13's MLP)
+   fit 1 epoch with a checkpoint manager, a fresh Module resumed to 2
+   epochs, bit-equal to an uninterrupted fit.  The SIGTERM handler is
+   restored and SIGTERM left unblocked; no hand-written kernel launched;
+   a 'checkpoint' line with the bytes of a checkpoint, the blocking
+   snapshot ms, the background write s, the load-and-restore s, and the
+   step ms alone and with a save in flight;
+23. the whole script's wall time, then a {"kernels": [...]} line (the
    compression rows' launches: phase 4's and each phase-17 worker's;
    int8_conv's: phase 16's, det_launches, and phase 9b's,
    serve_launches);
-23. last line: {"ok": true, "device": {...}}.
+24. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
@@ -4625,17 +4650,24 @@ REMAT_POLICIES = ("none", "dots_saveable", "full")
 REMAT_WARM, REMAT_STEPS = 2, 5
 
 
-def remat_run(policy, x, y):
-    mx.random.seed(0)
+def resnet_trainer(x, seed=0, remat_policy=None):
+    """Phases 21a and 22's trainer: resnet50_v1 at full width, 1000
+    classes, Xavier from ``seed``, bf16_mixed, sgd lr 0.1 momentum 0.9
+    through ShardedTrainer."""
+    mx.random.seed(seed)
     net = vision.resnet50_v1(classes=1000)
     net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
     with mx.autograd.pause():      # deferred shapes: Xavier draws here
         net(x[0:2])
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    trainer = parallel.ShardedTrainer(
+    return parallel.ShardedTrainer(
         net, lambda o, l: loss_fn(o, l), optimizer="sgd",
         optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
-        dtype_policy="bf16_mixed", remat_policy=policy)
+        dtype_policy="bf16_mixed", remat_policy=remat_policy)
+
+
+def remat_run(policy, x, y):
+    trainer = resnet_trainer(x, remat_policy=policy)
     torch.cuda.synchronize()
     gc.collect()      # an earlier policy's trainer and graph (cycles)
     torch.cuda.empty_cache()
@@ -4759,6 +4791,384 @@ def phase_remat(card):
     del runs
     torch.cuda.empty_cache()
     remat_hybridized(card)
+
+
+# phase 22 (checkpoint): fault-tolerant checkpointing on phase 21a's path
+# (resnet_trainer, deterministic cuDNN, one fixed batch from seed 0): a
+# reference run of CKPT_STEPS steps; a run from the same weights with an
+# async CheckpointManager (keep CKPT_KEEP, a save every CKPT_PERIOD steps)
+# stopped by SIGTERM after CKPT_PREEMPT steps; a resume on a trainer from
+# seed 1; then CKPT_TIMED steps alone and as many with a save in flight.
+# The Module check: phase 13's train_mnist MLP (Module.fit, sgd lr SYM_LR
+# momentum 0.9, Xavier magnitude 2, batch SYM_BATCH) over CKPT_MNIST
+# digits, unshuffled (the iterator's shuffle draws from numpy's global
+# generator, which no checkpoint holds), 1 epoch then a resumed fit to
+# CKPT_MNIST_EPOCHS, against an uninterrupted fit; and a fit stopped by
+# SIGTERM at batch CKPT_MNIST_STOP of epoch 1, resumed, against a fit
+# started by hand from its flush
+CKPT_STEPS, CKPT_PREEMPT, CKPT_PERIOD, CKPT_KEEP = 6, 4, 2, 2
+CKPT_TIMED = 3
+CKPT_MNIST, CKPT_MNIST_EPOCHS, CKPT_MNIST_STOP = 1024, 2, 7
+
+
+def ckpt_equal(got, want):
+    """Tensors bit for bit, and the largest |difference| for the log."""
+    same = len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    worst = max((float((a.double() - b.double()).abs().max())
+                 for a, b in zip(got, want) if a.shape == b.shape),
+                default=float("nan"))
+    return same, worst
+
+
+def ckpt_module(root):
+    """22f: train_mnist's Module through fit(checkpoint_manager=).  One
+    epoch, then a fresh Module resumed to CKPT_MNIST_EPOCHS, against an
+    uninterrupted fit; then a fit stopped by SIGTERM from its
+    batch_end_callback at batch CKPT_MNIST_STOP of epoch 1: the flush
+    holds the params it stopped at, and a fresh Module's auto-resume
+    equals a fit started by hand from the flushed params, optimizer
+    state and epoch.  Returns (seconds, worst |diff|)."""
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.examples import train_mnist as ex
+
+    data_dir = os.path.join(root, "mnist")
+    os.makedirs(data_dir)
+    write_mnist(data_dir, CKPT_MNIST)
+    opt_params = {"learning_rate": SYM_LR, "momentum": 0.9}
+
+    def fit(epochs, manager=None, callback=None, start=None):
+        _, data = ex.get_iters(SYM_BATCH, data_dir, mx.gpu(0))
+        mx.random.seed(0)
+        mod = mx.mod.Module(ex.mlp_symbol(), context=mx.gpu(0))
+        kw = {}
+        if start is not None:       # (epoch, arg, aux, optimizer bytes)
+            arg, aux = ({k: mx.nd.array(v, ctx=mx.gpu(0))
+                         for k, v in d.items()} for d in start[1:3])
+            mod.bind(data.provide_data, data.provide_label)
+            mod.init_params(arg_params=arg, aux_params=aux)
+            mod.init_optimizer(optimizer="sgd", optimizer_params=opt_params)
+            mod.set_optimizer_states_bytes(start[3])
+            kw = dict(begin_epoch=start[0] + 1, arg_params=arg,
+                      aux_params=aux, force_init=True)
+        mod.fit(data, optimizer="sgd", optimizer_params=opt_params,
+                num_epoch=epochs, initializer=mx.init.Xavier(magnitude=2.0),
+                checkpoint_manager=manager, batch_end_callback=callback,
+                **kw)
+        return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+    def diff(got, want):
+        worst = max(float(np.abs(got[k].astype(np.float64) - v).max())
+                    for k, v in want.items())
+        return sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], v) for k, v in want.items()), worst
+
+    t0 = time.perf_counter()
+    full = fit(CKPT_MNIST_EPOCHS)
+    mdir = os.path.join(root, "module")
+    m1 = mx.CheckpointManager(mdir, async_save=False)
+    fit(1, m1)
+    check(m1.steps() == [0], "Module.fit saved steps %s, want [0]"
+          % m1.steps())
+    m2 = mx.CheckpointManager(mdir, async_save=False)
+    resumed = fit(CKPT_MNIST_EPOCHS, m2)
+    check(m2.steps() == list(range(CKPT_MNIST_EPOCHS)),
+          "the resumed Module.fit saved steps %s" % m2.steps())
+    check(m2.read_manifest(0)["meta"]["kind"] == "module",
+          "Module checkpoint kind %r" % m2.read_manifest(0)["meta"])
+    same, worst = diff(resumed, full)
+    check(same, "the resumed Module.fit differs from the uninterrupted one "
+          "by %g" % worst)
+    # the preemption flush in the middle of epoch 1
+    pdir = os.path.join(root, "module_preempted")
+    mp = mx.CheckpointManager(pdir, async_save=False)
+    seen = []
+
+    def stop(param):
+        seen.append((param.epoch, param.nbatch))
+        if (param.epoch, param.nbatch) == (1, CKPT_MNIST_STOP):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    stopped = fit(CKPT_MNIST_EPOCHS, mp, callback=stop)
+    check(mp.preempted and seen[-1] == (1, CKPT_MNIST_STOP),
+          "SIGTERM at epoch 1 batch %d: preempted %s, the last batch %s"
+          % (CKPT_MNIST_STOP, mp.preempted, seen[-1:]))
+    check(mp.steps() == [0, 1], "the preempted Module.fit saved steps %s"
+          % mp.steps())
+    flushed = mp.load()
+    check(flushed.step == 1 and flushed.meta.get("partial") is True
+          and flushed.meta.get("preempted") is True,
+          "the flushed Module checkpoint: step %d meta %s"
+          % (flushed.step, flushed.meta))
+    start = ck.split_module_payload(flushed)
+    check(start[0] == 0 and start[3], "the flushed checkpoint's epoch %d, "
+          "optimizer state %s" % (start[0], bool(start[3])))
+    same, worst_p = diff(start[1], stopped)
+    check(same, "the flushed params differ from those the fit stopped at "
+          "by %g" % worst_p)
+    mr = mx.CheckpointManager(pdir, async_save=False)
+    after = fit(CKPT_MNIST_EPOCHS, mr)
+    check(not mr.preempted and mr.read_manifest(1)["meta"].get("partial")
+          is None, "the resumed Module.fit left step 1 partial: %s"
+          % mr.read_manifest(1)["meta"])
+    same, worst_r = diff(after, fit(CKPT_MNIST_EPOCHS, start=start))
+    check(same, "the Module resumed after SIGTERM differs from a fit "
+          "started by hand from the flush by %g" % worst_r)
+    check(not diff(after, start[1])[0], "the resumed Module.fit did not "
+          "train past the flush")
+    return time.perf_counter() - t0, max(worst, worst_p, worst_r)
+
+
+def ckpt_sharded(root, trainer):
+    """22e: a single-process sharded save of the trainer, validated
+    offline, then loaded with a restrict map: every array bit-equal."""
+    from mxnet_tpu_torch import checkpoint as ck
+
+    sdir = os.path.join(root, "sharded")
+    msh = ck.CheckpointManager(sdir, sharded=True, async_save=False)
+    t0 = time.perf_counter()
+    step = trainer.save_checkpoint(msh)
+    save_s = time.perf_counter() - t0
+    vstep, problems = ck.validate_sharded_checkpoint(sdir)
+    check(vstep == step and problems == [],
+          "sharded checkpoint step %s: %s" % (vstep, problems))
+    _, arrays, _, _ = trainer._checkpoint_payload()
+    # the map a restore on this process asks for: every array whole
+    full = {k: [[[0, int(d)] for d in np.shape(v)]] for k, v in
+            arrays.items()}
+    c = msh.load(restrict=full)
+    check(c.sharded and c.shards_read == 1 and set(c.arrays) == set(arrays),
+          "restricted sharded load: %d shard(s) read, arrays %d of %d"
+          % (c.shards_read, len(c.arrays), len(arrays)))
+    for k, v in arrays.items():
+        if k == "rng":
+            same = np.array_equal(c.arrays[k], v)
+        else:
+            same = torch.equal(c.tensor(k), v.detach().cpu())
+        check(same, "sharded %s is not bit-equal to the trainer's" % k)
+    # a map that leaves an array out reads none of it
+    skip = dict(full, **{"param:0000": [[[0, 0]] * len(full["param:0000"][0])]})
+    check("param:0000" not in msh.load(restrict=skip).arrays,
+          "the restrict map did not leave param:0000 out")
+    return save_s
+
+
+def ckpt_corrupt(root, m_dir):
+    """22d: flip a bit of step CKPT_PREEMPT's data file: a fresh load falls
+    back to the step before, warns, and CHECKPOINT_DIGEST_FAILURES rises
+    by one.  Returns the fallback load's seconds."""
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.testing import faults
+
+    m = ck.CheckpointManager(m_dir)
+    faults.flip_bit(m.data_path(CKPT_PREEMPT))
+    was_on = telemetry.enabled()
+    telemetry.enable()
+    try:
+        f0 = telemetry.CHECKPOINT_DIGEST_FAILURES.value()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            c = ck.CheckpointManager(m_dir).load()
+            load_s = time.perf_counter() - t0
+        f1 = telemetry.CHECKPOINT_DIGEST_FAILURES.value()
+    finally:
+        if not was_on:
+            telemetry.disable()
+    want = CKPT_PREEMPT - CKPT_PERIOD
+    check(c is not None and c.step == want,
+          "after the bit flip the load gave step %s, want %d"
+          % (c and c.step, want))
+    check(any("CORRUPT" in str(w.message) for w in rec),
+          "no CORRUPT warning on the fallback")
+    check(f1 - f0 == 1, "CHECKPOINT_DIGEST_FAILURES rose by %s" % (f1 - f0))
+    return load_s
+
+
+def ckpt_goodput(gp_dir):
+    """22d: the goodput ledger of runs (b) and (c), read by the port's
+    goodputz CLI: a preempted and a resumed incarnation, committed
+    ckpt_save segments and a ckpt_restore segment."""
+    cli = os.path.join(DIST_ROOT, "mxnet_tpu_torch", "tools", "goodputz.py")
+    r = subprocess.run([sys.executable, cli, gp_dir, "--json"],
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0, "goodputz exited %d: %s"
+          % (r.returncode, r.stderr[-500:]))
+    rep = json.loads(r.stdout)
+    incs = sorted(rep["incarnations"], key=lambda i: i["start_time"])
+    check([(i["start_reason"], i["exit_reason"]) for i in incs]
+          == [("fresh", "preempt"), ("resume", "clean")],
+          "goodput incarnations %s" % [(i["start_reason"], i["exit_reason"])
+                                       for i in incs])
+    check(incs[0]["last_ckpt_step"] == CKPT_PREEMPT
+          and incs[1]["resumed_from_step"] == CKPT_PREEMPT,
+          "goodput checkpoint steps %s / %s"
+          % (incs[0]["last_ckpt_step"], incs[1]["resumed_from_step"]))
+    check(incs[0]["buckets_s"]["ckpt_save"] > 0
+          and incs[1]["buckets_s"]["ckpt_restore"] > 0,
+          "goodput ckpt buckets %s / %s" % (incs[0]["buckets_s"],
+                                             incs[1]["buckets_s"]))
+    return rep
+
+
+def phase_checkpoint(card):
+    """Phase 22 (module doc)."""
+    from mxnet_tpu_torch import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    prev_term = signal.getsignal(signal.SIGTERM)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(SHARDED_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, SHARDED_BATCH).astype(np.float32),
+                    ctx=mx.gpu(0))
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    m_dir = os.path.join(root, "dense")
+    gp_dir = os.path.join(root, "goodput")
+    prev_gp = os.environ.get("MXNET_GOODPUT_DIR")
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # (a) the reference run
+        ref = resnet_trainer(x)
+        ref_losses, alone_s = [], []
+        for _ in range(CKPT_STEPS):
+            dt, loss = timed_s(lambda: ref.step([x], y))
+            ref_losses.append(float(loss))
+            alone_s.append(dt)
+        ref_state = [t.clone() for t in ref.state_tensors()]
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) the preempted run, its goodput recorder begun at attach
+        os.environ["MXNET_GOODPUT_DIR"] = gp_dir
+        tb = resnet_trainer(x)
+        mb = ck.CheckpointManager(m_dir, keep_last=CKPT_KEEP,
+                                  async_save=True)
+        check(tb.attach_checkpoint_manager(mb, period=CKPT_PERIOD) == 0,
+              "a fresh directory resumed a step")
+        b_losses, b_steps = [], []
+        try:
+            for _ in range(CKPT_PREEMPT):
+                busy = mb._thread is not None and mb._thread.is_alive()
+                dt, loss = timed_s(lambda: tb.step([x], y))
+                b_losses.append(float(loss))
+                b_steps.append((1e3 * dt, busy))
+            os.kill(os.getpid(), signal.SIGTERM)   # the handler flushes
+            check(mb.preempted, "SIGTERM did not set manager.preempted")
+        finally:
+            mb.uninstall_preemption_handler()
+        check(mb.steps() == [CKPT_PREEMPT - CKPT_PERIOD, CKPT_PREEMPT],
+              "committed steps %s" % mb.steps())
+        meta = mb.read_manifest(CKPT_PREEMPT)["meta"]
+        check(meta.get("preempted") is True
+              and meta["step"] == CKPT_PREEMPT
+              and meta["kind"] == "sharded_trainer",
+              "the flushed checkpoint's meta: %s"
+              % {k: meta.get(k) for k in ("preempted", "step", "kind")})
+        b_state = [t.clone() for t in tb.state_tensors()]
+        b_rng = mx.random.get_key_data()
+        ckpt_bytes = os.path.getsize(mb.data_path(CKPT_PREEMPT)) + \
+            os.path.getsize(mb.manifest_path(CKPT_PREEMPT))
+        tb.close()
+        del tb
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) the resume, on a trainer from other weights
+        tc = resnet_trainer(x, seed=1)
+        mc = ck.CheckpointManager(m_dir, keep_last=CKPT_KEEP,
+                                  async_save=True)
+        try:
+            load_s, start = timed_s(
+                lambda: tc.attach_checkpoint_manager(mc))
+            check(start == CKPT_PREEMPT, "attach resumed step %s, want %d"
+                  % (start, CKPT_PREEMPT))
+            same, worst_b = ckpt_equal(tc.state_tensors(), b_state)
+            check(same, "the restored state differs from run (b)'s after "
+                  "step %d by %g" % (CKPT_PREEMPT, worst_b))
+            check(np.array_equal(mx.random.get_key_data(), b_rng),
+                  "the restored random stream differs from run (b)'s")
+            c_losses = [float(tc.step([x], y))
+                        for _ in range(CKPT_PREEMPT, CKPT_STEPS)]
+        finally:
+            mc.uninstall_preemption_handler()
+        goodput.note_exit("clean", step=tc.global_step)
+        os.environ.pop("MXNET_GOODPUT_DIR")
+        check(b_losses + c_losses == ref_losses,
+              "losses preempted %s + resumed %s against the reference %s"
+              % (b_losses, c_losses, ref_losses))
+        same, worst_c = ckpt_equal(tc.state_tensors(), ref_state)
+        check(same, "the state after step %d differs from the reference's "
+              "by %g" % (CKPT_STEPS, worst_c))
+        del ref_state, b_state
+        # (g) a save's blocking snapshot and background write, and steps
+        # alone against steps with a save in flight
+        mt = ck.CheckpointManager(os.path.join(root, "timing"), keep_last=1,
+                                  async_save=True)
+        snap_ms, write_s, quiet_ms, busy_ms = [], [], [], []
+        for _ in range(CKPT_TIMED):
+            dt, _ = timed_s(lambda: tc.step([x], y))
+            quiet_ms.append(1e3 * dt)
+            dt, _ = timed_s(lambda: tc.save_checkpoint(mt))
+            snap_ms.append(1e3 * dt)
+            check(mt._thread is not None and mt._thread.is_alive(),
+                  "the save finished before the step it should overlap")
+            dt, _ = timed_s(lambda: tc.step([x], y))
+            busy_ms.append(1e3 * dt)
+            mt.wait()
+            write_s.append(mt.last_save_s)
+        # (d) corruption, and the goodput ledger
+        fallback_s = ckpt_corrupt(root, m_dir)
+        gp = ckpt_goodput(gp_dir)
+        # (e) a single-process sharded save
+        sharded_s = ckpt_sharded(root, tc)
+        tc.close()
+        del tc
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (f) the Module path
+        module_s, module_worst = ckpt_module(root)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+        if goodput.active():
+            goodput.note_exit("clean")
+        if prev_gp is None:
+            os.environ.pop("MXNET_GOODPUT_DIR", None)
+        else:
+            os.environ["MXNET_GOODPUT_DIR"] = prev_gp
+        shutil.rmtree(root, ignore_errors=True)
+    check(signal.getsignal(signal.SIGTERM) is prev_term,
+          "SIGTERM's handler was not restored")
+    check(signal.SIGTERM not in signal.pthread_sigmask(signal.SIG_BLOCK, []),
+          "SIGTERM is left blocked in the main thread")
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "the checkpoint path launched %s"
+          % launched)
+    print("checkpoint: resnet50_v1 bf16_mixed batch %d ShardedTrainer sgd lr "
+          "0.1 momentum 0.9, cuDNN deterministic | %.1f MB a checkpoint "
+          "(data + manifest) | blocking snapshot ms %s | background "
+          "serialise + digest + fsync s %s | load + restore %.3f s | "
+          "corrupt-latest fallback load %.3f s | sharded save %.3f s | step "
+          "ms alone %s, with a save in flight %s | run (b) step ms (save in "
+          "flight) %s | losses %s, preempted at %d and resumed bit-equal "
+          "(state, random stream, steps %d-%d) | goodput %.2f%% over %d "
+          "incarnations | Module resumed bit-equal at an epoch boundary "
+          "and, after SIGTERM at epoch 1 batch %d, from its partial flush, "
+          "in %.1f s (worst |diff| %g) | phase %.1f s | %s"
+          % (SHARDED_BATCH, ckpt_bytes / 1e6,
+             ["%.1f" % v for v in snap_ms], ["%.3f" % v for v in write_s],
+             load_s, fallback_s, sharded_s,
+             ["%.2f" % v for v in quiet_ms], ["%.2f" % v for v in busy_ms],
+             ["%.2f (%s)" % (ms, "yes" if busy else "no")
+              for ms, busy in b_steps],
+             ["%.4f" % v for v in ref_losses], CKPT_PREEMPT,
+             CKPT_PREEMPT + 1, CKPT_STEPS, gp["goodput_pct"] or 0.0,
+             gp["n_incarnations"], CKPT_MNIST_STOP, module_s, module_worst,
+             time.perf_counter() - t_phase, card), flush=True)
 
 
 # phase 14 (recurrent): the RNN op at the word LM's width, each mode on
@@ -7738,6 +8148,9 @@ def main():
     phase_remat(card)
     torch.cuda.empty_cache()
     lap("21")
+    phase_checkpoint(card)
+    torch.cuda.empty_cache()
+    lap("22")
     print("wall: the whole script %.1f s (by phase: %s) | %s"
           % (time.perf_counter() - t_start,
              ", ".join("%s %.1f" % lp for lp in laps), card), flush=True)

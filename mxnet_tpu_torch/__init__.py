@@ -57,7 +57,11 @@ Module), the persistent compile cache (``config.enable_compile_cache``,
 on at import unless ``MXNET_COMPILE_CACHE=0``), ``cpu_pinned`` and the
 small ``contrib`` modules (autograd, io, tensorboard, tensorrt,
 svrg_optimization, text), behind ``examples.fine_tune`` and
-``tools.im2rec``.
+``tools.im2rec``; and fault-tolerant checkpointing: ``CheckpointManager``
+(dense and sharded, digest-verified, async, preemption flush) behind
+``ShardedTrainer.attach_checkpoint_manager`` and
+``Module.fit(checkpoint_manager=)``, the fault-injection helpers of
+``testing.faults`` and the observability CLIs under ``tools``.
 """
 from .base import MXNetError  # noqa: F401
 from .context import (Context, cpu, gpu, cpu_pinned, current_context,  # noqa: F401
@@ -116,6 +120,8 @@ from . import profiler  # noqa: F401
 from . import telemetry  # noqa: F401  (MXNET_TELEMETRY enables at import)
 from . import tracing  # noqa: F401  (MXNET_TRACE / MXNET_FLIGHT_RECORDER)
 from . import events  # noqa: F401  (MXNET_EVENTS wide-event layer)
+from . import checkpoint  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 
 config.warn_unknown()
 if config.get("MXNET_PROFILER_AUTOSTART"):

@@ -107,6 +107,18 @@ FLAGS = {
     "MXNET_NONFINITE_POLICY": (
         "warn", str,
         "step guard for NaN/Inf losses: off|warn|skip|raise"),
+    "MXNET_CHECKPOINT_KEEP": (
+        "3", _pint, "CheckpointManager keep-last-N retention default"),
+    "MXNET_CHECKPOINT_ASYNC": (
+        "1", _pbool,
+        "CheckpointManager default save mode: snapshot to host, then "
+        "serialize/fsync in a background thread (wait() is the barrier)"),
+    "MXNET_CKPT_SHARDED": (
+        "0", _pbool,
+        "CheckpointManager default for sharded=: every process writes "
+        "only the chunks it owns (shard-<host>.npz + digest sidecar), "
+        "process 0 commits the global manifest last after the "
+        "cross-process durability barrier"),
     "MXNET_AOT": (
         "0", _pbool,
         "ahead-of-time executable store: not ported yet; a set value "
@@ -359,8 +371,15 @@ FLAGS = {
         "process count for the same rank identity (<=1: single-process)"),
     "MXNET_DIST_BARRIER_TIMEOUT": (
         "120", _pfloat,
-        "seconds FleetPublisher.attach's spool rendezvous waits for every "
-        "rank"),
+        "seconds FleetPublisher.attach's spool rendezvous, and a sharded "
+        "checkpoint save's durability barrier, wait for every rank's "
+        "file before giving up on a dead peer"),
+    "MXNET_DIST_PREEMPT_GATE": (
+        "1", _pint,
+        "coordinated preemption commit: step-boundaries of headroom "
+        "between the signalled process's committed step and the "
+        "pod-wide final-checkpoint step (bounds dispatch drift between "
+        "processes)"),
     "DMLC_ROLE": ("worker", str, "dist kvstore role"),
     "DMLC_PS_ROOT_URI": ("", str, "dist kvstore server host"),
     "DMLC_PS_ROOT_PORT": ("9091", _pint, "dist kvstore server port"),

@@ -807,9 +807,22 @@ def render_report(payload):
 # ---------------------------------------------------------------------------
 
 def _perf_ledger():
-    from . import perf_ledger
+    """perf_ledger.py: the package's module, or loaded by file path when
+    this module was (the goodputz and perf_report CLIs load it without
+    the package)."""
+    pl = sys.modules.get("mxnet_tpu_torch.perf_ledger")
+    if pl is not None:
+        return pl
+    import importlib.util
 
-    return perf_ledger
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perf_ledger.py")
+    spec = importlib.util.spec_from_file_location(
+        "mxnet_tpu_torch.perf_ledger", path)
+    pl = importlib.util.module_from_spec(spec)
+    sys.modules["mxnet_tpu_torch.perf_ledger"] = pl
+    spec.loader.exec_module(pl)
+    return pl
 
 
 def ledger_records(payload, run_id=None):

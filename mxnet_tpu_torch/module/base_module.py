@@ -7,8 +7,11 @@ host-side orchestration: the subclasses run compiled executors.
 ``fit`` reports as the JAX package's does: ``Module.fit.epoch`` and
 ``Module.fit.batch`` spans, the ``TRAIN_*`` and ``HOST_GAP_SECONDS``
 series under ``loop="module"``, ``TRAIN_EPOCHS``, and a flight-recorder
-bundle (``tracing.record_crash``) when it raises.  The JAX package's
-``checkpoint_manager`` (auto-resume, preemption flush) is not ported.
+bundle (``tracing.record_crash``) when it raises.  ``fit(...,
+checkpoint_manager=)`` auto-resumes from the newest intact checkpoint,
+saves every ``checkpoint_period`` epochs and flushes a final checkpoint
+on SIGTERM/SIGINT (``checkpoint.module_payload``, with the optimizer
+state's bytes as a blob).
 """
 from __future__ import annotations
 
@@ -173,7 +176,8 @@ class BaseModule:
     # Training
     # ------------------------------------------------------------------
     def _fit_epoch(self, train_data, epoch, eval_metric, batch_end_callback,
-                   monitor, sparse_row_id_fn, on_nonfinite="off"):
+                   monitor, sparse_row_id_fn, on_nonfinite="off",
+                   checkpoint_manager=None):
         """One pass over ``train_data``; returns final metric pairs.
 
         The next batch is pulled only AFTER forward_backward/update on the
@@ -183,7 +187,9 @@ class BaseModule:
         ``on_nonfinite`` guards each step: under ``"skip"`` a batch whose
         outputs contain NaN/Inf is discarded BEFORE update() so params
         and optimizer state keep their previous values; ``"warn"``
-        reports and proceeds, ``"raise"`` aborts.
+        reports and proceeds, ``"raise"`` aborts.  When
+        ``checkpoint_manager.preempted`` flips (SIGTERM flush), the
+        epoch exits at the next batch boundary.
         """
         final_pairs = []
         it = iter(train_data)
@@ -196,6 +202,11 @@ class BaseModule:
         tr_on = _tracing.enabled()
         prev_dispatch_end = None
         while batch is not None:
+            if checkpoint_manager is not None and \
+                    checkpoint_manager.preempted:
+                self.logger.warning("Epoch[%d] preempted at batch %d; "
+                                    "leaving epoch loop", epoch, nbatch)
+                break
             sp = _tracing.begin("Module.fit.batch",
                                 args={"epoch": epoch, "batch": nbatch}) \
                 if tr_on else None
@@ -264,16 +275,54 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, sparse_row_id_fn=None, on_nonfinite=None):
+            monitor=None, sparse_row_id_fn=None, on_nonfinite=None,
+            checkpoint_manager=None, checkpoint_period=1):
         """Train over ``train_data`` for ``num_epoch`` epochs (parity:
         base_module.py:409 — same knobs, callback firing points and
-        logging).  ``on_nonfinite``: the NaN/Inf step-guard policy
-        (off/warn/skip/raise; None = MXNET_NONFINITE_POLICY)."""
+        logging; mxnet_tpu/module/base_module.py:279-428).
+
+        * ``on_nonfinite``: the NaN/Inf step-guard policy
+          (off/warn/skip/raise; None = MXNET_NONFINITE_POLICY).
+        * ``checkpoint_manager``: a CheckpointManager — fit auto-resumes
+          from the newest intact checkpoint (params, optimizer state,
+          epoch; corrupt checkpoints are skipped with a loud warning),
+          saves every ``checkpoint_period`` epochs, installs a
+          SIGTERM/SIGINT handler that flushes a final checkpoint, and
+          exits the epoch loop cleanly once preempted.
+        """
         assert num_epoch is not None, "please specify number of epochs"
         on_nonfinite = _ckpt.nonfinite_policy(on_nonfinite)
         if initializer is None:
             from .. import initializer as _init
             initializer = _init.Uniform(0.01)
+
+        resume_opt_states = None
+        if checkpoint_manager is not None:
+            ckpt = checkpoint_manager.load()
+            if ckpt is not None and ckpt.meta.get("kind") != "module":
+                raise ValueError(
+                    "checkpoint step %d in %r was not written by "
+                    "Module.fit (kind=%r) — use a separate checkpoint "
+                    "directory per training front-end"
+                    % (ckpt.step, checkpoint_manager.directory,
+                       ckpt.meta.get("kind")))
+            if ckpt is not None:
+                epoch_done, _, _, resume_opt_states = \
+                    _ckpt.split_module_payload(ckpt)
+                arg_params, aux_params = {}, {}
+                for k in ckpt.arrays:
+                    for prefix, dst in (("arg:", arg_params),
+                                        ("aux:", aux_params)):
+                        if k.startswith(prefix):
+                            dst[k[len(prefix):]] = ndarray.NDArray(
+                                ckpt.tensor(k))
+                begin_epoch = max(begin_epoch, epoch_done + 1)
+                force_init = True
+                allow_missing = False
+                self.logger.info(
+                    "auto-resume from checkpoint step %d -> begin_epoch %d",
+                    ckpt.step, begin_epoch)
+                _telemetry.TRAIN_RESUMES.inc()
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -285,14 +334,39 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_opt_states is not None and \
+                hasattr(self, "set_optimizer_states_bytes"):
+            self.set_optimizer_states_bytes(resume_opt_states)
 
         eval_metric = _coerce_metric(eval_metric)
         if validation_metric is None:
             validation_metric = eval_metric
 
+        def _ckpt_state():
+            # preemption-flush snapshot: mid-epoch params saved under the
+            # current epoch's step index with meta epoch = the last
+            # completed epoch, so resume re-enters the interrupted epoch
+            # from the flushed params
+            arg_p, aux_p = self.get_params()
+            opt = self.get_optimizer_states_bytes() \
+                if hasattr(self, "get_optimizer_states_bytes") and \
+                self.optimizer_initialized else None
+            ep = self._fit_current_epoch
+            _, arrays, blobs, meta = _ckpt.module_payload(
+                ep - 1, arg_p, aux_p, opt_states=opt,
+                meta={"partial": True})
+            return max(ep, 0), arrays, blobs, meta
+
+        self._fit_current_epoch = begin_epoch
+        if checkpoint_manager is not None:
+            checkpoint_manager.install_preemption_handler(_ckpt_state)
         outer_span = _tracing.current_span()
         try:
             for epoch in range(begin_epoch, num_epoch):
+                self._fit_current_epoch = epoch
+                if checkpoint_manager is not None and \
+                        checkpoint_manager.preempted:
+                    break
                 start = time.time()
                 sp = _tracing.begin("Module.fit.epoch",
                                     args={"epoch": epoch}) \
@@ -300,7 +374,8 @@ class BaseModule:
                 eval_metric.reset()
                 train_pairs = self._fit_epoch(
                     train_data, epoch, eval_metric, batch_end_callback,
-                    monitor, sparse_row_id_fn, on_nonfinite=on_nonfinite)
+                    monitor, sparse_row_id_fn, on_nonfinite=on_nonfinite,
+                    checkpoint_manager=checkpoint_manager)
                 for name, val in train_pairs:
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
@@ -310,6 +385,16 @@ class BaseModule:
 
                 arg_params, aux_params = self.get_params()
                 self.set_params(arg_params, aux_params)
+                if checkpoint_manager is not None and \
+                        not checkpoint_manager.preempted and \
+                        (epoch + 1 - begin_epoch) % checkpoint_period == 0:
+                    opt = self.get_optimizer_states_bytes() \
+                        if hasattr(self, "get_optimizer_states_bytes") \
+                        else None
+                    step, arrays, blobs, meta = _ckpt.module_payload(
+                        epoch, arg_params, aux_params, opt_states=opt)
+                    checkpoint_manager.save(step, arrays, blobs=blobs,
+                                            meta=meta)
                 if epoch_end_callback is not None:
                     for cb in _as_list(epoch_end_callback):
                         cb(epoch, self.symbol, arg_params, aux_params)
@@ -337,6 +422,10 @@ class BaseModule:
             # span recorded after a caught-and-retried fit
             _tracing.unwind_to(outer_span)
             raise
+        finally:
+            if checkpoint_manager is not None:
+                checkpoint_manager.wait()
+                checkpoint_manager.uninstall_preemption_handler()
 
     # ------------------------------------------------------------------
     # Parameter persistence

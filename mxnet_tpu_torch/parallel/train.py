@@ -34,16 +34,34 @@ kernels are deterministic (the CPU; cuDNN's default backward algorithms
 on the card need not be).  ``remat_policy`` (else ``MXNET_REMAT_POLICY``)
 recomputes activations in the backward (``remat.py``): each child of the
 net's outermost sequential container is one eager checkpoint region.
-The mesh, layouts, AOT and checkpoint arguments of the JAX trainer are
-not ported yet.
+The mesh, layouts and AOT arguments of the JAX trainer are not ported
+yet.
+
+Fault tolerance is the JAX trainer's (mxnet_tpu/parallel/train.py:
+1457-1817): :meth:`ShardedTrainer.attach_checkpoint_manager` resumes from
+the newest intact checkpoint, saves every ``period`` steps and installs
+a SIGTERM/SIGINT handler that flushes the last committed state.  Each
+dispatch publishes that state in one assignment (parameter and
+optimizer buffers, step and the random stream's snapshot), with the
+manager's handlers held across the step and the commit, so a flush never
+sees tensors of two different steps.  A checkpoint holds the arrays
+``param:NNNN`` (each parameter, in ``collect_params`` order),
+``opt:NNNN`` (the optimizer state's leaves in the JAX trainer's order:
+dict keys sorted, so Adam's ``m``, ``t``, ``v``, then the loss-scale
+vector) and ``rng``, with the JAX trainer's meta, so a JAX trainer's
+checkpoint restores here (its PRNG key is recognised by its dtype and
+shape and left alone, with a warning).
 
 The observability producers are the JAX trainer's: the spans
 ``ShardedTrainer.step`` / ``.step_many`` / ``step:dispatch`` /
 ``step:fetch``, ``tracing.record_crash`` on an exception, the ``TRAIN_*``,
 ``HOST_GAP_SECONDS``, ``LOSS_SCALE`` and memory series, one
 ``train_step`` wide event a dispatch window, the goodput ledger's
-``productive_step`` segments (a recorder begins at the first step when
-``MXNET_GOODPUT_DIR`` is set) and :meth:`ShardedTrainer.step_breakdown`.
+``productive_step`` segments (a recorder begins at
+``attach_checkpoint_manager`` when ``MXNET_GOODPUT_DIR`` is set), the
+``CHECKPOINT_*`` series and ``ckpt_save`` / ``ckpt_restore`` segments
+through the manager, ``TRAIN_RESUMES`` and
+:meth:`ShardedTrainer.step_breakdown`.
 ``TRAIN_LOSS`` comes from the flushed accumulator (under async metrics
 the last completed background fetch), never from a device read on the
 dispatch path.  The step's FLOPs (``TRAIN_STEP_FLOPS``, ``TRAIN_MFU``)
@@ -53,12 +71,14 @@ measured.
 """
 from __future__ import annotations
 
+import logging as _logging
 import queue as _queue
 import sys as _sys
 from contextlib import nullcontext
 import threading as _threading
 import time as _time
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
@@ -68,10 +88,11 @@ from .. import config as _config
 from .. import dtype_policy as _dtp
 from .. import events as _events
 from .. import fusion_cost as _fc
+from .. import random as _random
 from .. import remat as _remat
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
-from ..checkpoint import check_finite, nonfinite_policy
+from ..checkpoint import _process_info, check_finite, nonfinite_policy
 from ..gluon import block as _block_mod
 from ..gluon.parameter import DeferredInitializationError
 
@@ -368,6 +389,13 @@ class ShardedTrainer:
         self._step_flops = None  # one-time FlopCounterMode count
         self._cast_bytes = 0
         self._gp_compile0 = None
+        # fault tolerance: the last committed (train buffers, fixed
+        # buffers, optimizer state, step, random-stream snapshot), the
+        # attached manager and a restore waiting for deferred shapes
+        self._committed = None
+        self._ckpt_manager = None
+        self._ckpt_period = 0
+        self._pending_restore = None
         self._params = list(net.collect_params().values())
         if not self._params:
             raise MXNetError("ShardedTrainer: the net has no parameters")
@@ -455,6 +483,10 @@ class ShardedTrainer:
                               "loss_scale": _dtp.init_loss_scale(
                                   self._ls_cfg, device=self._device)}
         self._metrics_acc = self._fresh_metrics()
+        if self._pending_restore is not None:
+            # a checkpoint attached before the shapes were known
+            ckpt, self._pending_restore = self._pending_restore, None
+            self._apply_restore(ckpt)
         if _telemetry.enabled():
             _telemetry.TRAIN_STATE_BYTES.set(
                 sum(t.numel() * t.element_size()
@@ -489,6 +521,17 @@ class ShardedTrainer:
         stats included), optimizer state and loss-scale state."""
         return list(self._train_bufs) + list(self._fixed_bufs) + \
             _leaves(self.opt_state)
+
+    @property
+    def mesh_shape(self):
+        """``{axis: size}`` of the trainer's mesh: ``{}``, one card (the
+        checkpoint manifest's topology record)."""
+        return {}
+
+    @property
+    def layout_name(self):
+        """Name of the parameter layout: None, one card."""
+        return None
 
     @property
     def dtype_policy(self):
@@ -776,6 +819,28 @@ class ShardedTrainer:
             _telemetry.HOST_GAP_SECONDS.observe(
                 max(0.0, t_step0 - self._last_dispatch_end),
                 loop="sharded")
+        # With a checkpoint manager attached, it holds its SIGTERM/SIGINT
+        # handlers across the steps and the commit (the JAX trainer masks
+        # the signals there; a mask in the main thread would not hold a
+        # signal the kernel hands to one of torch's threads, and threads
+        # made inside would inherit it): the flush runs after the
+        # commit, on the new snapshot.  The snapshot is one tuple
+        # assigned at once, so even a flush inside would write one
+        # step's state whole.
+        m = self._ckpt_manager
+        with m.hold_signals() if m is not None else nullcontext():
+            losses = self._dispatch(batches, n)
+        self._flush_metrics(self.global_step)
+        self._account(t_step0, n, batches[0][0], batches[0][1], gp)
+        # coordinated commit before the periodic check: when it fires it
+        # sets manager.preempted, which the periodic save honours, so the
+        # final checkpoint is written once
+        self._maybe_coordinated_commit(self.global_step, n)
+        self._maybe_periodic_checkpoint(self.global_step, n)
+        return losses
+
+    def _dispatch(self, batches, n):
+        """The steps and the commit; returns the steps' losses."""
         span_args = {"step": self.global_step + 1}
         if n > 1:
             span_args["k"] = n
@@ -791,30 +856,30 @@ class ShardedTrainer:
         finally:
             if dsp is not None:
                 dsp.end()
+        next_step = self.global_step + n
+        if self._ckpt_manager is not None:
+            # single-assignment snapshot: the handler may fire
+            # between any two bytecodes and must never see params of
+            # step N beside optimizer state of step N-1.  The step
+            # builds every tensor anew, so the snapshot's tensors
+            # stay as they are; the random stream rides along, since
+            # reading it at flush time would leak draws of a step
+            # that never committed
+            self._committed = (state[0], state[1], state[2], next_step,
+                               _random.get_key_data())
         (self._train_bufs, self._fixed_bufs, self.opt_state,
          self._metrics_acc) = state
-        self.global_step += n
+        self.global_step = next_step
         self._metrics_pending += n
-        self._flush_metrics(self.global_step)
-        self._account(t_step0, n, batches[0][0], batches[0][1], gp)
         return losses
 
-    def _goodput(self):
-        """The goodput module while a recorder is live, else None; the
-        first step with ``MXNET_GOODPUT_DIR`` set begins one (the JAX
-        trainer begins it at ``attach_checkpoint_manager``, which the
-        port has not yet)."""
+    @staticmethod
+    def _goodput():
+        """The goodput module while a recorder is live, else None (one
+        begins at :meth:`attach_checkpoint_manager` under
+        ``MXNET_GOODPUT_DIR``)."""
         gp = _sys.modules.get("mxnet_tpu_torch.goodput")
-        if gp is not None and gp.active():
-            return gp
-        if self.global_step or not _config.get("MXNET_GOODPUT_DIR"):
-            return None
-        from .. import goodput as gp
-
-        if not gp.active():
-            gp.GoodputRecorder(_config.get("MXNET_GOODPUT_DIR")).begin(
-                start_reason="fresh")
-        return gp if gp.active() else None
+        return gp if gp is not None and gp.active() else None
 
     def _account(self, t_step0, n, raw_in, raw_label, gp):
         """Post-dispatch telemetry for a call covering ``n`` steps.  Under
@@ -874,8 +939,8 @@ class ShardedTrainer:
         """One-time FLOP count of a single step (forward, backward and
         update) by ``torch.utils.flop_counter.FlopCounterMode``, over a
         throwaway step from the current state whose results are
-        dropped (the RNG is forked, so the training stream is
-        untouched).  Feeds the MFU gauge and ``profiler``'s cost table.
+        dropped (the framework's random stream is saved and restored
+        around it, so the training stream is untouched).  Feeds the MFU gauge and ``profiler``'s cost table.
         Best-effort: a failed count leaves the gauges unset."""
         if self._step_flops is not None:
             return
@@ -885,10 +950,12 @@ class ShardedTrainer:
 
             state = (self._train_bufs, self._fixed_bufs, self.opt_state,
                      self._fresh_metrics())
-            devices = [self._device] if self._device.type == "cuda" else []
-            with torch.random.fork_rng(devices=devices), \
-                    FlopCounterMode(display=False) as counter:
-                self._step_core(state, raw_in, raw_label)
+            stream = _random.get_key_data()
+            try:
+                with FlopCounterMode(display=False) as counter:
+                    self._step_core(state, raw_in, raw_label)
+            finally:
+                _random.set_key_data(stream)
             flops = float(counter.get_total_flops())
             if flops > 0:
                 from .. import profiler as _profiler
@@ -898,6 +965,298 @@ class ShardedTrainer:
                 self._step_flops = flops
         except Exception:
             pass  # the count is best-effort; never fail a step
+
+    # -- fault tolerance ---------------------------------------------------
+    def _maybe_periodic_checkpoint(self, next_step, n):
+        """Periodic save, K-step aware: fires when the call crossed a
+        period boundary (a K-step call saves once, at its end)."""
+        m = self._ckpt_manager
+        if m is not None and self._ckpt_period and not m.preempted and \
+                (next_step // self._ckpt_period) > \
+                ((next_step - n) // self._ckpt_period):
+            if self._async and self._on_nonfinite == "raise":
+                # a parked NonfiniteError must abort before the save:
+                # under "raise" the poisoned update was applied, and
+                # persisting it as the newest checkpoint would hand
+                # auto-resume NaN state
+                self.drain()
+            self.save_checkpoint(m, step=next_step)
+
+    def _maybe_coordinated_commit(self, step, n, force=False):
+        """Poll the coordinated-preemption flag at a step boundary.
+
+        Under sharded multi-process checkpointing a SIGTERM on any
+        process publishes a target step through an atomic flag file in
+        the shared checkpoint directory instead of saving.  The final
+        commit rides the first periodic boundary at or past the target
+        (every process passes each one, in order, through the shard
+        barrier), so every process picks the same final step.  With no
+        periodic cadence (``period=0``) every boundary qualifies; then
+        ``MXNET_DIST_PREEMPT_GATE`` must exceed the processes' step
+        drift.
+
+        Returns True while a request is pending or was just committed
+        (training loops should exit when ``manager.preempted``)."""
+        m = self._ckpt_manager
+        if m is None or m.preempted or not getattr(m, "sharded", False):
+            return False
+        req = m.coordinated_commit_request()
+        if req is None:
+            return False
+        if not force:
+            if step < int(req.get("target_step", step)):
+                return True  # flag seen; commit at the gated boundary
+            P = self._ckpt_period
+            if P and (step // P) <= ((step - n) // P):
+                return True  # wait for the next pod-wide sync point
+        if self._async and self._on_nonfinite == "raise":
+            self.drain()  # the poisoned-save hazard of periodic saves
+        payload = self._checkpoint_payload()
+        if payload is None:
+            return True
+        s, arrays, blobs, meta = payload
+        meta = dict(meta)
+        meta["preempted"] = True
+        meta["coordinated"] = True
+        m.save(s, arrays, blobs=blobs, meta=meta, block=True)
+        m.preempted = True
+        m.clear_coordinated_commit()
+        gp = _sys.modules.get("mxnet_tpu_torch.goodput")
+        if gp is not None:
+            # the coordinated-commit exit: everything up to the
+            # committed step is goodput, nothing is lost work
+            gp.note_exit("preempt", step=s)
+        return True
+
+    def check_preemption(self, force=False):
+        """Public poll for loops that pace themselves (e.g. between
+        epochs).  ``force=True`` commits at the current step even off
+        the periodic cadence or below the gated target — the
+        end-of-data backstop, where every process sits at the same final
+        step by construction."""
+        return self._maybe_coordinated_commit(self.global_step, 0,
+                                              force=force)
+
+    def attach_checkpoint_manager(self, manager, period=0,
+                                  auto_resume=True,
+                                  install_signal_handler=True):
+        """Wire a :class:`~mxnet_tpu_torch.checkpoint.CheckpointManager`
+        into the step loop (parity: mxnet_tpu/parallel/train.py:1566).
+
+        * ``auto_resume``: load the newest *intact* checkpoint (params,
+          optimizer state, random stream, global_step) if one exists —
+          corrupt ones are skipped with a loud warning.  With the
+          random stream restored, the resumed loss trajectory is bit
+          for bit that of an uninterrupted run (where the kernels are
+          deterministic).
+        * ``period``: save every N steps (async per the manager's
+          config); 0 = only explicit and preemption saves.
+        * ``install_signal_handler``: SIGTERM/SIGINT flush a final
+          checkpoint from the last committed step and set
+          ``manager.preempted`` so the training loop can exit.
+
+        Under ``MXNET_GOODPUT_DIR`` this is where the process's goodput
+        recorder begins, with the resume provenance.  Returns the
+        resumed ``global_step`` (0 for a fresh start)."""
+        self._ckpt_manager = manager
+        self._ckpt_period = int(period)
+        if getattr(manager, "sharded", False) and \
+                manager._procinfo()[0] == 0:
+            # attach is the one moment no peer can be mid-save (workers
+            # attach before their first step): process 0 alone clears
+            # aborted-save debris and any stale preemption flag
+            manager.sweep_orphans()
+        resumed = False
+        t_load0 = _time.perf_counter()
+        if auto_resume:
+            ckpt = manager.load(
+                restrict=self._elastic_restrict(manager),
+                context={"mesh_axes": self.mesh_shape,
+                         "layout": self.layout_name})
+            if ckpt is not None:
+                self.restore_checkpoint(ckpt)
+                resumed = True
+                _telemetry.TRAIN_RESUMES.inc()
+                if getattr(ckpt, "resharded", False) and \
+                        getattr(ckpt, "sharded", False):
+                    _telemetry.ELASTIC_RESUMES.inc()
+        load_s = _time.perf_counter() - t_load0
+        gdir = str(_config.get("MXNET_GOODPUT_DIR") or "")
+        if gdir:
+            # attach is the incarnation boundary: one recorder per
+            # process, begun with the resume provenance the lost-work
+            # rule prices against.  The restore above ran before the
+            # recorder existed, so its wall is recorded here
+            from .. import goodput as _goodput
+
+            if not _goodput.active():
+                rec = _goodput.GoodputRecorder(gdir).begin(
+                    start_reason="resume" if resumed else "fresh",
+                    resumed_from_step=self.global_step if resumed
+                    else None)
+                if resumed:
+                    rec.segment("ckpt_restore", load_s,
+                                step=self.global_step)
+        if install_signal_handler:
+            gate = max(1, int(_config.get("MXNET_DIST_PREEMPT_GATE"))) \
+                * max(1, self.steps_per_call)
+            manager.install_preemption_handler(self._checkpoint_payload,
+                                               gate=gate)
+        return self.global_step
+
+    def _elastic_restrict(self, manager):
+        """Bounds map of this process's blocks for a restricted sharded
+        restore (parity: mxnet_tpu/parallel/train.py:1637).  None (=
+        load everything): the trainer's tensors are whole on its one
+        card, with a dense manager or a sharded one, on any number of
+        processes."""
+        return None
+
+    def _opt_leaves(self, opt_state):
+        """The optimizer state's leaves in the JAX trainer's
+        ``tree_leaves`` order: dict keys sorted, each list of flat
+        buffers split into one tensor a trainable parameter."""
+        out = []
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    walk(tree[k])
+            elif isinstance(tree, (list, tuple)):
+                out.extend(self._train_flat.unpack(list(tree)))
+            elif tree is not None:
+                out.append(tree)
+
+        walk(opt_state)
+        return out
+
+    def _checkpoint_payload(self, step=None):
+        """(step, arrays, blobs, meta) from the last committed snapshot
+        (or the live state when nothing was committed since attach)."""
+        if self._committed is not None:
+            train_bufs, fixed_bufs, opt_state, gstep, key_data = \
+                self._committed
+        elif self._train_bufs is not None:
+            train_bufs, fixed_bufs, opt_state, gstep, key_data = (
+                self._train_bufs, self._fixed_bufs, self.opt_state,
+                self.global_step, _random.get_key_data())
+        else:
+            return None  # nothing initialized yet: nothing to flush
+        arrays = {}
+        # index-keyed: gluon auto-names depend on process-global
+        # counters; the meta keeps the names for debugging
+        for i, a in enumerate(self._views(train_bufs, fixed_bufs)):
+            arrays["param:%04d" % i] = a
+        for i, leaf in enumerate(self._opt_leaves(opt_state)):
+            arrays["opt:%04d" % i] = leaf
+        arrays["rng"] = key_data
+        meta = {"kind": "sharded_trainer", "step": int(gstep),
+                "optimizer": self._opt_name,
+                "param_names": [p.name for p in self._params],
+                "mesh_axes": self.mesh_shape,
+                "layout": self.layout_name,
+                "n_processes": _process_info()[1],
+                # the precision recipe the state was trained under (the
+                # loss-scale leaf rides the opt:* arrays when active)
+                "dtype_policy": self.dtype_policy_tag}
+        return (int(gstep) if step is None else int(step)), arrays, {}, meta
+
+    def save_checkpoint(self, manager, step=None, block=None):
+        """Snapshot params, optimizer state and the random stream to
+        ``manager`` (async by default; ``manager.wait()`` is the
+        barrier).  Returns the step saved."""
+        payload = self._checkpoint_payload(step)
+        if payload is None:
+            raise MXNetError("ShardedTrainer has no state to checkpoint "
+                             "yet (run a step or initialize params first)")
+        s, arrays, blobs, meta = payload
+        manager.save(s, arrays, blobs=blobs, meta=meta, block=block)
+        return s
+
+    def restore_checkpoint(self, ckpt):
+        """Restore from a loaded :class:`~mxnet_tpu_torch.checkpoint.
+        Checkpoint` (params, optimizer state, random stream,
+        global_step), onto the trainer's device.  With deferred-shape
+        params the restore is applied when shapes materialize on the
+        first step."""
+        if ckpt.meta.get("kind") != "sharded_trainer":
+            raise MXNetError("checkpoint step %d was not written by "
+                             "ShardedTrainer (kind=%r)"
+                             % (ckpt.step, ckpt.meta.get("kind")))
+        self.global_step = int(ckpt.meta.get("step", ckpt.step))
+        self._committed = None
+        if self._train_bufs is None:
+            # the random stream is restored with the rest, after the
+            # deferred initialization's own draws
+            self._pending_restore = ckpt
+            return
+        self._apply_restore(ckpt)
+
+    def _apply_restore(self, ckpt):
+        if "rng" in ckpt.arrays:
+            rng = np.asarray(ckpt.arrays["rng"])
+            if rng.dtype == np.uint32 and rng.ndim == 1:
+                # a JAX PRNG key: it cannot seed a torch.Generator
+                _logging.getLogger("mxnet_tpu_torch.parallel").warning(
+                    "checkpoint step %d carries a JAX PRNG key %s; the "
+                    "random stream is not restored", ckpt.step,
+                    tuple(rng.shape))
+            else:
+                _random.set_key_data(rng)
+        saved_axes = ckpt.meta.get("mesh_axes")
+        if saved_axes is not None and (
+                dict(saved_axes) != self.mesh_shape
+                or ckpt.meta.get("layout") != self.layout_name):
+            _logging.getLogger("mxnet_tpu_torch.parallel").info(
+                "resharding checkpoint step %d: saved mesh=%s layout=%r "
+                "-> restoring on one card", ckpt.step, saved_axes,
+                ckpt.meta.get("layout"))
+            _telemetry.CHECKPOINT_RESHARDS.inc()
+        views = self.param_arrays
+        n_ckpt = sum(1 for k in ckpt.arrays if k.startswith("param:"))
+        if n_ckpt != len(views):
+            raise MXNetError(
+                "checkpoint step %d holds %d params, model has %d — was "
+                "it written by a different model? (checkpoint names: %s)"
+                % (ckpt.step, n_ckpt, len(views),
+                   ckpt.meta.get("param_names")))
+
+        def placed(key, old, what):
+            val = ckpt.tensor(key)
+            if tuple(val.shape) != tuple(old.shape):
+                raise MXNetError(
+                    "checkpoint step %d: %r (%s) shape %s != model shape "
+                    "%s" % (ckpt.step, key, what, tuple(val.shape),
+                            tuple(old.shape)))
+            return val.to(device=old.device, dtype=old.dtype)
+
+        vals = [placed("param:%04d" % i, old, p.name)
+                for i, (p, old) in enumerate(zip(self._params, views))]
+        leaves = self._opt_leaves(self.opt_state)
+        for i in range(len(leaves)):
+            if "opt:%04d" % i not in ckpt.arrays:
+                raise MXNetError(
+                    "checkpoint step %d is missing optimizer leaf %r "
+                    "(optimizer %r vs checkpoint %r)"
+                    % (ckpt.step, "opt:%04d" % i, self._opt_name,
+                       ckpt.meta.get("optimizer")))
+        it = iter(placed("opt:%04d" % i, old, "optimizer state")
+                  for i, old in enumerate(leaves))
+        n_train = len(self._train_idx)
+
+        def rebuild(tree):
+            if isinstance(tree, dict):
+                return {k: rebuild(tree[k]) for k in sorted(tree)}
+            if isinstance(tree, (list, tuple)):
+                return self._train_flat.pack([next(it)
+                                              for _ in range(n_train)])
+            return None if tree is None else next(it)
+
+        self.opt_state = rebuild(self.opt_state)
+        self._train_bufs = self._train_flat.pack(
+            [vals[i] for i in self._train_idx])
+        self._fixed_bufs = self._fixed_flat.pack(
+            [vals[i] for i in self._fixed_idx])
 
     # -- metric flush / drain boundaries -----------------------------------
     def _flush_metrics(self, step, force=False):

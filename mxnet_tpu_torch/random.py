@@ -8,15 +8,26 @@ generator of the device they write to, never from torch's global default
 generator.  The samplers return NDArrays on ``ctx`` (default: the
 current context, ``gpu(0)``).  ``host_rng`` is a numpy ``RandomState``
 seeded by ``seed`` too, for the host-side samplers (the DGL graph ops).
+
+``get_key_data`` / ``set_key_data`` (parity: mxnet_tpu/random.py:84-105)
+snapshot and restore the whole stream as one uint8 numpy array: every
+device generator ``generator`` made, the host ``RandomState`` and torch's
+default generators (which a compiled graph draws from).  A checkpoint
+carries it as the trainer's ``"rng"`` array, so a resumed run draws the
+same numbers as one that was never stopped.  JAX's key (two uint32
+words) is a different thing and is refused here.
 """
 from __future__ import annotations
 
+import json
 import threading
+import warnings
 
 import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "next_key", "host_rng", "uniform", "normal",
+__all__ = ["seed", "generator", "next_key", "host_rng", "get_key_data",
+           "set_key_data", "uniform", "normal",
            "randint", "randn", "exponential", "gamma", "poisson",
            "negative_binomial", "generalized_negative_binomial", "shuffle",
            "multinomial"]
@@ -82,6 +93,124 @@ def next_key(device):
     it draws, so the stream's next key is the device's generator itself.
     Draws are reproducible under ``seed``, not equal to JAX's."""
     return generator(device)
+
+
+# ---- checkpointable snapshot of the stream ------------------------------
+
+_KEY_MAGIC = b"MXTRNG01"
+
+
+def _device_name(key):
+    kind, index = key
+    return kind if kind == "cpu" else "%s:%d" % (kind, index)
+
+
+def _default_states():
+    """torch's default generators: the CPU's, and each CUDA device's
+    once CUDA is initialized (reading them initializes nothing)."""
+    out = [("cpu", torch.random.default_generator.get_state())]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            out.append(("cuda:%d" % i, torch.cuda.get_rng_state(i)))
+    return out
+
+
+def get_key_data():
+    """The framework's random stream as one uint8 numpy array (parity:
+    mxnet_tpu/random.py ``get_key_data``): the seed, every device
+    generator made so far, the host ``RandomState`` and torch's default
+    generators.  :func:`set_key_data` of it resumes every draw sequence
+    exactly."""
+    st = _st()
+    head = {"seed": int(st.seed),
+            "np_seed": int(getattr(st, "np_seed", 0)),
+            "gens": [], "default": [], "host": None}
+    parts = []
+
+    def add(state):
+        raw = state.cpu().numpy().tobytes()
+        parts.append(raw)
+        return len(raw)
+
+    for key, gen in sorted(st.gens.items()):
+        head["gens"].append({"device": _device_name(key),
+                             "n": add(gen.get_state())})
+    for dev, state in _default_states():
+        head["default"].append({"device": dev, "n": add(state)})
+    rng = getattr(st, "np_rng", None)
+    if rng is not None:
+        name, keys, pos, has_gauss, cached = rng.get_state()
+        raw = np.ascontiguousarray(keys, dtype=np.uint32).tobytes()
+        parts.append(raw)
+        head["host"] = {"name": name, "n": len(raw), "pos": int(pos),
+                        "has_gauss": int(has_gauss),
+                        "cached": float(cached)}
+    hb = json.dumps(head, sort_keys=True).encode()
+    blob = _KEY_MAGIC + len(hb).to_bytes(4, "little") + hb + b"".join(parts)
+    return np.frombuffer(blob, np.uint8).copy()
+
+
+def _unpack(data):
+    data = np.asarray(data)
+    if data.dtype != np.uint8 or data.ndim != 1 or \
+            data[:len(_KEY_MAGIC)].tobytes() != _KEY_MAGIC:
+        raise ValueError(
+            "not a mxnet_tpu_torch random-stream snapshot (dtype %s, shape "
+            "%s); a JAX PRNG key cannot seed torch generators"
+            % (data.dtype, data.shape))
+    raw = data.tobytes()
+    at = len(_KEY_MAGIC)
+    n = int.from_bytes(raw[at:at + 4], "little")
+    head = json.loads(raw[at + 4:at + 4 + n].decode())
+    return head, raw, at + 4 + n
+
+
+def set_key_data(data):
+    """Restore the stream from :func:`get_key_data`'s array (parity:
+    mxnet_tpu/random.py ``set_key_data``).  A generator of a device this
+    process cannot reach is skipped with a warning."""
+    head, raw, at = _unpack(data)
+    chunks = []
+    for entry in head["gens"] + head["default"]:
+        chunks.append(torch.frombuffer(bytearray(raw[at:at + entry["n"]]),
+                                       dtype=torch.uint8))
+        at += entry["n"]
+    host = head.get("host")
+    host_keys = None
+    if host is not None:
+        host_keys = np.frombuffer(raw[at:at + host["n"]], np.uint32).copy()
+    st = _st()
+    st.seed = int(head["seed"])
+    st.np_seed = int(head["np_seed"])
+    gens = {}
+    it = iter(chunks)
+    for entry in head["gens"]:
+        state = next(it)
+        device = torch.device(entry["device"])
+        if device.type == "cuda" and not torch.cuda.is_available():
+            warnings.warn("random stream: the snapshot's generator of %s is "
+                          "not restored (no such device here)"
+                          % entry["device"], stacklevel=2)
+            continue
+        gen = torch.Generator(device=device)
+        gen.set_state(state)
+        gens[_key(device)[1]] = gen
+    st.gens = gens
+    for entry in head["default"]:
+        state = next(it)
+        if entry["device"] == "cpu":
+            torch.random.default_generator.set_state(state)
+        elif torch.cuda.is_available() and \
+                torch.device(entry["device"]).index < \
+                torch.cuda.device_count():
+            torch.cuda.set_rng_state(state, entry["device"])
+    if host is None:
+        st.np_rng = None     # made from np_seed at its first use
+    else:
+        rng = np.random.RandomState()
+        rng.set_state((host["name"], host_keys, host["pos"],
+                       host["has_gauss"], host["cached"]))
+        st.np_rng = rng
 
 
 # ---- samplers returning NDArrays (parity: mxnet_tpu/random.py:110-159) ----

@@ -20,7 +20,6 @@ EXCLUDED = {
         "tpu": "names a device this card is not",
         "num_tpus": "names a device this card is not",
         "MXTpuError": "the TPU spelling of MXNetError",
-        "CheckpointManager": "the sharded checkpoint (ROADMAP item 8)",
         "operator": "Custom operators (ROADMAP item 9)",
         "rtc": "runtime compilation (ROADMAP item 9)",
     },

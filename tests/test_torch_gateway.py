@@ -217,8 +217,18 @@ def _sse_frames(raw):
             if part.startswith(b"data: ")]
 
 
-def _gw_events():
-    return [e for e in events.recent() if e["kind"] == "gateway_request"]
+def _gw_events(n=None):
+    """The gateway's wide events.  A handler files its request's event
+    in do_POST's finally, after the answer is on the wire, so under load
+    a client can read the answer before the event exists: with ``n``,
+    wait (bounded) until ``n`` events are there."""
+    def evs():
+        return [e for e in events.recent()
+                if e["kind"] == "gateway_request"]
+
+    if n is not None:
+        _wait(lambda: len(evs()) >= n, msg="%d gateway wide events" % n)
+    return evs()
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +284,7 @@ def test_predict_roundtrip(registry):
         out = json.loads(body)
         assert out["outputs"] == [[3.0, 6.0]]
     # exactly one wide event, outcome ok, wire code carried
-    evs = _gw_events()
+    evs = _gw_events(1)
     assert len(evs) == 1
     assert evs[0]["outcome"] == "ok" and evs[0]["http_status"] == 200
     assert evs[0]["model"] == "m" and evs[0]["op"] == "predict"
@@ -291,7 +301,7 @@ def test_generate_sse_stream(registry):
         assert [f["token"] for f in frames[:-1]] == [4, 5, 6]
         assert frames[-1]["done"] is True
         assert frames[-1]["finish_reason"] == "length"
-    evs = _gw_events()
+    evs = _gw_events(1)
     assert len(evs) == 1 and evs[0]["tokens"] == 3
     assert tel.GATEWAY_STREAM_TOKENS.value() == 3
 
@@ -301,7 +311,7 @@ def test_trace_id_and_tenant_ride_the_event(registry):
         gw.add_route("m", FakePredict(), kind="predict")
         _post(gw.port, "/v1/predict/m", {"rows": [[1.0]]},
               headers={"X-Trace-Id": "trace-abc", "X-Tenant": "acme"})
-    (ev,) = _gw_events()
+    (ev,) = _gw_events(1)
     assert ev["trace_id"] == "trace-abc"
     assert ev["tenant"] == "acme"
 
@@ -323,7 +333,7 @@ def test_typed_backend_errors_map_to_wire(registry):
         status, _, _ = _post(gw.port, "/v1/generate/late",
                              {"tokens": [1]})
         assert status == 504
-    codes = {e["http_status"] for e in _gw_events()}
+    codes = {e["http_status"] for e in _gw_events(3)}
     assert codes == {429, 503, 504}
 
 
@@ -339,7 +349,7 @@ def test_midstream_failure_carries_code_in_sse_frame(registry):
         assert status == 200               # already streaming
         frames = _sse_frames(body)
         assert frames[-1]["error"]["code"] == 504
-    (ev,) = _gw_events()
+    (ev,) = _gw_events(1)
     assert ev["http_status"] == 504 and ev["outcome"] == "deadline"
 
 
@@ -356,7 +366,7 @@ def test_deadline_header_threads_into_admission(registry):
         assert status == 504
         assert time.monotonic() - t0 < 5.0
         hold.set()
-    (ev,) = _gw_events()
+    (ev,) = _gw_events(1)
     assert ev["outcome"] == "deadline" and ev["http_status"] == 504
 
 
@@ -373,7 +383,7 @@ def test_wire_hygiene_404_400_413(registry):
         assert _post(gw.port, "/v1/predict/m", big)[0] == 413
         assert tel.GATEWAY_BAD_REQUESTS.value(kind="oversized") == 1
     # one event per request, even the refused ones
-    assert len(_gw_events()) == 5
+    assert len(_gw_events(5)) == 5
 
 
 def test_contract_rows_serve_a_uint8_predictor(registry):
@@ -529,7 +539,7 @@ def test_hot_tenant_sheds_429_over_http(registry):
         for t in threads:
             t.join(10)
         assert sorted(results) == [200, 200, 429]
-    assert len(_gw_events()) == 3
+    assert len(_gw_events(3)) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +841,7 @@ def test_bad_max_new_tokens_is_400_and_leaks_nothing(registry):
                                {"tokens": [1], "max_new_tokens": 3})
         assert status == 200               # the single permit came back
         assert _sse_frames(raw)[-1]["done"] is True
-    evs = _gw_events()
+    evs = _gw_events(2)
     assert [e["http_status"] for e in evs] == [400, 200]
 
 
@@ -851,7 +861,7 @@ def test_stalled_backend_midstream_504_is_an_sse_frame(registry):
     frames = _sse_frames(raw)
     assert frames[0] == {"token": 7}
     assert frames[-1]["error"]["code"] == 504
-    (ev,) = _gw_events()
+    (ev,) = _gw_events(1)
     assert ev["http_status"] == 504 and ev["outcome"] == "deadline"
 
 
@@ -874,7 +884,7 @@ def test_tenant_state_is_bounded_by_max_tenants(registry):
         assert gw._wfq._queues == {}       # idle queues pruned
         assert gw._wfq._vfinish == {}      # idle clocks pruned
     # overflow tenants share ONE metric label, not one per header
-    evs = _gw_events()
+    evs = _gw_events(12)
     tenants = {e["tenant"] for e in evs}
     assert len(tenants) == 5
     assert gwmod.OVERFLOW_TENANT in tenants
@@ -956,7 +966,7 @@ def test_slow_loris_body_cut_408(registry, server):
         assert status == 408, raw[:200]
         assert took < 8.0, "slow-loris held a handler %.1fs" % took
         assert tel.GATEWAY_BAD_REQUESTS.value(kind="slow_body") == 1
-        evs = _gw_events()
+        evs = _gw_events(1)
         assert len(evs) == 1
         assert evs[0]["http_status"] == 408
         assert evs[0]["error_kind"] == "slow_body"
@@ -987,7 +997,7 @@ def test_malformed_truncated_oversized(registry, server):
         assert status == 413
         assert tel.GATEWAY_BAD_REQUESTS.value(kind="malformed") == 1
         assert tel.GATEWAY_BAD_REQUESTS.value(kind="oversized") == 1
-        evs = _gw_events()
+        evs = _gw_events(3)
         assert len(evs) == 3
         assert sorted(e["http_status"] for e in evs) == [400, 408, 413]
         assert all(e["outcome"] == "error" for e in evs)
@@ -1019,7 +1029,7 @@ def test_midstream_disconnect_evicts_slot(registry, server, eng):
                   msg="disconnect to be detected")
             _wait(lambda: tel.DECODE_EVICTIONS.value(
                 reason="cancelled") == 1, msg="slot eviction")
-            evs = _gw_events()
+            evs = _gw_events(1)
             assert len(evs) == 1
             assert evs[0]["http_status"] == 499
             assert evs[0]["outcome"] == "evicted"
@@ -1081,11 +1091,12 @@ def test_stalled_handler_answers_504(registry, server):
             conn.close()
             assert resp.status == 504
             assert time.monotonic() - t0 < 10.0
-            evs = _gw_events()
+            evs = _gw_events(1)
             assert len(evs) == 1
             assert evs[0]["outcome"] == "deadline"
             assert evs[0]["http_status"] == 504
-            assert stall.stalled.is_set()  # it really was stalled
+            # the backend's thread may start after the deadline fired
+            assert stall.stalled.wait(10.0)  # it really was stalled
     finally:
         stall.release()
     _wait(lambda: threading.active_count() <= baseline,
@@ -1153,7 +1164,7 @@ def test_sigterm_drains_inflight_stream(registry, server, eng):
         _wait(lambda: gw._closed, msg="gateway to close")
         _wait(lambda: tel.readiness()[0], msg="readiness to clear")
         # one event per request: the drained stream + the shed one
-        evs = _gw_events()
+        evs = _gw_events(2)
         assert len(evs) == 2
         assert sorted(e["http_status"] for e in evs) == [200, 503]
     finally:

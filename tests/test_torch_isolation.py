@@ -29,8 +29,12 @@ TokenServer request, a fleet snapshot and a goodput ledger, a profiler
 window and the scrape endpoint), and the serving tier (serving,
 serving_async, gateway, testing.faults and tools.quantize_model: a
 Predictor and an AsyncPredictor answering over the gateway's HTTP
-route, a TokenServer with SLO shedding on, an int8 MLP artifact) loads
-neither jax nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
+route, a TokenServer with SLO shedding on, an int8 MLP artifact), and
+fault-tolerant checkpointing (checkpoint, the fault injectors, the
+elastic, fleet and goodput workers and the six observability CLIs under
+tools: the trainer attached to an async CheckpointManager, a step, a
+SIGTERM flush, and a sharded save validated offline) loads neither jax
+nor mxnet_tpu, and chip_smoke.py imports neither.  The import check runs in a subprocess because this
 test session has already imported jax (tests/conftest.py)."""
 import ast
 import os
@@ -283,6 +287,24 @@ slo.close()
 assert quantize_model.main(["--model", "mlp", "--device", "cpu",
                             "--out", root + "/int8"]) == 0
 assert faults.StallingCallable(lambda: 1).calls == 0
+import signal
+from mxnet_tpu_torch import checkpoint
+from mxnet_tpu_torch.testing import elastic_worker, fleet_worker, goodput_worker
+from mxnet_tpu_torch.tools import (telemetry_dump, trace_view, events_query,
+                                   fleetz, goodputz, perf_report)
+ck_root = tempfile.mkdtemp()
+cm = mx.CheckpointManager(ck_root + "/ck", keep_last=2, async_save=True)
+start = st.attach_checkpoint_manager(cm, period=1)
+st.step([mx.nd.array(np.ones((2, 3), np.float32), ctx=mx.cpu())],
+        mx.nd.array(np.zeros(2, np.float32), ctx=mx.cpu()))
+faults.send_preemption()
+cm.uninstall_preemption_handler()
+assert cm.preempted and cm.load().step == start + 1
+assert checkpoint.validate_sharded_checkpoint(ck_root + "/ck")[1]
+sh = mx.CheckpointManager(ck_root + "/sh", sharded=True, async_save=False)
+sh.save(1, {"w": faults.FakeShardedArray(np.ones((2, 2)), 1, 0)})
+assert checkpoint.validate_sharded_checkpoint(ck_root + "/sh") == (1, [])
+assert goodputz.load_goodput() is goodput
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "mxnet_tpu"
              or m.startswith("mxnet_tpu."))

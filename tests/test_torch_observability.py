@@ -623,6 +623,10 @@ def test_trainer_step_many_and_goodput(tmp_path, monkeypatch):
     ttel.enable()
     tev.enable(path="", sample=1.0)
     try:
+        # the recorder begins where the JAX trainer's does, at attach
+        assert tr.attach_checkpoint_manager(
+            tmx.CheckpointManager(tmp_path / "ckpt", async_save=False),
+            install_signal_handler=False) == 0
         tr.step_many([([tmx.nd.array(x, ctx=tmx.cpu())],
                        tmx.nd.array(y, ctx=tmx.cpu()))
                       for x, y in zip(xs, ys)])
