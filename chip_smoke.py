@@ -300,9 +300,11 @@ non-zero, printing no result, without them.  Phases, one line each:
    gradients (1e-3 of each norm) hybridized against eager with dropout
    0.  rnn_bucketing --cells at upstream
    lstm_bucketing.py's width (2 x mx.rnn.LSTMCell(200), embed 200,
-   vocabulary 10000, batch 32) over BucketSentenceIter with buckets 4
-   and 6 (cut in depth from upstream's 10-60 for inductor's compile
-   time; 4 and 8 before PR 19), one epoch of a seeded corpus: compile
+   vocabulary 10000, batch 32) over BucketSentenceIter with buckets 3
+   and 4 (cut in depth from upstream's 10-60 for inductor's compile
+   time: 4 and 8, then 4 and 6, then 3 and 4 once phase 23 came; in the
+   whole script in a side process, --examples, beside phases 13-15), one
+   epoch of a seeded corpus: compile
    seconds per bucket,
    batches/s, perplexity finite and falling; no hand-written kernel
    launched;
@@ -441,8 +443,9 @@ non-zero, printing no result, without them.  Phases, one line each:
    hit and no miss, its logits bit-equal to phase 13's; a 'compile
    cache' line with the parent's cold and the child's warm compile
    seconds and both processes' hit and miss counts.  (d) the port's
-   examples/fine_tune.py for one epoch of 8 batches in the side process:
-   finite losses, the accuracy printed; a 'finetune' line.  No
+   examples/fine_tune.py for one epoch of 8 batches in a side process
+   (--examples, after phase 14's bucketing) beside phases 13-15: finite
+   losses, the accuracy printed; a 'finetune' line.  No
    hand-written kernel launched;
 22. checkpoint: fault-tolerant checkpointing on phase 21a's path
    (resnet50_v1 at full width, 1000 classes, bf16_mixed, batch 256, sgd
@@ -469,17 +472,55 @@ non-zero, printing no result, without them.  Phases, one line each:
    a 'checkpoint' line with the bytes of a checkpoint, the blocking
    snapshot ms, the background write s, the load-and-restore s, and the
    step ms alone and with a save in flight;
-23. the whole script's wall time, then a {"kernels": [...]} line (the
+23. interop: Custom operators, ONNX, the C ABI and rtc at resnet50_v1's
+   full width (classes 1000, Xavier from seed 0), in a side process of
+   its own (this script with --interop, on phase 9b's int8 artifact)
+   beside phases 13-15, whose lines print once phase 15 has ended (a
+   failure there ends the script non-zero); the Executor's resnet50_v1
+   graphs on aot_eager (jit._BACKEND), the hybridized block and the api
+   worker's Executor on inductor, the default.  (a) upstream's
+   custom_softmax example (a CustomOp: softmax forward, p - onehot
+   backward, need_top_grad False) as the loss head of the symbolic
+   resnet50_v1 through the Executor at batch 64, 3 SGD steps (lr 0.01)
+   with deterministic cuDNN, against the same net with SoftmaxOutput:
+   probabilities, step 1's gradients, the updated weights and moving
+   stats within 1e-6 x max|ref|; the logits' gradients of both heads
+   within 1e-6 of softmax(z) - onehot; the user's forward handed arrays
+   on the card; the op after a Dense(1000) in a hybridized block
+   compiled by inductor (the mxnet_tpu_torch::custom op, no graph break)
+   against eager.  (b) export_model of resnet50_v1's symbol and params at
+   batch 32, get_model_metadata, import_model (parameters on gpu(0)),
+   bound on the card: logits within 1e-4 x max|ref| of the gluon
+   forward; the file's bytes and the export and import seconds.  (c) the
+   port's libmxtpu_runtime.so and the unchanged cpp/test_predict.c and
+   cpp/test_api_train.c built from the checkout (native.capi_library,
+   capi_client); test_predict on the exported net at (1, 3, 224, 224)
+   against the eager forward (printed logits within 1e-5 x max|ref| +
+   5e-7), and on the int8 artifact at its batch 32 (printed top-1 and
+   logits equal to the in-process Predictor's), the same two through the
+   library's C calls (ctypes: the f32 output within 1e-5 x max|ref|, the
+   int8 output bit-equal, 10 timed round trips each against the
+   in-process forward), the references on torch's default cuDNN TF32
+   setting, which the workers keep; each int8 worker launching int8_conv
+   once per quantized layer a forward (its MXTPU_WORKER_STATS record);
+   test_api_train's MLP through the api worker on the card, its loss
+   falling 10x.  (d) a CudaModule(kernels=...) kernel on card tensors
+   bit-equal to the function called directly; CUDA source refused.  An
+   'interop' line per part and one of the numbers; in the process
+   itself no hand-written kernel launched but the int8_conv launches of
+   (c)'s in-process int8 Predictor, the reference;
+24. the whole script's wall time, then a {"kernels": [...]} line (the
    compression rows' launches: phase 4's and each phase-17 worker's;
-   int8_conv's: phase 16's, det_launches, and phase 9b's,
-   serve_launches);
-24. last line: {"ok": true, "device": {...}}.
+   int8_conv's: phase 16's, det_launches, phase 9b's, serve_launches,
+   and phase 23's C ABI workers', capi_launches);
+25. last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
 import atexit
 import collections
 import contextlib
+import ctypes
 import functools
 import gc
 import hashlib
@@ -4465,11 +4506,15 @@ def phase_symbolic(card, aside=False):
 
 
 class SideChecks:
-    """symbolic_aside in a process of its own (``chip_smoke.py --side``),
-    beside the main process's phases 13-15: its lines and errors go to
-    files, printed by finish(), which fails if the process failed."""
+    """A side process of this script (``chip_smoke.py MODE CARD ...``)
+    beside the main process's phases 13-15: ``--side`` (symbolic_aside),
+    ``--interop`` (phase 23) or ``--examples`` (phase 14's bucketing and
+    phase 21d); its lines and
+    errors go to files, printed by finish(), which fails if the process
+    failed and returns its standard output."""
 
-    def __init__(self):
+    def __init__(self, mode, *args):
+        self.mode, self.args = mode, list(args)
         self.dir = tempfile.mkdtemp(prefix="side_")
         self.proc = None
 
@@ -4479,8 +4524,9 @@ class SideChecks:
         self.out = open(os.path.join(self.dir, "out"), "w+")
         self.err = open(os.path.join(self.dir, "err"), "w+")
         self.proc = subprocess.Popen(
-            [sys.executable, DIST_WORKER_SCRIPT, "--side", card],
-            cwd=DIST_ROOT, stdout=self.out, stderr=self.err, text=True)
+            [sys.executable, DIST_WORKER_SCRIPT, self.mode, card]
+            + self.args, cwd=DIST_ROOT, stdout=self.out, stderr=self.err,
+            text=True)
 
     def finish(self):
         wait_start = time.perf_counter()
@@ -4490,14 +4536,20 @@ class SideChecks:
             rc = None
         self.out.seek(0)
         self.err.seek(0)
-        sys.stdout.write(self.out.read())
-        check(rc == 0, "the side process (symbolic_aside) %s:\n%s"
-              % ("exited %d" % rc if rc is not None else "did not finish",
-                 self.err.read()[-6000:]))
-        print("side: symbolic_aside ended %.1f s after it started; phase "
-              "15's end waited %.1f s for it | %s"
-              % (time.perf_counter() - self.started,
-                 time.perf_counter() - wait_start, self.card), flush=True)
+        out = self.out.read()
+        sys.stdout.write(out)
+        check(rc == 0, "the side process (%s) %s:\n%s"
+              % (self.mode, "exited %d" % rc if rc is not None
+                 else "did not finish", self.err.read()[-6000:]))
+        waited = time.perf_counter() - wait_start
+        # a process that had ended before finish() ended at an unknown
+        # time before it
+        print("side: %s %s %.1f s after it started; phase 15's end "
+              "waited %.1f s for it | %s"
+              % (self.mode, "ended" if waited >= 0.5 else "had ended by",
+                 time.perf_counter() - self.started, waited, self.card),
+              flush=True)
+        return out
 
     def stop(self):
         if self.proc is not None and self.proc.poll() is None:
@@ -4509,14 +4561,38 @@ class SideChecks:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def side_main(card):
-    """Entry of the side process: phase_device's settings, then
-    symbolic_aside and the fine-tuning example (phase 21d)."""
+def side_settings():
+    """phase_device's settings, in a side process."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def side_main(card):
+    """Entry of the --side process: symbolic_aside."""
+    side_settings()
     symbolic_aside(card)
+
+
+def interop_main(card, art):
+    """Entry of the --interop process: phase 23 on phase 9b's artifact,
+    its int8_conv launches on an INTEROP_LAUNCHES line."""
+    side_settings()
+    launches = phase_interop(card, art)
+    print("INTEROP_LAUNCHES %d" % launches, flush=True)
+
+
+def examples_main(card):
+    """Entry of the --examples process: phase 14's bucketing run and the
+    fine-tuning example (phase 21d), neither launching a hand-written
+    kernel."""
+    side_settings()
+    before = dict(kernels.launch_counts)
+    rec_bucketing(card)
     fine_tune_check(card)
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    check(not any(launched.values()), "bucketing and fine-tuning launched "
+          "%s" % launched)
 
 
 # phase 21d: the port's examples/fine_tune.py at its defaults
@@ -5189,15 +5265,16 @@ LM_STEPS = 31                    # 1 warm-up + 30 timed
 LM_LOGIT_TOL, LM_GRAD_REL = 1e-4, 1e-3
 # upstream example/rnn/bucketing/lstm_bucketing.py's width (2 x
 # LSTMCell(200), embed 200, vocabulary 10000, batch 32), cut in depth
-# to buckets 4 and 6 (unrolled steps) in place of its 10-60: inductor
-# takes about 6 s a step to compile a bucket (buckets 10 and 20: 62.7
+# to buckets 3 and 4 (unrolled steps) in place of its 10-60: inductor
+# takes about 6-7 s a step to compile a bucket (buckets 10 and 20: 62.7
 # and 117.5 s, PERF.md section 4; bucket 8 29.8-58.4 s in PR 19's runs,
-# so 6 since then); upstream's lr
+# so 6 from then; buckets 4 and 6 took 28.9 and 44.6 s, PERF.md section
+# 7, so 3 and 4 since phase 23 came); upstream's lr
 # 0.01, with the example's momentum 0.9 (the example's own lr 0.2
 # diverges at this vocabulary)
 BUCKET_ARGS = ["--cells", "--vocab", "10000", "--num-embed", "200",
                "--num-hidden", "200", "--batch-size", "32", "--buckets",
-               "4,6", "--epochs", "1", "--lr", "0.01"]
+               "3,4", "--epochs", "1", "--lr", "0.01"]
 
 
 def rec_inputs(mode, bidir, T, N, C, H, device, seed=0):
@@ -5477,15 +5554,17 @@ def rec_bucketing(card):
     return {"compile_s": compile_s, "batches_s": len(steady) / sum(steady)}
 
 
-def phase_recurrent(card):
-    """Phase 14 (see the module doc)."""
+def phase_recurrent(card, aside=False):
+    """Phase 14 (see the module doc); with ``aside`` the bucketing run is
+    left to the --examples side process."""
     t_phase = time.perf_counter()
     before = dict(kernels.launch_counts)
     rec_op(card)
     torch.cuda.empty_cache()
     rec_lm(card)
     torch.cuda.empty_cache()
-    rec_bucketing(card)
+    if not aside:
+        rec_bucketing(card)
     launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
     check(not any(launched.values()), "the recurrent path launched %s"
           % launched)
@@ -7550,10 +7629,11 @@ def serve_gateway(card, lm, raw, replicas, int8_pred, int8_batch):
             "events_by_code": {str(k): v for k, v in by_code.items()}}
 
 
-def phase_serve(card, lm=None):
+def phase_serve(card, lm=None, keep_art=None):
     """Phase 9b (see the module doc), on phase 8's LM (built here when the
-    phase runs alone).  Returns the int8_conv launches of the serving
-    path."""
+    phase runs alone); its int8 artifact is copied to ``keep_art`` when
+    given (phase 23 serves it through the C ABI).  Returns the int8_conv
+    launches of the serving path."""
     t_phase = time.perf_counter()
     if lm is None:                       # the phase alone
         lm = build_lm(DECODE_LM, mx.gpu(0))
@@ -7579,6 +7659,8 @@ def phase_serve(card, lm=None):
         nums.update(serve_timing(card, bf16, f32, raw))
         del f32
         int8_pred, int8_batch, compared, nums8 = serve_int8(card, art)
+        if keep_art is not None:
+            shutil.copytree(art, keep_art)
         second, nums_async = serve_async(card, net, raw, bf16)
         nums_gw = serve_gateway(card, lm, raw, [bf16, second], int8_pred,
                                 int8_batch)
@@ -7970,6 +8052,658 @@ def phase_sparse(card):
              time.perf_counter() - t_phase, card), flush=True)
 
 
+# the interop phase (23): (a) upstream's custom_softmax example
+# (example/numpy-ops/custom_softmax.py: softmax forward, p - onehot
+# backward, no top gradient; its forward here is mx.nd.softmax, the
+# example's numpy formula on the card) as resnet50_v1's loss head in the
+# Executor at batch 64, 3 SGD steps (lr 0.01, rescale 1/64), deterministic
+# cuDNN, against the same net with SoftmaxOutput: the probabilities, step
+# 1's gradients, the updated weights and moving stats within
+# INTEROP_REL x max|ref| (both heads compute p and p - onehot with the
+# same kernels: 0 is expected), the logits' gradients of both heads
+# against softmax(z) - onehot; the same op after a Dense(1000) in a
+# hybridized block against eager; (b) resnet50_v1 to ONNX and back at
+# batch 32, the imported graph's logits within INTEROP_ONNX_REL x
+# max|ref| of the gluon forward (phase 10's card bound: BatchNorm's
+# kernels differ between eager and the compiled graph); (c) the C ABI:
+# the unchanged cpp/ clients against the port's library, test_predict at
+# (1, 3, 224, 224) on the exported f32 net (printed logits within
+# INTEROP_CAPI_REL x max|ref| + the print's rounding of the eager
+# forward) and on phase 9b's int8 artifact at its batch 32 (printed
+# logits equal; the whole output through the library's C calls bit-equal
+# to the in-process int8 Predictor), INTEROP_TRIPS timed round trips of
+# each through ctypes, test_api_train's MLP on the card; the references
+# on torch's default cuDNN TF32 setting, which the workers keep; (d) rtc.
+# The Executor's resnet50_v1 training graphs run on aot_eager
+# (jit._BACKEND) for the script's time: inductor takes minutes for them.
+# The hybridized Custom block and the api worker's Executor run on the
+# default, inductor
+INTEROP_BATCH, INTEROP_STEPS, INTEROP_LR = 64, 3, 0.01
+INTEROP_ONNX_BATCH, INTEROP_TRIPS = 32, 10
+INTEROP_REL, INTEROP_ONNX_REL, INTEROP_CAPI_REL = 1e-6, 1e-4, 1e-5
+INTEROP_BACKEND = "aot_eager"
+INTEROP_TIMEOUT_S = 600
+
+
+@mx.operator.register("chip_softmax")
+class ChipSoftmaxProp(mx.operator.CustomOpProp):
+    """Upstream's custom_softmax (module doc's phase 23)."""
+
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def list_outputs(self):
+        return ["output"]
+
+    def infer_shape(self, in_shape):
+        return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+    def create_operator(self, ctx, shapes, dtypes):
+        return ChipSoftmax()
+
+
+class ChipSoftmax(mx.operator.CustomOp):
+    devices = set()    # the device types the user's forward was handed
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        ChipSoftmax.devices.add(in_data[0].context.device_type)
+        self.assign(out_data[0], req[0], mx.nd.softmax(in_data[0], axis=-1))
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        y = out_data[0]
+        self.assign(in_grad[0], req[0],
+                    y - mx.nd.one_hot(in_data[1], depth=y.shape[1]))
+
+
+def interop_rel(got, ref):
+    """max|got - ref| / max|ref| (f64), 0 for equal all-zero arrays."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    scale = float(np.abs(ref).max())
+    diff = float(np.abs(got - ref).max())
+    return diff / scale if scale else diff
+
+
+def interop_executor(sym, params, x, y):
+    """``sym`` bound on the card with copies of ``params``, gradients for
+    every parameter: (executor, arguments, gradients, aux states)."""
+    dev = mx.gpu(0)
+    args = {n: params[n].copy() for n in sym.list_arguments()
+            if n in params}
+    grads = {n: mx.nd.zeros(a.shape, ctx=dev) for n, a in args.items()}
+    args.update(data=x, softmax_label=y)
+    aux = {n: params[n].copy() for n in sym.list_auxiliary_states()}
+    ex = sym.bind(dev, args=args, args_grad=grads, aux_states=aux,
+                  grad_req={n: "write" if n in grads else "null"
+                            for n in sym.list_arguments()})
+    return ex, args, grads, aux
+
+
+def interop_custom(card, net):
+    """(a): the Custom head against SoftmaxOutput in the Executor, the
+    logits' gradients, the hybridized block against eager."""
+    dev = mx.gpu(0)
+    s = mx.sym
+    logits = net(s.var("data"))
+    label = s.var("softmax_label")
+    heads = {"custom": s.Custom(data=logits, label=label,
+                                op_type="chip_softmax", name="softmax"),
+             "softmax_output": s.SoftmaxOutput(logits, label,
+                                               name="softmax")}
+    params = {n: p.data() for n, p in net.collect_params().items()}
+    rng = np.random.RandomState(23)
+    x = mx.nd.array(rng.rand(INTEROP_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32), ctx=dev)
+    y = mx.nd.array(rng.randint(0, 1000, INTEROP_BATCH).astype(np.float32),
+                    ctx=dev)
+    ChipSoftmax.devices.clear()
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind, head in heads.items():
+            sym = s.Group([head, s.BlockGrad(logits)])
+            ex, args, grads, aux = interop_executor(sym, params, x, y)
+            step_s, losses = [], []
+            for step in range(INTEROP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prob, z = ex.forward(is_train=True)
+                ex.backward()
+                for n, g in grads.items():
+                    mx.nd.sgd_update(args[n], g, lr=INTEROP_LR,
+                                     rescale_grad=1.0 / INTEROP_BATCH)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                p = prob.asnumpy()
+                losses.append(float(-np.log(np.maximum(p[np.arange(
+                    INTEROP_BATCH), y.asnumpy().astype(int)], 1e-30))
+                    .mean()))
+                if step == 0:
+                    first = {"prob": p, "z": z,
+                             "grads": {n: g.asnumpy()
+                                       for n, g in grads.items()}}
+            runs[kind] = dict(first, losses=losses, step_s=step_s,
+                              compile_s=ex.compile_seconds,
+                              weights={n: args[n].asnumpy() for n in grads},
+                              aux={n: a.asnumpy() for n, a in aux.items()})
+            del ex, args, grads, aux
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    check(ChipSoftmax.devices == {"gpu"}, "custom: the user's forward was "
+          "handed arrays on %s" % sorted(ChipSoftmax.devices))
+    c, r = runs["custom"], runs["softmax_output"]
+    check(all(math.isfinite(v) for v in c["losses"] + r["losses"]),
+          "custom: losses %s %s" % (c["losses"], r["losses"]))
+    errs = {"prob": interop_rel(c["prob"], r["prob"]),
+            "grads": max(interop_rel(c["grads"][n], r["grads"][n])
+                         for n in r["grads"]),
+            "weights": max(interop_rel(c["weights"][n], r["weights"][n])
+                           for n in r["weights"]),
+            "aux": max(interop_rel(c["aux"][n], r["aux"][n])
+                       for n in r["aux"])}
+    for what, e in errs.items():
+        check(e <= INTEROP_REL, "custom: %s %.3g x max|ref| from "
+              "SoftmaxOutput's (bound %g)" % (what, e, INTEROP_REL))
+    # the logits' gradients: each head alone on step 1's logits
+    z = c["z"]
+    onehot = F.one_hot(y._data.long(), 1000).float()
+    dz_plain = (torch.softmax(z._data, -1) - onehot).cpu().numpy()
+    dz = {}
+    for kind in heads:
+        zv = s.var("z")
+        head = s.Custom(data=zv, label=label, op_type="chip_softmax") \
+            if kind == "custom" else s.SoftmaxOutput(zv, label)
+        g = mx.nd.zeros(z.shape, ctx=dev)
+        ex = head.bind(dev, args={"z": z, "softmax_label": y},
+                       args_grad={"z": g},
+                       grad_req={"z": "write", "softmax_label": "null"})
+        ex.forward(is_train=True)
+        ex.backward()
+        dz[kind] = g.asnumpy()
+    dz_err = max(interop_rel(v, dz_plain) for v in dz.values())
+    check(dz_err <= INTEROP_REL, "custom: the logits' gradients %.3g x "
+          "max|ref| from softmax(z) - onehot" % dz_err)
+    hyb = interop_custom_block()
+    print("interop custom: upstream's custom_softmax as resnet50_v1's loss "
+          "head (1000 classes, Xavier from seed 0) in the Executor, batch "
+          "%d, %d SGD steps (lr %g), deterministic cuDNN, %s | against "
+          "SoftmaxOutput: probabilities %.3g, step 1 gradients %.3g, "
+          "updated weights %.3g, moving stats %.3g x max|ref| (bound %g) | "
+          "logits' gradients of both heads against softmax(z) - onehot "
+          "%.3g | the user's forward got %s arrays | losses Custom %s, "
+          "SoftmaxOutput %s | step ms Custom %s, SoftmaxOutput %s (compile "
+          "%.1f / %.1f s) | hybridized block on inductor against eager: "
+          "outputs %.3g, gradients %.3g x max|ref|, graph breaks %d | %s"
+          % (INTEROP_BATCH, INTEROP_STEPS, INTEROP_LR, INTEROP_BACKEND,
+             errs["prob"], errs["grads"], errs["weights"], errs["aux"],
+             INTEROP_REL, dz_err, "/".join(sorted(ChipSoftmax.devices)),
+             ["%.4f" % v for v in c["losses"]],
+             ["%.4f" % v for v in r["losses"]],
+             ["%.1f" % (1e3 * t) for t in c["step_s"][1:]],
+             ["%.1f" % (1e3 * t) for t in r["step_s"][1:]],
+             c["compile_s"], r["compile_s"], hyb["out"], hyb["grad"],
+             hyb["breaks"], card), flush=True)
+    return {"prob_err": errs["prob"], "grad_err": errs["grads"],
+            "weight_err": errs["weights"], "aux_err": errs["aux"],
+            "dz_err": dz_err, "losses": c["losses"],
+            "step_ms": [1e3 * t for t in c["step_s"]],
+            "softmax_output_step_ms": [1e3 * t for t in r["step_s"]],
+            "compile_s": c["compile_s"], "hybrid": hyb}
+
+
+def interop_custom_block():
+    """(a), gluon: Dense(1000) then the Custom head in a block, hybridized
+    against eager on the same weights and batch."""
+    from mxnet_tpu_torch.gluon import nn
+
+    class Head(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.fc = nn.Dense(1000, in_units=2048)
+
+        def hybrid_forward(self, F_, x, label):
+            return F_.Custom(data=self.fc(x), label=label,
+                             op_type="chip_softmax")
+
+    dev = mx.gpu(0)
+    rng = np.random.RandomState(24)
+    w = (rng.randn(1000, 2048) * 0.02).astype(np.float32)
+    b = np.zeros(1000, np.float32)
+    x = mx.nd.array(rng.rand(INTEROP_BATCH, 2048).astype(np.float32),
+                    ctx=dev)
+    y = mx.nd.array(rng.randint(0, 1000, INTEROP_BATCH).astype(np.float32),
+                    ctx=dev)
+    res = []
+    breaks = graph_breaks()
+    prev_backend = mx.jit._BACKEND
+    mx.jit._BACKEND = None   # inductor, the default
+    try:
+        for hybrid in (False, True):
+            blk = Head()
+            blk.initialize(ctx=dev)
+            blk.fc.weight.set_data(mx.nd.array(w, ctx=dev))
+            blk.fc.bias.set_data(mx.nd.array(b, ctx=dev))
+            if hybrid:
+                blk.hybridize()
+            with mx.autograd.record():
+                out = blk(x, y)
+            out.backward()
+            res.append((out.asnumpy(), blk.fc.weight.grad().asnumpy()))
+    finally:
+        mx.jit._BACKEND = prev_backend
+    breaks = graph_breaks() - breaks
+    out_err = interop_rel(res[1][0], res[0][0])
+    grad_err = interop_rel(res[1][1], res[0][1])
+    check(out_err <= INTEROP_REL and grad_err <= INTEROP_REL,
+          "custom block: hybridized against eager, outputs %.3g, "
+          "gradients %.3g x max|ref| (bound %g)" % (out_err, grad_err,
+                                                   INTEROP_REL))
+    check(breaks == 0, "custom block: %d graph breaks" % breaks)
+    return {"out": out_err, "grad": grad_err, "breaks": breaks}
+
+
+def interop_onnx(card, net, prefix):
+    """(b): resnet50_v1 exported to ONNX, read back, imported and bound on
+    the card, its logits against the gluon forward."""
+    from mxnet_tpu_torch.contrib import onnx as onnx_mx
+
+    dev = mx.gpu(0)
+    sym = mx.sym.load(prefix + "-symbol.json")
+    params = mx.nd.load(prefix + "-0000.params", ctx=dev)
+    path = prefix + ".onnx"
+    shape = (INTEROP_ONNX_BATCH, 3, IMAGE, IMAGE)
+    t0 = time.perf_counter()
+    onnx_mx.export_model(sym, params, shape, onnx_file_path=path)
+    export_s = time.perf_counter() - t0
+    meta = onnx_mx.get_model_metadata(path)
+    check(meta["input_tensor_data"] == [("data", shape)] and
+          [s for _, s in meta["output_tensor_data"]]
+          == [(INTEROP_ONNX_BATCH, 1000)], "onnx: metadata %s" % meta)
+    t0 = time.perf_counter()
+    sym2, arg2, aux2 = onnx_mx.import_model(path)
+    import_s = time.perf_counter() - t0
+    ctxs = {str(a.context) for a in list(arg2.values())
+            + list(aux2.values())}
+    check(ctxs == {"gpu(0)"}, "onnx: imported parameters on %s" % ctxs)
+    x = mx.nd.array(np.random.RandomState(25).rand(*shape)
+                    .astype(np.float32), ctx=dev)
+    ex = sym2.bind(dev, args=dict(arg2, data=x), aux_states=aux2,
+                   grad_req="null")
+    t0 = time.perf_counter()
+    out = ex.forward()[0].asnumpy()
+    first_s = time.perf_counter() - t0
+    with mx.autograd.predict_mode():
+        ref = net(x).asnumpy()
+    err = interop_rel(out, ref)
+    check(out.shape == ref.shape and err <= INTEROP_ONNX_REL,
+          "onnx: imported logits %.3g x max|ref| from the gluon forward "
+          "(bound %g)" % (err, INTEROP_ONNX_REL))
+    onnx_ms = time_ms(lambda: ex.forward())
+    with mx.autograd.predict_mode():
+        gluon_ms = time_ms(lambda: net(x))
+    nbytes = os.path.getsize(path)
+    print("interop onnx: resnet50_v1 (1000 classes) export_model at %s: "
+          "%d bytes, %d initializers read back, export %.2f s, import %.2f "
+          "s | metadata %s -> %s | imported graph bound on the card "
+          "(parameters on gpu(0)), logits %.3g x max|ref| of the gluon "
+          "forward (bound %g), first call %.1f s | forward at batch %d: "
+          "imported %.3f ms, gluon eager %.3f ms | %s"
+          % (shape, nbytes, len(arg2) + len(aux2), export_s, import_s,
+             meta["input_tensor_data"], meta["output_tensor_data"], err,
+             INTEROP_ONNX_REL, first_s, INTEROP_ONNX_BATCH, onnx_ms,
+             gluon_ms, card), flush=True)
+    return {"bytes": nbytes, "export_s": export_s, "import_s": import_s,
+            "logit_err": err, "onnx_fwd_ms": onnx_ms,
+            "gluon_fwd_ms": gluon_ms}
+
+
+def capi_bind(lib):
+    """The predict ABI's C calls (cpp/mxtpu_predict.h) on ``lib``."""
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.mxtpu_predict_create.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32,
+        ctypes.POINTER(ctypes.c_char_p), u32p, u32p,
+        ctypes.POINTER(ctypes.c_void_p)]
+    lib.mxtpu_predict_set_input.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_size_t]
+    lib.mxtpu_predict_forward.argtypes = [ctypes.c_void_p]
+    lib.mxtpu_predict_get_output.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t]
+    lib.mxtpu_predict_free.argtypes = [ctypes.c_void_p]
+    lib.mxtpu_predict_last_error.restype = ctypes.c_char_p
+    return lib
+
+
+def capi_session(lib, files, x, n_out, stats):
+    """One predictor through the library's C calls on ``files`` (symbol
+    json, params) for ``x``: (its output, the round trips' ms (set input,
+    forward, get output), the worker's record from ``stats``)."""
+    sym_json = open(files[0], "rb").read()
+    params = open(files[1], "rb").read()
+    shape = (ctypes.c_uint32 * x.ndim)(*x.shape)
+    indptr = (ctypes.c_uint32 * 2)(0, x.ndim)
+    keys = (ctypes.c_char_p * 1)(b"data")
+    h = ctypes.c_void_p()
+    prev = os.environ.get("MXTPU_WORKER_STATS")
+    os.environ["MXTPU_WORKER_STATS"] = stats
+    try:
+        check(lib.mxtpu_predict_create(sym_json, params, len(params), 1,
+                                       keys, indptr, shape,
+                                       ctypes.byref(h)) == 0,
+              "capi: create failed: %s" % lib.mxtpu_predict_last_error())
+    finally:
+        if prev is None:
+            os.environ.pop("MXTPU_WORKER_STATS")
+        else:
+            os.environ["MXTPU_WORKER_STATS"] = prev
+    out = np.empty(n_out, np.float32)
+    x = np.ascontiguousarray(x)
+
+    def trip():
+        check(lib.mxtpu_predict_set_input(h, b"data", x.ctypes.data,
+                                          x.size) == 0 and
+              lib.mxtpu_predict_forward(h) == 0 and
+              lib.mxtpu_predict_get_output(h, 0, out.ctypes.data,
+                                           out.size) == 0,
+              "capi: round trip failed: %s" % lib.mxtpu_predict_last_error())
+
+    try:
+        trip()
+        ms = []
+        for _ in range(INTEROP_TRIPS):
+            t0 = time.perf_counter()
+            trip()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        lib.mxtpu_predict_free(h)
+    with open(stats) as f:
+        rec = json.loads(f.read().strip().splitlines()[-1])
+    return out.copy(), ms, rec
+
+
+def capi_printed(stdout):
+    """test_predict's TOP1 index and score and its three logits, as
+    printed."""
+    lines = dict(ln.split(" ", 1) for ln in stdout.splitlines()
+                 if " " in ln)
+    top1, score = lines["TOP1"].split()
+    return int(top1), score, lines["LOGITS"].split()
+
+
+def capi_start(argv, env, stats):
+    return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(env, MXTPU_WORKER_STATS=stats))
+
+
+def capi_wait(proc, what):
+    out, err = proc.communicate(timeout=INTEROP_TIMEOUT_S)
+    check(proc.returncode == 0, "capi: %s exited %d: %s %s"
+          % (what, proc.returncode, out[-1000:], err[-2000:]))
+    return out
+
+
+def interop_capi(card, net, prefix, art, root):
+    """(c): the unchanged clients against the port's library on the
+    card, the C calls' round trips, the int8 artifact bit-equal to the
+    in-process Predictor.  Returns the numbers and the int8_conv
+    launches the workers made."""
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    lib_path = native.capi_library()
+    clients = {n: str(native.capi_client(n))
+               for n in ("test_predict", "test_api_train")}
+    build_s = time.perf_counter() - t0
+    lib = capi_bind(ctypes.CDLL(str(lib_path)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXTPU_PYTHON=sys.executable,
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    env.pop("MXTPU_PREDICT_CPU", None)
+    env.pop("MXTPU_API_CPU", None)
+    rng = np.random.RandomState(26)
+    x1 = rng.rand(1, 3, IMAGE, IMAGE).astype(np.float32)
+    qsym, qargs, qaux, meta = tq.load_artifact(art)
+    xq = rng.rand(*meta["data_shape"]).astype(np.float32)
+    files = {"f32": (prefix + "-symbol.json", prefix + "-0000.params"),
+             "int8": tuple(os.path.join(art, "%s%s" % (
+                 tq.ARTIFACT_PREFIX, sfx)) for sfx in ("-symbol.json",
+                                                      "-0000.params"))}
+    inputs = {"f32": os.path.join(root, "x1.f32"),
+              "int8": os.path.join(root, "xq.f32")}
+    x1.tofile(inputs["f32"])
+    xq.tofile(inputs["int8"])
+    data = mx.sym.var("data")
+    mlp = mx.sym.LinearRegressionOutput(mx.sym.FullyConnected(
+        mx.sym.Activation(mx.sym.FullyConnected(data, num_hidden=16,
+                                                name="fc1"),
+                          act_type="relu", name="relu1"),
+        num_hidden=1, name="fc2"), mx.sym.var("label"), name="lro")
+    mlp_json = os.path.join(root, "mlp-symbol.json")
+    mlp.save(mlp_json)
+    stats = {k: os.path.join(root, "stats_%s.jsonl" % k)
+             for k in ("f32", "int8", "train", "f32_c", "int8_c")}
+    t_clients = time.perf_counter()
+    procs = {k: capi_start([clients["test_predict"], *files[k], inputs[k],
+                            *[str(d) for d in (x1 if k == "f32"
+                                               else xq).shape]],
+                           env, stats[k]) for k in ("f32", "int8")}
+    procs["train"] = capi_start([clients["test_api_train"], mlp_json], env,
+                                stats["train"])
+    try:
+        # the in-process references, on the workers' cuDNN TF32 setting
+        prev_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            def eager_f32():
+                with mx.autograd.predict_mode():
+                    return net(mx.nd.array(x1, ctx=mx.gpu(0))).asnumpy()
+
+            ref1 = eager_f32()
+            pred = Predictor.from_symbol(
+                qsym, qargs, qaux, data_name=meta["data_name"], chain=1,
+                batch_shape=tuple(meta["data_shape"]),
+                batch_dtype=meta["data_dtype"], aot_policy_tag="int8")
+            ref_before = kernels.launch_counts["int8_conv"]
+            refq = list(pred.predict([xq]))[0]
+            # the clients first: the timings below have the card to
+            # themselves (within this process)
+            outs = {k: capi_wait(p, k) for k, p in procs.items()}
+            clients_s = time.perf_counter() - t_clients
+            eager_ms, pred_ms = [], []
+            for fn, acc in ((eager_f32, eager_ms),
+                            (lambda: list(pred.predict([xq])), pred_ms)):
+                fn()
+                for _ in range(INTEROP_TRIPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    acc.append(1e3 * (time.perf_counter() - t0))
+            ref_launches = kernels.launch_counts["int8_conv"] - ref_before
+            out1, trip1, rec1 = capi_session(lib, files["f32"], x1, 1000,
+                                             stats["f32_c"])
+            outq, tripq, recq = capi_session(lib, files["int8"], xq,
+                                             refq.size, stats["int8_c"])
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev_tf32
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    # test_predict on the f32 net: its printed top-1 and logits
+    top1, score, logits = capi_printed(outs["f32"])
+    r1 = ref1.ravel()
+    tol = INTEROP_CAPI_REL * float(np.abs(r1).max()) + 5e-7
+    check(top1 == int(np.argmax(r1)) and
+          abs(float(score) - float(r1.max())) <= tol and
+          max(abs(float(v) - float(r)) for v, r in zip(logits, r1[:3]))
+          <= tol, "capi: test_predict f32 TOP1 %d %s LOGITS %s against "
+          "%d %.6f %s" % (top1, score, logits, int(np.argmax(r1)), r1.max(),
+                          r1[:3]))
+    err1 = interop_rel(out1, r1)
+    check(err1 <= INTEROP_CAPI_REL, "capi: f32 output through the C calls "
+          "%.3g x max|ref| of the eager forward" % err1)
+    # the int8 artifact: printed as the Predictor's values print, and the
+    # whole output bit-equal
+    rq = refq.ravel()
+    topq, scoreq, logitsq = capi_printed(outs["int8"])
+    check(topq == int(np.argmax(rq)) and scoreq == "%.6f" % rq.max() and
+          logitsq == ["%.6f" % v for v in rq[:3]],
+          "capi: test_predict int8 TOP1 %d %s LOGITS %s against the "
+          "Predictor's %d %.6f %s" % (topq, scoreq, logitsq,
+                                      int(np.argmax(rq)), rq.max(), rq[:3]))
+    check(np.array_equal(outq, rq), "capi: int8 output through the C calls "
+          "differs from the in-process Predictor in %d of %d"
+          % (int((outq != rq).sum()), rq.size))
+    # test_api_train: the MLP trained through the api worker on the card
+    lines = outs["train"].splitlines()
+    done = [ln for ln in lines if ln.startswith("TRAIN OK")]
+    check(done and any(ln.startswith("INFER n_args=6 n_outs=1")
+                       for ln in lines), "capi: test_api_train: %s"
+          % outs["train"][-500:])
+    first = float(done[0].split("first=")[1].split()[0])
+    last = float(done[0].split("last=")[1])
+    check(last < first / 10.0, "capi: MLP loss %g -> %g" % (first, last))
+    # the workers' records: their own process's kernel launches
+    recs = {k: json.loads(open(stats[k]).read().strip().splitlines()[-1])
+            for k in ("f32", "int8", "train")}
+    recs.update(f32_c=rec1, int8_c=recq)
+    n_q = meta["quantized_layers"]
+    forwards = {k: len(r["op_ms"].get("1", [])) + len(r["op_ms"].get(
+        "3", [])) for k, r in recs.items() if k != "train"}
+    launched = {k: r["launches"].get("int8_conv", 0)
+                for k, r in recs.items()}
+    for k in ("int8", "int8_c"):
+        check(launched[k] == n_q * forwards[k], "capi: the %s worker "
+              "launched int8_conv %d times over %d forwards of %d quantized "
+              "layers" % (k, launched[k], forwards[k], n_q))
+    others = {k: {n: c for n, c in r["launches"].items()
+                  if c and not (n == "int8_conv" and k.startswith("int8"))}
+              for k, r in recs.items()}
+    check(not any(others.values()), "capi: workers launched %s" % others)
+    nums = {"build_s": build_s, "clients_s": clients_s,
+            "f32_trip_ms": statistics.median(trip1),
+            "f32_eager_ms": statistics.median(eager_ms),
+            "int8_trip_ms": statistics.median(tripq),
+            "int8_predictor_ms": statistics.median(pred_ms),
+            "f32_err": err1, "mlp_loss": [first, last],
+            "int8_conv_launches": launched["int8"] + launched["int8_c"],
+            "reference_int8_conv": ref_launches,
+            "worker_fwd_ms": {k: statistics.median(recs[k]["op_ms"]["3"])
+                              for k in ("f32_c", "int8_c")}}
+    print("interop capi: the port's libmxtpu_runtime.so and the unchanged "
+          "cpp/ clients built in %.1f s | test_predict f32 resnet50_v1 "
+          "%s on the card: TOP1 %d = eager's, logits within "
+          "%g x max|ref| + 5e-7 | int8 artifact (%d quantized layers) at "
+          "%s: printed TOP1 and logits = the in-process Predictor's, the "
+          "whole output through the C calls bit-equal | test_api_train's "
+          "MLP on the card: loss %.6f -> %.6f | round trips (set input, "
+          "forward, get output; median of %d) f32 %.2f ms against the "
+          "eager forward from the host %.2f ms, int8 %.2f ms against the "
+          "Predictor %.2f ms | int8_conv launches in the workers %d (%s; "
+          "the in-process reference's %d apart) | the three clients' wall "
+          "%.1f s | %s"
+          % (build_s, x1.shape, top1, INTEROP_CAPI_REL, n_q,
+             tuple(meta["data_shape"]),
+             first, last, INTEROP_TRIPS, nums["f32_trip_ms"],
+             nums["f32_eager_ms"], nums["int8_trip_ms"],
+             nums["int8_predictor_ms"], nums["int8_conv_launches"],
+             ", ".join("%s %d over %d forwards" % (k, launched[k],
+                                                   forwards[k])
+                       for k in ("int8", "int8_c")), ref_launches,
+             clients_s, card),
+          flush=True)
+    return nums, nums["int8_conv_launches"]
+
+
+def interop_rtc(card):
+    """(d): a CudaModule kernel on card tensors against the function
+    called directly; CUDA source refused."""
+    def axpy(a, x, y):
+        return a * x + y
+
+    rng = np.random.RandomState(27)
+    a, x, y = (mx.nd.array(rng.randn(1 << 20).astype(np.float32),
+                           ctx=mx.gpu(0)) for _ in range(3))
+    k = mx.rtc.CudaModule(kernels={"axpy": axpy}).get_kernel("axpy")
+    got = k.launch([a, x, y], mx.gpu(0), (1, 1, 1), (256, 1, 1))
+    want = axpy(a._data, x._data, y._data)
+    check(got._data.is_cuda and torch.equal(got._data, want),
+          "rtc: the kernel's output differs from the function's")
+    try:
+        mx.rtc.CudaModule("extern \"C\" __global__ void k(float *x) {}")
+        refused = False
+    except mx.base.MXNetError:
+        refused = True
+    check(refused, "rtc: CUDA source was not refused")
+    print("interop rtc: CudaModule(kernels={'axpy': fn}) launched on 2^20 "
+          "card elements, bit-equal to the function called directly | CUDA "
+          "C source refused with MXNetError | %s" % card, flush=True)
+
+
+def phase_interop(card, art=None):
+    """Phase 23 (module doc): (a) Custom, (b) ONNX, (c) the C ABI, (d) rtc.
+    ``art`` is phase 9b's int8 artifact; alone, the phase makes its own
+    with quantize_model.  Returns the int8_conv launches of its path (the
+    workers')."""
+    t_phase = time.perf_counter()
+    before = dict(kernels.launch_counts)
+    prev_backend = mx.jit._BACKEND
+    mx.jit._BACKEND = INTEROP_BACKEND
+    root = tempfile.mkdtemp(prefix="interop_")
+    proc = None
+    try:
+        if art is None:
+            proc, art, t_cli = serve_quantize_start(root)
+        net = serve_net()
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, IMAGE, IMAGE), ctx=mx.gpu(0)))
+        prefix = os.path.join(root, "resnet50_v1")
+        net.export(prefix)
+        if proc is not None:
+            serve_quantize_finish(card, proc, art, t_cli)
+        t = {}
+        t0 = time.perf_counter()
+        custom = interop_custom(card, net)
+        t["custom"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        onnx_nums = interop_onnx(card, net, prefix)
+        t["onnx"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        capi, capi_launches = interop_capi(card, net, prefix, art, root)
+        t["capi"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        interop_rtc(card)
+        t["rtc"] = time.perf_counter() - t0
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+        mx.jit._BACKEND = prev_backend
+    launched = {n: c - before[n] for n, c in kernels.launch_counts.items()}
+    # in this process only the in-process int8 Predictor, the reference
+    # the C ABI is held against, launches a kernel
+    check(launched.pop("int8_conv") == capi["reference_int8_conv"]
+          and not any(launched.values()), "interop: this process launched "
+          "%s beside the reference's %d int8_conv"
+          % (launched, capi["reference_int8_conv"]))
+    line = {"custom": custom, "onnx": onnx_nums, "capi": capi,
+            "seconds": t, "phase_s": time.perf_counter() - t_phase,
+            "card": card}
+    print("interop " + json.dumps(line), flush=True)
+    return capi_launches
+
+
 def time_flash(shape, dtype, causal, card):
     q, k, v = flash_inputs(shape, dtype, 5)
     scale = shape[-1] ** -0.5
@@ -8044,7 +8778,10 @@ def main():
     del ring
     torch.cuda.empty_cache()
     lap("9")
-    serve_launches = phase_serve(card, lm)
+    art_root = tempfile.mkdtemp(prefix="interop_art_")
+    atexit.register(shutil.rmtree, art_root, True)
+    int8_art = os.path.join(art_root, "resnet50_int8")
+    serve_launches = phase_serve(card, lm, keep_art=int8_art)
     del lm
     torch.cuda.empty_cache()
     lap("9b")
@@ -8057,24 +8794,33 @@ def main():
     phase_data(card)
     torch.cuda.empty_cache()
     lap("12")
-    side, jobs, warm = SideChecks(), DistJobs(), WarmCompile()
+    side, jobs, warm = SideChecks("--side"), DistJobs(), WarmCompile()
+    interop = SideChecks("--interop", int8_art)
+    examples = SideChecks("--examples")
     try:
         # phase 13's squeezenet and export check (inductor's compiles,
-        # the least measurement) and phase 21d's fine-tuning run beside
+        # the least measurement), phase 23, and phase 14's bucketing with
+        # phase 21d's fine-tuning, each in a process of its own beside
         # phases 13-15
         side.start(card)
+        interop.start(card)
+        examples.start(card)
         sym_row = phase_symbolic(card, aside=True)
         torch.cuda.empty_cache()
         # phase 21c: a second process compiles phase 13's resnet from the
         # cache, beside phases 14-15
         warm.start(card, sym_row)
         lap("13")
-        phase_recurrent(card)
+        phase_recurrent(card, aside=True)
         torch.cuda.empty_cache()
         phase_fusion(card)
         torch.cuda.empty_cache()
         side.finish()
+        examples.finish()
         warm.finish()
+        capi_launches = int(re.search(r"^INTEROP_LAUNCHES (\d+)$",
+                                      interop.finish(), re.M).group(1))
+        shutil.rmtree(art_root, ignore_errors=True)
         lap("14-15")
         # phase 17's workers import during phase 16's small case
         det_rows = phase_detection(card, after_timed=jobs.start)
@@ -8084,6 +8830,8 @@ def main():
         lap("17")
     finally:
         side.stop()
+        interop.stop()
+        examples.stop()
         jobs.stop()
         warm.stop()
     rows = []
@@ -8139,6 +8887,9 @@ def main():
     det_rows[0]["det_launches"] = det_rows[0]["launches"]
     det_rows[0]["serve_launches"] = serve_launches
     det_rows[0]["launches"] += serve_launches
+    # phase 23's C ABI workers serve the same artifact on the same kernel
+    det_rows[0]["capi_launches"] = capi_launches
+    det_rows[0]["launches"] += capi_launches
     rows += det_rows
     phase_observe(card)
     lap("18-19")
@@ -8166,6 +8917,12 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--side"]:
         side_main(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--interop"]:
+        interop_main(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--examples"]:
+        examples_main(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--warm-compile"]:
         warm_main(sys.argv[2], sys.argv[3])

@@ -61,7 +61,11 @@ svrg_optimization, text), behind ``examples.fine_tune`` and
 (dense and sharded, digest-verified, async, preemption flush) behind
 ``ShardedTrainer.attach_checkpoint_manager`` and
 ``Module.fit(checkpoint_manager=)``, the fault-injection helpers of
-``testing.faults`` and the observability CLIs under ``tools``.
+``testing.faults`` and the observability CLIs under ``tools``; and
+custom operators (``operator``, ``mx.nd.Custom``, ``mx.sym.Custom``),
+``rtc``, the ONNX codec (``contrib.onnx``) and the workers behind the C
+ABI of ``cpp/`` (``predict_worker``, ``api_worker``; the library and its
+clients built by ``native.capi_library`` / ``capi_client``).
 """
 from .base import MXNetError  # noqa: F401
 from .context import (Context, cpu, gpu, cpu_pinned, current_context,  # noqa: F401
@@ -121,6 +125,8 @@ from . import telemetry  # noqa: F401  (MXNET_TELEMETRY enables at import)
 from . import tracing  # noqa: F401  (MXNET_TRACE / MXNET_FLIGHT_RECORDER)
 from . import events  # noqa: F401  (MXNET_EVENTS wide-event layer)
 from . import checkpoint  # noqa: F401
+from . import operator  # noqa: F401
+from . import rtc  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
 
 config.warn_unknown()

@@ -11,7 +11,9 @@ untraceable construct is for ``jax.jit``, and never a silent fall back
 to eager Python.  ``dynamic=False``: a new shape is a new key.
 
 The backend is inductor unless ``_BACKEND`` names another (the CPU tests
-set ``"aot_eager"``, which skips inductor's code generation).
+set ``"aot_eager"``, which skips inductor's code generation).  It is a
+test hook, not a setting: a process that a test starts (a C ABI worker)
+inherits it through ``MXTPU_TEST_JIT_BACKEND``.
 
 The first call of each key is the compile feed of the observability
 layer (the JAX package's jax.monitoring bridge): its wall time goes to
@@ -25,6 +27,7 @@ cache, ``config.enable_compile_cache``) to ``telemetry.note_compile_cache``
 """
 from __future__ import annotations
 
+import os
 import time
 import types
 
@@ -44,7 +47,7 @@ _CACHE_COUNTERS = (("inductor", "fxgraph_cache_hit"),
                    ("aot_autograd", "autograd_cache_bypass"))
 
 # the torch.compile backend; None is torch's default (inductor)
-_BACKEND = None
+_BACKEND = os.environ.get("MXTPU_TEST_JIT_BACKEND") or None
 
 
 def signature(tensors):

@@ -13,7 +13,19 @@ with the flags of ``cpp/Makefile`` (``$CXX`` or ``g++``, ``-O2 -fPIC
 command, so an edit rebuilds; compiled to a temporary file and renamed
 into place, so concurrent first uses never load a half-written file).
 It writes nothing under ``cpp/`` and never loads the JAX package's
-``cpp/libmxtpu_runtime.so``.  When the build or the load fails (no
+``cpp/libmxtpu_runtime.so``.
+
+``capi_library()`` builds the C ABI library with ``cpp/Makefile``'s
+flags: the port's own copies of ``mxtpu_predict.cc`` and ``mxtpu_api.cc``
+(``mxnet_tpu_torch/cpp/``, whose workers are
+``mxnet_tpu_torch.predict_worker`` / ``.api_worker``) against ``cpp/``'s
+unchanged headers, into ``_build/capi_<hash>/libmxtpu_runtime.so`` (the
+name the clients link).  ``cpp/mxtpu_runtime.cc`` stays in the library
+above: its JPEG decoder needs libjpeg, which a host may lack, and the C
+ABIs need none of it.  ``capi_client(name)`` links the unchanged clients
+``cpp/test_predict.c`` and ``cpp/test_api_train.c`` against it beside it
+(rpath ``$ORIGIN``).  A failed build raises with the compiler's stderr;
+nothing falls back.  When the build or the load fails (no
 compiler, no libjpeg), ``available()`` is False and consumers take the
 pure-Python path, as upstream's portable build does; ``load_error()``
 keeps the reason (the compiler's stderr), so the choice is never
@@ -24,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -32,10 +45,20 @@ import numpy as np
 
 __all__ = ["available", "load_error", "lib", "library_path",
            "recordio_index", "decode_batch", "pool_stats", "pool_clear",
-           "RecordReader"]
+           "RecordReader", "capi_dir", "capi_library", "capi_client"]
 
-_SOURCE = Path(__file__).resolve().parent.parent / "cpp" / "mxtpu_runtime.cc"
+_CPP = Path(__file__).resolve().parent.parent / "cpp"
+_SOURCE = _CPP / "mxtpu_runtime.cc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# the C ABI library (the ABIs' half of cpp/Makefile's libmxtpu_runtime.so)
+# and its clients
+_CAPI_SOURCES = (Path(__file__).resolve().parent / "cpp" / "mxtpu_predict.cc",
+                 Path(__file__).resolve().parent / "cpp" / "mxtpu_api.cc")
+_CAPI_LDFLAGS = ["-shared", "-lpthread"]
+_CAPI_HEADERS = (_CPP / "mxtpu_ipc.h", _CPP / "mxtpu_predict.h",
+                 _CPP / "mxtpu_api.h")
+_CLIENTS = {"test_predict": _CPP / "test_predict.c",
+            "test_api_train": _CPP / "test_api_train.c"}
 _CXXFLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall"]
 _LDFLAGS = ["-shared", "-ljpeg", "-lpthread"]
 
@@ -58,14 +81,12 @@ def library_path():
     return _BUILD_DIR / ("libmxtpu_runtime_%s.so" % digest)
 
 
-def _build():
-    """Path of the built library, compiling it if it is not there."""
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _run_build(cmd, out):
+    """Run ``cmd`` writing ``out`` (its argument after ``-o``) through a
+    temporary name, then rename it into place; raise with the compiler's
+    stderr when it fails."""
     tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
-    cmd = _command(os.environ.get("CXX", "g++"), tmp)
+    cmd = [str(tmp) if c == str(out) else c for c in cmd]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
@@ -78,6 +99,15 @@ def _build():
                               proc.stderr.strip()))
     os.replace(tmp, out)
     return out
+
+
+def _build():
+    """Path of the built library, compiling it if it is not there."""
+    out = library_path()
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return _run_build(_command(os.environ.get("CXX", "g++"), out), out)
 
 
 def _bind(lib):
@@ -220,3 +250,60 @@ def pool_stats():
 
 def pool_clear():
     lib().mxtpu_pool_clear()
+
+
+# ---------------------------------------------------------------------------
+# the C ABI library and its clients
+# ---------------------------------------------------------------------------
+
+
+def _capi_commands(out_dir):
+    cxx = os.environ.get("CXX", "g++")
+    cc = os.environ.get("CC") or shutil.which("cc") or "gcc"
+    lib = [cxx] + _CXXFLAGS + ["-I", str(_CPP)] + [
+        str(p) for p in _CAPI_SOURCES] + ["-o", str(out_dir /
+                                               "libmxtpu_runtime.so")] + \
+        _CAPI_LDFLAGS
+    clients = {name: [cc, "-O2", "-Wall", "-I", str(_CPP), str(src), "-o",
+                      str(out_dir / name), "-L", str(out_dir),
+                      "-lmxtpu_runtime", "-Wl,-rpath,$ORIGIN"]
+               for name, src in _CLIENTS.items()}
+    return lib, clients
+
+
+def capi_dir():
+    """The directory the C ABI library and its clients build into, named
+    by a hash of every source, header and command."""
+    h = hashlib.sha256()
+    for p in _CAPI_SOURCES + _CAPI_HEADERS + tuple(_CLIENTS.values()):
+        h.update(p.read_bytes())
+    lib, clients = _capi_commands(Path("."))
+    h.update(" ".join(lib + sum(clients.values(), [])).encode())
+    return _BUILD_DIR / ("capi_%s" % h.hexdigest()[:16])
+
+
+def capi_library():
+    """Path of the C ABI's ``libmxtpu_runtime.so``, built on first use
+    (module doc)."""
+    out_dir = capi_dir()
+    out = out_dir / "libmxtpu_runtime.so"
+    with _lock:
+        if not out.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            _run_build(_capi_commands(out_dir)[0], out)
+    return out
+
+
+def capi_client(name):
+    """Path of the C client ``name`` (``test_predict`` or
+    ``test_api_train``) linked against :func:`capi_library`."""
+    if name not in _CLIENTS:
+        raise ValueError("no C client %r (have %s)" % (name,
+                                                       sorted(_CLIENTS)))
+    capi_library()
+    out_dir = capi_dir()
+    out = out_dir / name
+    with _lock:
+        if not out.exists():
+            _run_build(_capi_commands(out_dir)[1][name], out)
+    return out

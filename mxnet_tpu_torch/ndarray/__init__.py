@@ -12,6 +12,7 @@ from ..ops import contrib_ops as _ops_contrib  # noqa: F401 (registers ops)
 from ..ops import ssd_ops as _ops_ssd  # noqa: F401 (registers ops)
 from ..ops import deformable as _ops_def  # noqa: F401 (registers ops)
 from ..ops import quantization as _ops_quant  # noqa: F401 (registers ops)
+from .. import operator as _operator  # noqa: F401 (registers Custom)
 from ..ops.registry import list_ops as _list_ops
 from ..ops.utils import scalar_or_array as _soa
 
@@ -29,7 +30,9 @@ sparse.nd_overrides(globals())
 maximum = _soa(NDArray, _invoke_nd, "broadcast_maximum", "_maximum_scalar")
 minimum = _soa(NDArray, _invoke_nd, "broadcast_minimum", "_minimum_scalar")
 hypot = _soa(NDArray, _invoke_nd, "broadcast_hypot", "_hypot_scalar")
-
+# Custom-op surface: orders kwarg inputs by the prop's declared argument
+# names (mx.operator)
+Custom = _operator.make_nd_custom()
 
 
 def __getattr__(name):

@@ -25,7 +25,10 @@ def _shape(shape):
 
 
 def _gen(device):
-    if torch.compiler.is_compiling():
+    # a compiled graph draws from torch's default generator; a meta
+    # tensor (a symbol's shape inference) draws nothing
+    if torch.compiler.is_compiling() or (
+            device is not None and torch.device(device).type == "meta"):
         return None
     return _random.generator(device)
 

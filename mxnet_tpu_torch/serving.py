@@ -136,6 +136,30 @@ def _commit(tree, device, cast, names=None):
     return one(None, tree)
 
 
+def symbol_function(sym, arg_params=None, aux_params=None, inputs=()):
+    """The inference binding of a symbolic model that
+    ``Predictor.from_symbol`` and the C predict ABI's worker share, so
+    that their outputs agree bit for bit: ``(run, params)``, ``params``
+    every parameter (the arguments but ``inputs``, then the aux states)
+    as a tensor by name, ``run(values, device)`` one forward of the graph
+    (``Symbol._build_fn``) on the named tensors ``values``, its list of
+    output tensors."""
+    from .ndarray.ndarray import NDArray
+
+    fn, _, _ = sym._build_fn()
+    params = {}
+    for src in (arg_params or {}), (aux_params or {}):
+        for n, a in src.items():
+            if n not in inputs:
+                params[n] = a._data if isinstance(a, NDArray) else a
+
+    def run(values, device):
+        outs, _aux = fn(values, is_train=False, device=device)
+        return outs
+
+    return run, params
+
+
 class Predictor:
     """Streaming predictor over ``forward(x, params) -> out`` on one
     device, ``x`` one batch (a tensor on the device).  ``predict`` yields
@@ -300,22 +324,15 @@ class Predictor:
         precision) and no ``dtype_policy``, the cast policy is pinned
         off, so an ambient ``MXNET_DTYPE_POLICY`` cannot re-cast a gated
         artifact's range scalars or its f32 layers."""
-        from .ndarray.ndarray import NDArray
-
         if aot_policy_tag is not None and dtype_policy is None:
             dtype_policy = "f32"
-        fn, _, _ = sym._build_fn()
-        params = {}
-        for src in (arg_params or {}), (aux_params or {}):
-            for n, a in src.items():
-                if n != data_name:
-                    params[n] = a._data if isinstance(a, NDArray) else a
+        run, params = symbol_function(sym, arg_params, aux_params,
+                                      inputs=(data_name,))
 
         def forward(x, params_):
             values = dict(params_)
             values[data_name] = x
-            outs, _aux = fn(values, is_train=False, device=x.device)
-            return outs[0]
+            return run(values, x.device)[0]
 
         return cls(forward, params, chain=chain, preprocess=preprocess,
                    postprocess=postprocess, batch_shape=batch_shape,

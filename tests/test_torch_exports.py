@@ -1,7 +1,7 @@
 """Faults 11 and 12 of the port: every name the JAX package exports in
-the top-level, ``contrib``, ``gluon``, ``gluon.utils`` and ``context``
-namespaces resolves after ``import mxnet_tpu_torch as mx``, except the
-deliberate exclusions below; and ``cpu_pinned``, ``num_gpus``,
+the top-level, ``contrib``, ``gluon``, ``gluon.utils``, ``context``,
+``operator``, ``rtc`` and ``contrib.onnx`` namespaces resolves after
+``import mxnet_tpu_torch as mx``, except the deliberate exclusions below; and ``cpu_pinned``, ``num_gpus``,
 ``default_context`` and ``device`` behave as the JAX package's on CPU.
 """
 import ast
@@ -20,16 +20,14 @@ EXCLUDED = {
         "tpu": "names a device this card is not",
         "num_tpus": "names a device this card is not",
         "MXTpuError": "the TPU spelling of MXNetError",
-        "operator": "Custom operators (ROADMAP item 9)",
-        "rtc": "runtime compilation (ROADMAP item 9)",
     },
-    "contrib": {"onnx": "the ONNX codec (ROADMAP item 9)"},
     "context": {
         "tpu": "names a device this card is not",
         "num_tpus": "names a device this card is not",
     },
 }
-NAMESPACES = ["", "contrib", "gluon", "gluon.utils", "context"]
+NAMESPACES = ["", "contrib", "gluon", "gluon.utils", "context", "operator",
+              "rtc", "contrib.onnx"]
 
 
 def _module(pkg, path):
